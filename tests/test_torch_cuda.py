@@ -1,0 +1,94 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips where ``torch.cuda.is_available()``
+is false. The file imports neither jax nor the JAX package, so it also runs on
+a machine without them; there, tests/conftest.py (which imports jax) is left out:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from yolo_master_tpu_torch.ops.cuda_nms import batched_greedy_nms, batched_greedy_nms_plain, greedy_nms
+from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_weight_layout
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    """The card; decided when a test runs, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (see README, PyTorch / H100 port)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _stem_weights(rng, c0, c1, device):
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    return (stem_weight_layout(t(rng.standard_normal((c0, 3, 3, 3)) * 0.2)), t(rng.standard_normal(c0)),
+            stem_weight_layout(t(rng.standard_normal((c1, c0, 3, 3)) * 0.2)), t(rng.standard_normal(c1)))
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 128), (1, 36, 44), (3, 640, 640)])
+def test_stem_kernel_matches_plain(dev, shape):
+    """uint8 and float input, ragged tiles included. Tolerance 1e-4 + 1e-4*|ref|:
+    fp32 sums in another order than cuDNN's."""
+    rng = np.random.default_rng(4)
+    w0, b0, w1, b1 = _stem_weights(rng, 16, 32, dev)
+    img = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(dev)
+    for x, w in ((img, stem_weight_layout(w0 / 255.0)), (img.float() / 255.0, w0)):
+        out = fused_stem(x, w, b0, w1, b1)
+        ref = fused_stem_plain(x, w, b0, w1, b1)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape
+        assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+
+
+def test_stem_kernel_counts_launches_and_rejects_bad_input(dev):
+    w = _stem_weights(np.random.default_rng(5), 8, 16, dev)
+    before = fused_stem.launches
+    fused_stem(torch.zeros(1, 32, 32, 3, dtype=torch.uint8, device=dev), *w)
+    assert fused_stem.launches == before + 1
+    with pytest.raises(ValueError):
+        fused_stem(torch.zeros(1, 30, 32, 3, dtype=torch.uint8, device=dev), *w)
+    with pytest.raises(TypeError):
+        fused_stem(torch.zeros(1, 32, 32, 3, dtype=torch.float16, device=dev), *w)
+    with pytest.raises(ValueError, match="layout"):  # OIHW-contiguous weights
+        fused_stem(torch.zeros(1, 32, 32, 3, dtype=torch.uint8, device=dev), w[0].contiguous(), *w[1:])
+    assert fused_stem.launches == before + 1
+
+
+def _candidates(b, n, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(b, n, 2, generator=g) * 600
+    wh = torch.rand(b, n, 2, generator=g) * 110 + 10
+    boxes = torch.cat([xy, xy + wh], -1)
+    scores = torch.rand(b, n, generator=g)
+    scores[:, 1::5] = scores[:, :1]  # exact ties
+    if b > 2:
+        scores[1] = 0.0  # all invalid
+        scores[2, 4:] = 0.0  # exhausts early
+    return boxes.to(device), scores.to(device)
+
+
+@pytest.mark.parametrize("b,n", [(16, 1024), (16, 2048), (3, 5000)])
+def test_nms_kernel_equals_plain(dev, b, n):
+    """Exact keep sets and slot contents, ties, early exit and an all-invalid row included."""
+    boxes, scores = _candidates(b, n, dev)
+    ki, kv = batched_greedy_nms(boxes, scores, 0.45, 300)
+    ki_p, kv_p = batched_greedy_nms_plain(boxes, scores, 0.45, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, ki_p) and torch.equal(kv, kv_p)
+    assert not bool(kv[1].any()) and int(kv[2].sum()) <= 4
+    k1, v1 = greedy_nms(boxes[0], scores[0], 0.45, 300)
+    assert torch.equal(k1, ki_p[0]) and torch.equal(v1, kv_p[0])
+
+
+def test_nms_kernel_rejects_too_many_candidates(dev):
+    boxes, scores = _candidates(1, 20000, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        batched_greedy_nms(boxes, scores, 0.45, 300)

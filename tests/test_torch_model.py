@@ -1,0 +1,272 @@
+"""The port's modules and yolo-master-n (yolo_master_tpu_torch/nn) against the
+JAX package on the same weights and inputs, on the CPU in fp32.
+
+Weights come from the JAX package's init and reach the port through
+utils/weights.py:state_dict_from_jax. For the whole model, BatchNorm statistics
+are then calibrated on the input (utils/weights.py:calibrate_bn) and carried
+back to the JAX tree with import_state_dict: at the default init the
+activations vanish with depth and the output would not depend on the input.
+Single modules get random BN statistics instead. Inputs are made with numpy
+from a seed.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from yolo_master_tpu.nn import heads as jheads
+from yolo_master_tpu.nn import layers as jlayers
+from yolo_master_tpu.nn.module import Context
+from yolo_master_tpu.nn.moe import ES_MOE as JaxESMOE
+from yolo_master_tpu.nn.tasks import DetectionModel as JaxDetectionModel
+from yolo_master_tpu.utils.torch_import import import_state_dict
+from yolo_master_tpu_torch.nn import heads as theads
+from yolo_master_tpu_torch.nn import layers as tlayers
+from yolo_master_tpu_torch.nn.moe import ES_MOE
+from yolo_master_tpu_torch.nn.tasks import DetectionModel, parse_model
+from yolo_master_tpu_torch.utils.fuse import fold_uint8_input, fuse_bn, fused_stem_fuse
+from yolo_master_tpu_torch.utils.weights import calibrate_bn, state_dict_from_jax
+
+CTX = Context(training=False)
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _perturb_bn(tree, rng):
+    """Random eval statistics for every BatchNorm leaf group (in place)."""
+    if isinstance(tree, dict):
+        if {"scale", "bias", "mean", "var"} <= set(tree):
+            c = np.asarray(tree["scale"]).shape
+            tree["scale"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+            tree["bias"] = rng.normal(0, 0.05, c).astype(np.float32)
+            tree["mean"] = rng.normal(0, 0.05, c).astype(np.float32)
+            tree["var"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+        else:
+            for v in tree.values():
+                _perturb_bn(v, rng)
+    return tree
+
+
+def _np_tree(p):
+    return jax.tree_util.tree_map(np.asarray, p)
+
+
+def _load_module(port_module, jax_params):
+    """Load one JAX module's params into the matching port module (strict)."""
+    sd = state_dict_from_jax({"layers": {"0": jax_params}})
+    port_module.load_state_dict({k[len("model.0."):]: v for k, v in sd.items()}, strict=True)
+    return port_module.eval()
+
+
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """The JAX model and the port on the same weights, in two settings:
+    "default" (the JAX init as it is) and "calibrated" (BN statistics
+    calibrated on the input in the port, then carried back to the JAX tree)."""
+    jm = JaxDetectionModel("yolo-master-n")
+    # init_params(0) under jit: the same values as eager, and a fraction of the
+    # cold compile time on the CPU (one graph, not hundreds of small ones)
+    init = _np_tree(jax.jit(jm.init)(jax.random.PRNGKey(0)))
+    forward = jax.jit(jm.forward_predict)
+    x = np.random.default_rng(1).random((2, 64, 64, 3)).astype(np.float32)
+    x_u8 = (x * 255).astype(np.uint8)
+    xs = jnp.asarray(np.concatenate([x, x_u8 / np.float32(255)]))
+    out = {}
+    for setting in ("default", "calibrated"):
+        port = DetectionModel("yolo-master-n")
+        port.load_state_dict(state_dict_from_jax(init), strict=True)
+        if setting == "calibrated":
+            calibrate_bn(port, torch.from_numpy(x))
+        port.eval()
+        params = import_state_dict(init, port.state_dict(), strict=True)
+        out[setting] = (port, np.asarray(forward(params, xs)))
+    return init, x, x_u8, out
+
+
+def test_weight_round_trip_through_torch_import(pair):
+    init = pair[0]
+    back = import_state_dict(init, pair[3]["default"][0].state_dict(), strict=True)
+    leaves, back_leaves = jax.tree_util.tree_leaves(init), jax.tree_util.tree_leaves(back)
+    assert len(leaves) == len(back_leaves)
+    for a, b in zip(leaves, back_leaves):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_stride_probe_gives_8_16_32(pair):
+    port = pair[3]["default"][0]
+    assert port.head.strides == (8, 16, 32) and port.stride == 32
+
+
+def _fp32_noise(port, x):
+    """The port's own fp32 rounding noise: |fp32 - fp64| on the same input."""
+    with torch.no_grad():
+        o64 = copy.deepcopy(port).double().forward_predict(torch.from_numpy(x).double()).numpy()
+        o32 = port.forward_predict(torch.from_numpy(x)).numpy()
+    return np.abs(o32 - o64)
+
+
+def test_forward_predict_matches_jax(pair):
+    """JAX init as it is: boxes within 2e-3 px and scores within 1e-5
+    (tests/test_parity_torch.py's gate)."""
+    _, x, _, out = pair
+    port, ref = out["default"]
+    with torch.no_grad():
+        y = port.forward_predict(torch.from_numpy(x)).numpy()
+    assert y.shape == (2, 84, 84)
+    assert np.abs(y[..., :4] - ref[:2, :, :4]).max() < 2e-3
+    assert np.abs(y[..., 4:] - ref[:2, :, 4:]).max() < 1e-5
+
+
+def test_forward_predict_matches_jax_calibrated_bn(pair):
+    """Calibrated BN: unit-scale activations through the depth, an
+    image-dependent output, and fp32 rounding noise that grows through it
+    (~1e-2 px here, for either package, against fp64). The port must agree
+    with JAX within 4x its own fp32-vs-fp64 error, element by element class:
+    a wrong layer would be off by far more."""
+    _, x, _, out = pair
+    port, ref = out["calibrated"]
+    assert np.abs(ref[0] - ref[1]).max() > 1.0  # the output depends on the image
+    with torch.no_grad():
+        y = port.forward_predict(torch.from_numpy(x)).numpy()
+    noise = _fp32_noise(port, x)
+    for sl, floor, sane in ((np.s_[..., :4], 2e-3, 0.1), (np.s_[..., 4:], 1e-5, 1e-2)):
+        assert noise[sl].max() < sane  # the fp32 path itself stays close to fp64
+        assert np.abs(y[sl] - ref[:2][sl]).max() <= max(4 * noise[sl].max(), floor)
+
+
+@pytest.mark.parametrize("setting", ["default", "calibrated"])
+@pytest.mark.parametrize("surgery", ["fused_stem", "fold_uint8"])
+def test_fused_uint8_model_matches_jax_unfused(pair, surgery, setting):
+    """BN folded and /255 folded into layer 0 (as the fused stem kernel's plain
+    version, or as plain conv weights), fed raw uint8, against the unfused JAX
+    model on the float image: within 1e-3 at the JAX init; at calibrated BN
+    within 4x the port's own fp32 noise (as above)."""
+    _, x, x_u8, out = pair
+    port, ref = out[setting]
+    fused = copy.deepcopy(port)
+    fuse_bn(fused)
+    if surgery == "fused_stem":
+        fused_stem_fuse(fused)
+        assert isinstance(fused.model[0], tlayers.FusedStem)
+    else:
+        fold_uint8_input(fused)
+    assert fused.uint8_input
+    assert not any(isinstance(m, tlayers.Conv) and not isinstance(m.bn, torch.nn.Identity) for m in fused.modules())
+    with torch.no_grad():
+        y = fused.forward_predict(torch.from_numpy(x_u8)).numpy()
+    tol = 1e-3 if setting == "default" else max(4 * _fp32_noise(port, x_u8.astype(np.float32) / 255).max(), 1e-3)
+    assert np.abs(y - ref[2:]).max() < tol
+
+
+def test_fused_stem_fuse_requires_bn_fold():
+    with pytest.raises(ValueError, match="fuse_bn"):
+        fused_stem_fuse(DetectionModel("yolo-master-n"))
+
+
+def _module_cases():
+    rng = np.random.default_rng(2)
+
+    def conv():
+        return jlayers.Conv(16, 32, 3, 2), tlayers.Conv(16, 32, 3, 2), [(2, 16, 16, 16)]
+
+    def c3k2():
+        return (jlayers.C3k2(32, 64, n=1, c3k=True, e=0.5), tlayers.C3k2(32, 64, n=1, c3k=True, e=0.5),
+                [(2, 8, 12, 32)])
+
+    def a2c2f():
+        return (jlayers.A2C2f(64, 64, n=1, a2=True, area=4), tlayers.A2C2f(64, 64, n=1, a2=True, area=4),
+                [(2, 8, 8, 64)])
+
+    def es_moe():
+        return JaxESMOE(32, 32), ES_MOE(32, 32), [(2, 10, 10, 32)]
+
+    def detect():
+        ch = (16, 32, 64)
+        j = jheads.Detect(nc=80, reg_max=16, ch=ch)
+        j.set_strides((8, 16, 32))
+        t = theads.Detect(nc=80, reg_max=16, ch=ch)
+        t.set_strides((8, 16, 32))
+        return j, t, [(2, 8, 8, 16), (2, 4, 4, 32), (2, 2, 2, 64)]
+
+    return rng, {"Conv": conv, "C3k2": c3k2, "A2C2f": a2c2f, "ES_MOE": es_moe, "Detect": detect}
+
+
+@pytest.mark.parametrize("name", ["Conv", "C3k2", "A2C2f", "ES_MOE", "Detect"])
+def test_module_matches_jax(name):
+    """Each module on its own, fp32: 1e-5 on activations and scores, 2e-3 px on boxes."""
+    rng, cases = _module_cases()
+    jm, tm, shapes = cases[name]()
+    jm = jm.finalize("m")
+    p = _perturb_bn(_np_tree(jm.init(jax.random.PRNGKey(3))), rng)
+    tm = _load_module(tm, p)
+    xs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    xt = [torch.from_numpy(x).permute(0, 3, 1, 2) for x in xs]
+    with torch.no_grad():
+        if name == "Detect":
+            ref = np.asarray(jm.decode(jm(p, [jnp.asarray(x) for x in xs], CTX)))
+            out = tm.decode(tm(xt)).numpy()
+            assert np.abs(out[..., :4] - ref[..., :4]).max() < 2e-3
+            assert np.abs(out[..., 4:] - ref[..., 4:]).max() < 1e-5
+            return
+        ref = np.asarray(jm(p, jnp.asarray(xs[0]), CTX))
+        out = _nhwc(tm(xt[0]))
+    assert out.shape == ref.shape
+    assert np.abs(out - ref).max() < 1e-5
+
+
+def test_decode_topk_matches_jax_with_tied_anchors():
+    """Letterbox padding gives runs of identical anchors: tied class logits
+    must select in the JAX order (lower anchor index first)."""
+    rng = np.random.default_rng(4)
+    hw = ((8, 8), (4, 4), (2, 2))
+    a, nc = sum(h * w for h, w in hw), 5
+    boxes = rng.standard_normal((2, a, 64)).astype(np.float32)
+    scores = rng.standard_normal((2, a, nc)).astype(np.float32)
+    scores[:, 10:40] = scores[:, 10:11]  # 30 tied anchors
+    scores[1, :] = 0.25  # every anchor tied
+    j = jheads.Detect(nc=nc, reg_max=16, ch=(16, 16, 16))
+    j.set_strides((8, 16, 32))
+    t = theads.Detect(nc=nc, reg_max=16, ch=(16, 16, 16))
+    t.set_strides((8, 16, 32))
+    ref = np.asarray(j.decode_topk({"one2many": {"boxes": jnp.asarray(boxes), "scores": jnp.asarray(scores)},
+                                    "hw_shapes": hw}, k=24))
+    out = t.decode_topk({"boxes": torch.from_numpy(boxes), "scores": torch.from_numpy(scores), "hw_shapes": hw},
+                        k=24).numpy()
+    np.testing.assert_allclose(out, ref, atol=2e-4, rtol=0)
+
+
+def test_unported_module_names_its_roadmap_item():
+    cfg = {"nc": 80, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "SPPF", [16, 5]]],
+           "head": [[[-1], 1, "Detect", ["nc"]]]}
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        parse_model(cfg)
+
+
+@pytest.mark.parametrize("name", ["yolo-master-seg-n", "yolo-master-cls-n", "yolo-master-world-n",
+                                  "yolo-master-dymoe-n", "yolo-master-v0_1-n", "yolo-master-v0_10-n",
+                                  "rtdetr-master-hgnet-l", "yolo26-master-n"])
+def test_other_model_yamls_name_their_roadmap_item(name):
+    """Every shared graph YAML beyond yolo-master.yaml is read and then refused
+    at its first unported module or option, naming the ROADMAP item."""
+    with pytest.raises((KeyError, NotImplementedError), match="ROADMAP.md"):
+        DetectionModel(name)
+
+
+def test_sparse_es_moe_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ES_MOE(32, 32, top_k=2)

@@ -1,0 +1,82 @@
+"""The port's facade, YOLO(...).fuse().predict(), against the JAX package's
+YOLO(...).predict() on the same weights and image; and the port's import
+boundary (no jax)."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from yolo_master_tpu.models.yolo import YOLO as JaxYOLO
+from yolo_master_tpu_torch import YOLO
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def facades():
+    jy = JaxYOLO("yolo-master-n")
+    port = YOLO("yolo-master-n", device="cpu").load_jax_params(jax.tree_util.tree_map(np.asarray, jy.params))
+    return jy, port
+
+
+@pytest.mark.parametrize("conf", [1e-4, 1e-5])
+def test_fused_predict_matches_jax_facade(facades, conf):
+    """Same detections within 0.1 px (the JAX package's facade gate,
+    tests/test_pallas_stem.py), on an 80x70 image that letterbox resizes."""
+    jy, port = facades
+    img = (np.random.default_rng(2).random((80, 70, 3)) * 255).astype(np.uint8)
+    ref = jy.predict(img, imgsz=64, conf=conf, max_det=20)[0]
+    fused = YOLO("yolo-master-n", device="cpu")
+    fused.load_state_dict(port.model.state_dict()).fuse()
+    out = fused.predict(img, imgsz=64, conf=conf, max_det=20)[0]
+    assert len(out.boxes) == len(ref.boxes) > 0
+    np.testing.assert_allclose(out.boxes.xyxy, ref.boxes.xyxy, atol=0.1, rtol=0)
+    np.testing.assert_allclose(out.boxes.conf, ref.boxes.conf, atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(out.boxes.cls, ref.boxes.cls)
+    assert out.orig_shape == (80, 70) and out.names[0] == "person"
+
+
+def test_unfused_predict_batch_and_class_filter(facades):
+    """A batch of two (float /255 input, no stem kernel) with a class filter:
+    the mask path decodes every anchor and must agree with the JAX facade."""
+    jy, port = facades
+    rng = np.random.default_rng(3)
+    imgs = [(rng.random((64, 48, 3)) * 255).astype(np.uint8) for _ in range(2)]
+    kw = dict(imgsz=64, conf=1e-5, max_det=10, classes=[0, 2, 5], batch=2)
+    ref = jy.predict(imgs, **kw)
+    out = port.predict(imgs, **kw)
+    assert len(out) == 2
+    for o, r in zip(out, ref):
+        assert len(o.boxes) == len(r.boxes)
+        assert set(np.unique(o.boxes.cls)) <= {0.0, 2.0, 5.0}
+        np.testing.assert_allclose(o.boxes.xyxy, r.boxes.xyxy, atol=0.1, rtol=0)
+
+
+def test_device_is_required():
+    with pytest.raises(TypeError):
+        YOLO("yolo-master-n")
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, yolo_master_tpu_torch, yolo_master_tpu_torch.ops.stem, yolo_master_tpu_torch.ops.cuda_nms; "
+            "bad = [m for m in ('jax', 'yolo_master_tpu.utils', 'yolo_master_tpu.cfg') if m in sys.modules]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr

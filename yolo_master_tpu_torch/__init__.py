@@ -1,0 +1,14 @@
+"""yolo_master_tpu_torch: the YOLO-Master detector in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of ``yolo_master_tpu`` (JAX/Pallas), module by module, held against it
+on the same weights and inputs. This package imports ``torch`` and never
+``jax``; the host-side letterbox and Results are shared with the JAX package.
+The CUDA kernels in ``csrc/`` are built with ``nvcc`` at first use on a CUDA
+tensor; a CPU tensor takes each kernel's plain PyTorch version.
+"""
+
+from .models.yolo import YOLO
+from .nn.tasks import DetectionModel
+
+__all__ = ["YOLO", "DetectionModel"]

@@ -1,0 +1,125 @@
+"""Batched detection inference (counterpart of ``yolo_master_tpu/engine/predictor.py``).
+
+Host: letterbox (``yolo_master_tpu.data.letterbox``, shared with the JAX
+package) -> BGR->RGB -> uint8 NHWC for a model whose layer 0 takes uint8
+(``YOLO.fuse()``), else float /255. Device: forward -> ``Detect.decode_topk``
+-> batched NMS, with no host round trip between them. Host: boxes back to the
+original image -> ``yolo_master_tpu.engine.results.Results``.
+
+PyTorch runs eagerly, so there is no per-batch-size compile and no padding of
+ragged batches to a power of two.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from yolo_master_tpu.data.letterbox import letterbox
+from yolo_master_tpu.engine.results import Results
+
+from ..ops.nms import non_max_suppression
+
+
+def load_image(path: str) -> np.ndarray:
+    """BGR HWC uint8 from an image file (needs OpenCV)."""
+    import cv2
+
+    im = cv2.imread(str(path))
+    if im is None:
+        raise FileNotFoundError(f"image not found or unreadable: {path}")
+    return im
+
+
+def expand_source(source) -> List[tuple]:
+    """A source -> [(path, BGR image)]: an HWC uint8 array, a file path, or a list of them."""
+    if isinstance(source, (list, tuple)):
+        return [item for s in source for item in expand_source(s)]
+    if isinstance(source, np.ndarray):
+        return [("array", source)]
+    return [(str(Path(source)), load_image(source))]
+
+
+class DetectionPredictor:
+    def __init__(self, model, names: Optional[Dict[int, str]] = None, imgsz=640, conf: float = 0.25,
+                 iou: float = 0.45, max_det: int = 300, max_nms: int = 2048, agnostic_nms: bool = False,
+                 classes: Optional[Sequence[int]] = None, batch: int = 1):
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.names = names or {i: str(i) for i in range(model.nc)}
+        self.imgsz = imgsz if isinstance(imgsz, (tuple, list)) else (imgsz, imgsz)
+        self.conf, self.iou = conf, iou
+        self.max_det, self.max_nms = max_det, max_nms
+        self.agnostic = agnostic_nms
+        self.batch = batch
+        self.class_mask = None
+        if classes is not None:
+            m = torch.zeros(model.nc, dtype=torch.float32)
+            m[list(classes)] = 1.0
+            self.class_mask = m.to(self.device)
+
+    # -- device graph --------------------------------------------------------
+    @torch.inference_mode()
+    def run(self, x: torch.Tensor) -> dict:
+        """NHWC batch on the model's device -> fixed-shape detections (device tensors)."""
+        preds = self.model(x)
+        head = self.model.head
+        if self.class_mask is None:
+            # top-k-first: choosing anchors on the max class logit commutes with
+            # the sigmoid, and single-label NMS only reads the top max_nms
+            decoded = head.decode_topk(preds, k=self.max_nms)
+        else:  # a class mask changes each anchor's ranking score
+            decoded = head.decode(preds, raw_scores=True)
+        return non_max_suppression(decoded, nc=self.model.nc, conf_thres=self.conf, iou_thres=self.iou,
+                                   max_det=self.max_det, max_nms=self.max_nms, agnostic=self.agnostic,
+                                   class_mask=self.class_mask, scores_are_logits=True)
+
+    # -- host pipeline ---------------------------------------------------------
+    def preprocess(self, images: List[np.ndarray]):
+        """Letterbox + BGR->RGB, stacked NHWC: uint8 when the model folds /255 into
+        layer 0, else float32 /255. Returns (batch tensor on device, metadata)."""
+        u8 = getattr(self.model, "uint8_input", False)
+        processed, meta = [], []
+        for im in images:
+            lb, ratio, pad = letterbox(im, self.imgsz)
+            rgb = np.ascontiguousarray(lb[..., ::-1])
+            processed.append(rgb if u8 else rgb.astype(np.float32) / 255.0)
+            meta.append((im.shape[:2], ratio, pad))
+        x = torch.from_numpy(np.stack(processed))
+        return x.to(self.device, non_blocking=True), meta
+
+    def __call__(self, source) -> List[Results]:
+        items = expand_source(source)
+        results = []
+        for s in range(0, len(items), self.batch):
+            results.extend(self._run_batch(items[s: s + self.batch]))
+        return results
+
+    def _run_batch(self, items) -> List[Results]:
+        t0 = time.perf_counter()
+        images = [im for _, im in items]
+        x, meta = self.preprocess(images)
+        t1 = time.perf_counter()
+        det = {k: v.cpu().numpy() for k, v in self.run(x).items()}
+        t2 = time.perf_counter()
+        results = [self._build_result(items[i][0], images[i], meta[i], {k: v[i] for k, v in det.items()})
+                   for i in range(len(items))]
+        t3 = time.perf_counter()
+        bs = len(items)
+        for r in results:
+            r.speed = {"preprocess": (t1 - t0) / bs * 1e3, "inference": (t2 - t1) / bs * 1e3,
+                       "postprocess": (t3 - t2) / bs * 1e3}
+        return results
+
+    def _build_result(self, path, orig_img, meta, det) -> Results:
+        orig_shape, ratio, pad = meta
+        n = int(det["valid"].sum())  # greedy keeps are a prefix of the slots
+        boxes = det["boxes"][:n].copy()
+        boxes[:, [0, 2]] = ((boxes[:, [0, 2]] - pad[0]) / ratio[0]).clip(0, orig_shape[1])
+        boxes[:, [1, 3]] = ((boxes[:, [1, 3]] - pad[1]) / ratio[1]).clip(0, orig_shape[0])
+        data = np.concatenate([boxes, det["scores"][:n, None], det["classes"][:n, None]], -1)
+        return Results(orig_img, path=path, names=self.names, boxes=data)

@@ -1,0 +1,277 @@
+"""Core blocks of the YOLO-Master backbone and neck, as ``torch.nn`` modules.
+
+Counterpart of ``yolo_master_tpu/nn/layers.py`` for the modules of the
+yolo-master-n detection graph. Activations are NCHW tensors in
+``torch.channels_last`` memory (the JAX package's NHWC, viewed as NCHW);
+conv weights are OIHW. Module and parameter names follow the ultralytics
+state_dict (``cv1.conv.weight``, ``cv1.bn.running_mean``, ``m.0.cv2...``), so
+``yolo_master_tpu/utils/torch_import.py:import_state_dict`` maps them onto the
+JAX parameter tree one to one.
+
+BatchNorm uses eps 1e-3 and momentum 0.03, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.03
+
+
+def autopad(k, p=None, d: int = 1):
+    """'same' padding for odd kernels; ``k`` is an int or a tuple."""
+    if isinstance(k, (tuple, list)):
+        return tuple(autopad(kk, p, d) for kk in k)
+    if d > 1:
+        k = d * (k - 1) + 1
+    return k // 2 if p is None else p
+
+
+class Conv(nn.Module):
+    """conv2d (no bias) + BatchNorm + SiLU; after :meth:`fuse`, conv2d with bias + SiLU."""
+
+    def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = nn.SiLU() if act is True else nn.Identity()
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
+
+    @torch.no_grad()
+    def fuse(self):
+        """Fold the BatchNorm into the conv (the deploy form)."""
+        if isinstance(self.bn, nn.Identity):
+            return
+        w, b = fold_bn(self.conv.weight, None, self.bn)
+        conv = self.conv
+        fused = nn.Conv2d(conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, conv.padding,
+                          groups=conv.groups, dilation=conv.dilation, bias=True,
+                          device=w.device, dtype=w.dtype)
+        fused.weight.copy_(w)
+        fused.bias.copy_(b)
+        self.conv = fused
+        self.bn = nn.Identity()
+
+
+def fold_bn(weight: torch.Tensor, bias, bn: nn.BatchNorm2d):
+    """(w, b) of a conv followed by eval-mode BN, as one conv (``utils/fuse.py:fuse_bn_params``)."""
+    inv = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+    w = weight * inv[:, None, None, None]
+    b = (bias if bias is not None else 0.0) * inv + bn.bias - bn.running_mean * inv
+    return w, b
+
+
+class DWConv(Conv):
+    """Depthwise conv: groups = gcd(c1, c2)."""
+
+    def __init__(self, c1, c2, k=1, s=1, d=1, act=True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), d=d, act=act)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, c1, c2, shortcut=True, g=1, k=(3, 3), e=0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k[0], 1)
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, bottleneck_k=((1, 1), (3, 3))):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.m = nn.Sequential(*[Bottleneck(c_, c_, shortcut, g, k=bottleneck_k, e=1.0) for _ in range(n)])
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C3k(C3):
+    """C3 with square k x k bottleneck kernels."""
+
+    def __init__(self, c1, c2, n=1, shortcut=True, g=1, e=0.5, k=3):
+        super().__init__(c1, c2, n, shortcut, g, e, bottleneck_k=((k, k), (k, k)))
+
+
+class C2f(nn.Module):
+    """CSP bottleneck with 2 convs, every inner output concatenated."""
+
+    def __init__(self, c1, c2, n=1, shortcut=False, g=1, e=0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(self.c, self.c, shortcut, g, k=((3, 3), (3, 3)), e=1.0) for _ in range(n))
+
+    def forward(self, x):
+        ys = list(self.cv1(x).split((self.c, self.c), 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class C3k2(C2f):
+    """C2f whose inner blocks are C3k (``c3k``) or Bottleneck."""
+
+    def __init__(self, c1, c2, n=1, c3k=False, e=0.5, attn=False, g=1, shortcut=True):
+        if attn:
+            raise NotImplementedError("C3k2(attn=True) needs PSABlock, not ported yet "
+                                      "(ROADMAP.md §1.F item 15, every YAML in cfg/models)")
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.m = nn.ModuleList(
+            C3k(self.c, self.c, 2, shortcut, g) if c3k else Bottleneck(self.c, self.c, shortcut, g) for _ in range(n))
+
+
+class AAttn(nn.Module):
+    """Area attention: softmax attention within ``area`` horizontal bands of the
+    map, plus a 7x7 depthwise positional conv on V.
+
+    Tokens are the row-major pixels; the area split reshapes them to
+    ``[B*area, N/area, ...]`` (H*W must divide by ``area``). Logits are plain
+    matmuls and the softmax reduces in fp32, as the JAX package does.
+    """
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.area = area
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        ahd = self.head_dim * num_heads
+        self.qkv = Conv(dim, ahd * 3, 1, act=False)
+        self.proj = Conv(ahd, dim, 1, act=False)
+        self.pe = Conv(ahd, ahd, 7, 1, 3, g=ahd, act=False)
+
+    def forward(self, x):
+        B, _, H, W = x.shape
+        N = H * W
+        nh, hd = self.num_heads, self.head_dim
+        ahd = nh * hd
+        qkv = self.qkv(x).flatten(2).transpose(1, 2)  # [B, N, 3*ahd], row-major tokens
+        bq, nq = B * self.area, N // self.area
+        q, k, v = qkv.reshape(bq, nq, nh, 3, hd).unbind(3)  # [bq, nq, nh, hd] each
+        attn = torch.einsum("bnhd,bmhd->bhnm", q * (hd ** -0.5), k)
+        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
+        o = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+
+        def to_map(t):  # [bq, nq, nh, hd] -> [B, ahd, H, W] channels_last
+            return t.reshape(B, H, W, ahd).permute(0, 3, 1, 2)
+
+        return self.proj(to_map(o) + self.pe(to_map(v)))
+
+
+class ABlock(nn.Module):
+    """x + attn(x), then x + mlp(x)."""
+
+    def __init__(self, dim, num_heads, mlp_ratio=1.2, area=1):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads=num_heads, area=area)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = nn.Sequential(Conv(dim, hidden, 1), Conv(hidden, dim, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """Area-attention C2f."""
+
+    def __init__(self, c1, c2, n=1, a2=True, area=1, residual=False, mlp_ratio=2.0, e=0.5, g=1, shortcut=True):
+        super().__init__()
+        c_ = int(c2 * e)
+        if c_ % 32:
+            raise ValueError("A2C2f hidden dim must be a multiple of 32")
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv((1 + n) * c_, c2, 1)
+        self.gamma = nn.Parameter(0.01 * torch.ones(c2)) if a2 and residual else None
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, c_ // 32, mlp_ratio, area) for _ in range(2))) if a2
+            else C3k(c_, c_, 2, shortcut, g)
+            for _ in range(n))
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        y = self.cv2(torch.cat(ys, 1))
+        if self.gamma is not None:
+            return x + self.gamma.view(1, -1, 1, 1) * y
+        return y
+
+
+class Concat(nn.Module):
+    """Concatenate a list of maps along channels."""
+
+    def __init__(self, dim=1):
+        super().__init__()
+        self.d = dim
+
+    def forward(self, xs):
+        return torch.cat(xs, self.d)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour upsampling by an integer factor."""
+
+    def __init__(self, size=None, scale=2, mode="nearest"):
+        super().__init__()
+        if mode != "nearest":
+            raise ValueError(f"Upsample mode {mode!r} not supported (only 'nearest')")
+        self.scale = int(scale)
+
+    def forward(self, x):
+        return F.interpolate(x, scale_factor=self.scale, mode="nearest")
+
+
+class FusedStem(nn.Module):
+    """The two leading k3/s2 Convs as one kernel (``ops/stem.py``), over the
+    letterboxed NHWC image (uint8 with the /255 folded into ``w0``, or float).
+
+    Counterpart of ``yolo_master_tpu/nn/layers.py:PallasStem``; built by
+    ``utils/fuse.py:fused_stem_fuse`` from BN-folded convs. The OIHW weights
+    are stored once in the kernel's HWIO memory order, as ``[9*c_in, c_out]``
+    matrices: a 2-D parameter is left alone by the model's channels_last
+    conversion, and :meth:`weights` views it as OIHW without a copy.
+    """
+
+    def __init__(self, w0, b0, w1, b1):
+        from ..ops.stem import stem_weight_layout
+
+        super().__init__()
+        self.w0 = nn.Parameter(stem_weight_layout(w0).permute(2, 3, 1, 0).flatten(0, 2), requires_grad=False)
+        self.w1 = nn.Parameter(stem_weight_layout(w1).permute(2, 3, 1, 0).flatten(0, 2), requires_grad=False)
+        self.b0, self.b1 = nn.Parameter(b0, requires_grad=False), nn.Parameter(b1, requires_grad=False)
+
+    def weights(self):
+        """(w0, b0, w1, b1) as :func:`~..ops.stem.fused_stem` takes them: OIHW views of HWIO memory."""
+        oihw = lambda w: w.unflatten(0, (3, 3, -1)).permute(3, 2, 0, 1)  # noqa: E731
+        return oihw(self.w0), self.b0, oihw(self.w1), self.b1
+
+    def forward(self, x_nhwc):
+        from ..ops.stem import fused_stem
+
+        return fused_stem(x_nhwc.contiguous(), *self.weights()).permute(0, 3, 1, 2)
+
+
+class Passthrough(nn.Module):
+    """Identity for a graph node absorbed by a fused kernel."""
+
+    def forward(self, x):
+        return x

@@ -1,0 +1,200 @@
+"""Model assembly: YAML graph -> ``nn.ModuleList`` -> detection model.
+
+Counterpart of ``yolo_master_tpu/nn/tasks.py`` (``parse_model``,
+``DetectionModel``) with the same scaling rules, over the same YAML files.
+The registry holds the modules of the yolo-master-n graph; any other module
+name raises ``KeyError`` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..utils import find_model_yaml, guess_scale, make_divisible, yaml_load
+from .heads import Detect
+from .layers import A2C2f, ABlock, Bottleneck, C2f, C3, C3k, C3k2, Concat, Conv, DWConv, FusedStem, Upsample
+from .moe import ES_MOE
+
+MODULE_REGISTRY = {
+    "Conv": Conv,
+    "DWConv": DWConv,
+    "Bottleneck": Bottleneck,
+    "C2f": C2f,
+    "C3": C3,
+    "C3k": C3k,
+    "C3k2": C3k2,
+    "A2C2f": A2C2f,
+    "Concat": Concat,
+    "Upsample": Upsample,
+    "nn.Upsample": Upsample,
+    "Detect": Detect,
+    "ES_MOE": ES_MOE,
+}
+REPEAT_MODULES = {C2f, C3, C3k, C3k2, A2C2f}
+SCALED_MODULES = {Conv, DWConv, Bottleneck, C2f, C3, C3k, C3k2, A2C2f, ES_MOE}  # c2 scales with the width
+_LITERALS = {"None": None, "True": True, "False": False, "none": None, "true": True, "false": False}
+
+
+def _roadmap_item(name: str) -> str:
+    if name.endswith("Detect") or name in {"Segment", "Pose", "OBB", "Classify", "SemanticSegment"}:
+        return "§1.E item 13 (task heads) / §1.F item 15 (every YAML)"
+    if "MoE" in name or "MOE" in name or name.startswith(("Dy", "C2fMo", "MoA", "MoT", "Latent")):
+        return "§1.D items 9-12 (v0_10 family, MoE dispatch) / §1.F item 14 (mixture modules)"
+    if name in {"HGStem", "HGBlock", "AIFI", "RepC3", "RTDETRDecoder"}:
+        return "§1.I item 21 (other model families)"
+    return "§1.F item 15 (every YAML in cfg/models)"
+
+
+def parse_model(cfg: dict, ch: int = 3, scale: Optional[str] = None) -> Tuple[nn.ModuleList, List[int]]:
+    """Build the layer list and the sorted save-list from a model dict.
+
+    Each layer carries ``i`` (its index) and ``f`` (its input index or list).
+    """
+    nc = cfg.get("nc", 80)
+    scales = cfg.get("scales")
+    reg_max = cfg.get("reg_max", 16)
+    if cfg.get("end2end", False):
+        raise NotImplementedError("end2end (NMS-free) heads are not ported yet (ROADMAP.md §1.F item 15)")
+    depth, width, max_channels = cfg.get("depth_multiple", 1.0), cfg.get("width_multiple", 1.0), float("inf")
+    if scales:
+        scale = scale or next(iter(scales))
+        depth, width, max_channels = scales[scale]
+
+    legacy = True
+    channels = [ch]
+    layers, save = [], []
+    for i, (f, n, mname, args) in enumerate(list(cfg["backbone"]) + list(cfg["head"])):
+        if mname not in MODULE_REGISTRY:
+            raise KeyError(f"module '{mname}' is not ported to yolo_master_tpu_torch yet: "
+                           f"ROADMAP.md {_roadmap_item(mname)}")
+        m = MODULE_REGISTRY[mname]
+        args = [_LITERALS.get(a, a) if isinstance(a, str) else a for a in args]
+        args = [nc if a == "nc" else a for a in args]
+        n = max(round(n * depth), 1) if n > 1 else n
+        kwargs = {}
+        if m in SCALED_MODULES:
+            c1, c2 = channels[f], args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            args = [c1, c2, *args[1:]]
+            if m in REPEAT_MODULES:
+                args.insert(2, n)
+                n = 1
+            if m is C3k2:
+                legacy = False
+                if scale and scale in "mlx":
+                    args[3] = True
+            if m is A2C2f:
+                legacy = False
+                if scale and scale in "lx":
+                    args.extend((True, 1.2))
+        elif m is Concat:
+            c2 = sum(channels[x] for x in f)
+            args = []
+        elif m is Detect:
+            args = [*args, reg_max, False, [channels[x] for x in f]]
+            kwargs = {"legacy": legacy}
+            c2 = None
+        elif m is Upsample:
+            c2 = channels[f]
+            args = [None, args[1] if len(args) > 1 else 2]
+        else:
+            c2 = channels[f]
+        mod = nn.Sequential(*(m(*args) for _ in range(n))) if n > 1 else m(*args, **kwargs)
+        mod.i, mod.f = i, f
+        layers.append(mod)
+        save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
+        if i == 0:
+            channels = []
+        channels.append(c2)
+    return nn.ModuleList(layers), sorted(set(save))
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every weight from ``generator``, as PyTorch's and the JAX package's
+    defaults do: convs U(+-1/sqrt(fan_in)) for weight and bias, BN identity,
+    area-attention blocks' conv weights trunc_normal(0.02)."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Conv2d):
+                fan_in = mod.weight[0].numel()
+                bound = 1.0 / fan_in ** 0.5
+                mod.weight.uniform_(-bound, bound, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+        for mod in model.modules():
+            if isinstance(mod, ABlock):
+                for conv in mod.modules():
+                    if isinstance(conv, nn.Conv2d):
+                        nn.init.trunc_normal_(conv.weight, std=0.02, a=-0.04, b=0.04, generator=generator)
+
+
+class DetectionModel(nn.Module):
+    """YOLO detection model built from a graph YAML.
+
+    :meth:`forward` takes an NHWC image batch, float (0..1) or uint8 (0..255
+    with /255 folded into the first layer by ``utils/fuse.py``), and returns
+    the head's dict; :meth:`forward_predict` returns decoded [B, A, 4+nc].
+    """
+
+    def __init__(self, cfg="yolo-master-n", ch: int = 3, nc: Optional[int] = None, scale: Optional[str] = None,
+                 seed: int = 0):
+        super().__init__()
+        if not isinstance(cfg, dict):
+            yaml_file = find_model_yaml(str(cfg))
+            scale = scale or guess_scale(str(cfg))
+            cfg = yaml_load(yaml_file)
+        self.yaml = dict(cfg)
+        if nc and nc != self.yaml.get("nc"):
+            self.yaml["nc"] = nc
+        self.nc = self.yaml.get("nc", 80)
+        self.uint8_input = False  # set by utils/fuse.py when /255 is folded into layer 0
+        self.model, self.save = parse_model(self.yaml, ch, scale=scale)
+        if not isinstance(self.head, Detect):
+            raise ValueError("a detection model must end with Detect")
+        init_weights(self, torch.Generator().manual_seed(seed))
+        self.head.set_strides(self._probe_strides())
+        self.head.bias_init()
+        self.stride = max(self.head.strides)
+
+    @property
+    def head(self) -> Detect:
+        return self.model[-1]
+
+    @torch.no_grad()
+    def _probe_strides(self, size: int = 256) -> Tuple[int, ...]:
+        """Run a zero image through the graph; stride = input size / map size."""
+        was_training = self.training
+        self.eval()
+        feats = self._forward_graph(torch.zeros(1, size, size, 3), stop_before_head=True)
+        self.train(was_training)
+        return tuple(size // f.shape[-2] for f in feats)
+
+    def _forward_graph(self, x_nhwc: torch.Tensor, stop_before_head: bool = False):
+        if isinstance(self.model[0], FusedStem):
+            x = x_nhwc
+        else:
+            x = x_nhwc if x_nhwc.is_floating_point() else x_nhwc.float()
+            x = x.permute(0, 3, 1, 2)  # channels_last NCHW view
+        saved = {}
+        for m in self.model:
+            if m.f != -1:  # a negative index other than -1 counts back from this layer
+                x = saved[m.f % m.i] if isinstance(m.f, int) else [x if j == -1 else saved[j % m.i] for j in m.f]
+            if stop_before_head and m is self.head:
+                return x
+            x = m(x)
+            if m.i in self.save:
+                saved[m.i] = x
+        return x
+
+    def forward(self, x_nhwc: torch.Tensor) -> dict:
+        return self._forward_graph(x_nhwc)
+
+    def forward_predict(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        """Decoded [B, A, 4+nc]: xywh boxes in input pixels and sigmoid scores."""
+        return self.head.decode(self.forward(x_nhwc))

@@ -1,0 +1,111 @@
+"""Exact batched greedy NMS over fixed-size candidate sets.
+
+Counterpart of ``yolo_master_tpu/ops/pallas_nms.py``: ``pallas_batched_greedy_nms``
+becomes :func:`batched_greedy_nms` (CUDA kernel ``csrc/nms.cu``, one block per
+image), and the single-image ``pallas_greedy_nms`` becomes :func:`greedy_nms`,
+the same kernel at B=1. :func:`batched_greedy_nms_plain` is the plain PyTorch
+version (the ``lax.scan`` loop of ``ops/nms.py:_greedy_nms``, batched).
+
+Keep sets are exact: the same picks, in the same order, as the JAX package,
+ties included (the lowest index wins, as ``jnp.argmax``). Slots after an image
+is exhausted hold index 0 and ``valid=False``, as the TPU kernel zero-fills.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ._build import SMEM_LIMIT_BYTES, check, load_library, stream_ptr
+
+
+def batched_greedy_nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float, max_det: int):
+    """boxes [B, N, 4] xyxy (class offset applied), scores [B, N] (invalid <= 0)
+    -> keep_idx [B, max_det] int32, keep_valid [B, max_det] bool."""
+    b, n = scores.shape
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    areas = (x2 - x1).clamp_min(0.0) * (y2 - y1).clamp_min(0.0)
+    alive = scores.float().clone()
+    keep_idx = torch.zeros((b, max_det), dtype=torch.int32, device=scores.device)
+    keep_valid = torch.zeros((b, max_det), dtype=torch.bool, device=scores.device)
+    rows = torch.arange(b, device=scores.device)
+    lane = torch.arange(n, device=scores.device)[None]
+    for i in range(max_det):
+        idx = alive.argmax(1)  # first maximal index, as jnp.argmax
+        valid = alive[rows, idx] > 0.0
+        if not bool(valid.any()):
+            break  # scores only ever drop to 0, so every later step is invalid too
+        sel = lambda t: t[rows, idx][:, None]  # noqa: E731
+        bx1, by1, bx2, by2, barea = sel(x1), sel(y1), sel(x2), sel(y2), sel(areas)
+        iw = (torch.minimum(x2, bx2) - torch.maximum(x1, bx1)).clamp_min(0.0)
+        ih = (torch.minimum(y2, by2) - torch.maximum(y1, by1)).clamp_min(0.0)
+        inter = iw * ih
+        iou = inter / (areas + barea - inter + 1e-7)
+        suppress = (iou > iou_thres) | (lane == idx[:, None])
+        alive = torch.where(valid[:, None] & suppress, 0.0, alive)
+        keep_idx[:, i] = torch.where(valid, idx, 0).to(torch.int32)
+        keep_valid[:, i] = valid
+    return keep_idx, keep_valid
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load_library("nms", ("-fmad=false",))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ymt_batched_greedy_nms.argtypes = [ptr] * 4 + [i32] * 3 + [ctypes.c_float, ptr]
+    lib.ymt_batched_greedy_nms.restype = i32
+    lib.nms_max_candidates.argtypes = [i32]
+    lib.nms_max_candidates.restype = i32
+    return lib
+
+
+@functools.cache
+def _max_candidates() -> int:
+    """The largest N whose candidates fit one block's shared memory."""
+    return _lib().nms_max_candidates(SMEM_LIMIT_BYTES)
+
+
+def batched_greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float, max_det: int):
+    """Exact greedy NMS per image: boxes [B, N, 4] float32 xyxy, scores [B, N]
+    float32 -> keep_idx [B, max_det] int32, keep_valid [B, max_det] bool.
+
+    A CPU tensor takes :func:`batched_greedy_nms_plain`; a CUDA tensor launches the kernel.
+    """
+    if scores.device.type == "cpu":
+        return batched_greedy_nms_plain(boxes, scores, iou_thres, max_det)
+    if scores.device.type != "cuda":
+        raise ValueError(f"batched_greedy_nms: unsupported device {scores.device}")
+    if scores.dim() != 2 or tuple(boxes.shape) != (*scores.shape, 4):
+        raise ValueError(f"batched_greedy_nms: need boxes [B,N,4] and scores [B,N], "
+                         f"got {tuple(boxes.shape)} and {tuple(scores.shape)}")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"batched_greedy_nms: float32 inputs required, got {boxes.dtype}, {scores.dtype}")
+    if boxes.device != scores.device:
+        raise ValueError("batched_greedy_nms: boxes and scores on different devices")
+    if not (boxes.is_contiguous() and scores.is_contiguous()):
+        raise ValueError("batched_greedy_nms: boxes and scores must be contiguous")
+    b, n = scores.shape
+    if n > _max_candidates():
+        raise ValueError(f"batched_greedy_nms: {n} candidates exceed one block's shared memory "
+                         f"(max {_max_candidates()})")
+    keep_idx = torch.empty((b, max_det), dtype=torch.int32, device=scores.device)
+    keep_valid = torch.empty((b, max_det), dtype=torch.bool, device=scores.device)
+    if b == 0 or max_det == 0:
+        return keep_idx.zero_(), keep_valid.zero_()
+    check(_lib().ymt_batched_greedy_nms(boxes.data_ptr(), scores.data_ptr(), keep_idx.data_ptr(),
+                                        keep_valid.data_ptr(), b, n, max_det, float(iou_thres),
+                                        stream_ptr(scores.device)), "nms kernel")
+    batched_greedy_nms.launches += 1
+    return keep_idx, keep_valid
+
+
+batched_greedy_nms.launches = 0
+
+
+def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float, max_det: int):
+    """Single image: boxes [N, 4], scores [N] -> keep_idx [max_det], keep_valid [max_det]."""
+    keep_idx, keep_valid = batched_greedy_nms(boxes[None].contiguous(), scores[None].contiguous(),
+                                              iou_thres, max_det)
+    return keep_idx[0], keep_valid[0]

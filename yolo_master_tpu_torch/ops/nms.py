@@ -1,0 +1,92 @@
+"""Fixed-shape batched NMS (counterpart of ``yolo_master_tpu/ops/nms.py``).
+
+Same recast as the JAX package: select the top ``max_nms`` candidates per
+image (scores below ``conf_thres`` become 0), then run exact greedy NMS for
+``max_det`` steps with the class-offset trick. Outputs are fixed-shape, with a
+validity mask. The greedy loop is :func:`.cuda_nms.batched_greedy_nms`: the
+CUDA kernel for a CUDA tensor, its plain PyTorch version for a CPU tensor.
+
+Top-k selection uses a stable descending sort, so tied scores keep the lower
+index first, as ``jax.lax.top_k`` does (``torch.topk`` promises no tie order).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .boxes import xywh2xyxy
+from .cuda_nms import batched_greedy_nms
+
+MAX_WH = 7680.0  # class-offset magnitude
+
+
+def stable_topk(x: torch.Tensor, k: int):
+    """Top-k along the last axis; ties keep the lower index first."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def _gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t [B, N, C], idx [B, K] -> [B, K, C]."""
+    return t.gather(1, idx[..., None].expand(-1, -1, t.shape[-1]))
+
+
+def _prep_candidates(pred: torch.Tensor, nc: int, conf_thres: float, max_nms: int, multi_label: bool,
+                     class_mask: Optional[torch.Tensor], scores_are_logits: bool):
+    """pred [B, A, 4+nc+extra] xywh -> top-``max_nms`` candidates per image:
+    boxes [B, k, 4] xyxy, scores [B, k] fp32 (0 below conf), classes [B, k] fp32, extra [B, k, E]."""
+    a = pred.shape[1]
+    boxes = xywh2xyxy(pred[..., :4])
+    cls_scores = pred[..., 4: 4 + nc]
+    if class_mask is not None:
+        if scores_are_logits:
+            # a zeroed logit would sigmoid to 0.5; excluded classes are -inf in logit space
+            cls_scores = torch.where(class_mask[None, None] > 0, cls_scores, torch.full_like(cls_scores, -1e9))
+        else:
+            cls_scores = cls_scores * class_mask[None, None]
+    if multi_label and nc > 1:
+        flat = cls_scores.reshape(pred.shape[0], -1)
+        k = min(max_nms, flat.shape[1])
+        scores, flat_idx = stable_topk(flat, k)
+        anchor_idx = flat_idx // nc
+        cls_idx = (flat_idx % nc).float()
+    else:
+        k = min(max_nms, a)
+        scores, anchor_idx = stable_topk(cls_scores.max(-1).values, k)
+        cls_idx = _gather_rows(cls_scores, anchor_idx).argmax(-1).float()
+    cboxes = _gather_rows(boxes, anchor_idx)
+    cextra = _gather_rows(pred[..., 4 + nc:], anchor_idx)
+    if scores_are_logits:
+        scores = torch.sigmoid(scores.float())
+    scores = torch.where(scores > conf_thres, scores, 0.0).float()
+    return cboxes, scores, cls_idx, cextra
+
+
+def non_max_suppression(prediction: torch.Tensor, nc: int, conf_thres: float = 0.25, iou_thres: float = 0.45,
+                        max_det: int = 300, max_nms: int = 30000, agnostic: bool = False,
+                        multi_label: bool = False, class_mask: Optional[torch.Tensor] = None,
+                        scores_are_logits: bool = False) -> dict:
+    """Batched fixed-shape NMS.
+
+    prediction [B, A, 4+nc+extra]: xywh boxes in input pixels, then class
+    scores (probabilities, or logits with ``scores_are_logits``), then extra
+    columns. Returns boxes [B, max_det, 4] xyxy, scores [B, max_det],
+    classes [B, max_det] (-1 where invalid), valid [B, max_det] bool,
+    extra [B, max_det, extra].
+    """
+    cboxes, scores, cls_idx, cextra = _prep_candidates(
+        prediction, nc, conf_thres, max_nms, multi_label, class_mask, scores_are_logits)
+    offset = 0.0 if agnostic else cls_idx[..., None] * MAX_WH
+    keep_idx, keep_valid = batched_greedy_nms((cboxes + offset).float().contiguous(), scores.contiguous(),
+                                              iou_thres, max_det)
+    keep = keep_idx.long()
+    vf = keep_valid.to(cboxes.dtype)
+    return {
+        "boxes": _gather_rows(cboxes, keep) * vf[..., None],
+        "scores": scores.gather(1, keep) * keep_valid,
+        "classes": torch.where(keep_valid, cls_idx.gather(1, keep), -1.0),
+        "valid": keep_valid,
+        "extra": _gather_rows(cextra, keep) * vf[..., None] if cextra.shape[-1] else cextra[:, :max_det],
+    }

@@ -1,0 +1,57 @@
+"""Deploy-time surgery on a :class:`~..nn.tasks.DetectionModel` (counterpart of
+``yolo_master_tpu/utils/fuse.py``).
+
+Where the JAX package rewrites a parameter tree, the port rewrites modules in
+place: BN folds into the preceding conv, the /255 input scale folds into layer
+0, and the two stem convs become one :class:`~..nn.layers.FusedStem` over the
+letterboxed uint8 image. The TPU's space-to-depth blob and lane padding have
+no counterpart: the CUDA stem reads the NHWC image directly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..nn.layers import Conv, FusedStem, Passthrough
+from ..nn.moe.experts import DepthwiseSeparableConv
+
+
+def fuse_bn(model) -> None:
+    """Fold every Conv+BN and every expert's pointwise+BN pair (``fuse_bn_params``).
+
+    Standalone BatchNorms (the ES_MOE output ``norm.0``) stay as they are.
+    """
+    for m in model.modules():
+        if isinstance(m, (Conv, DepthwiseSeparableConv)):
+            m.fuse()
+
+
+def _is_stem_conv(m) -> bool:
+    c = getattr(m, "conv", None)
+    return (type(m) is Conv and c.kernel_size == (3, 3) and c.stride == (2, 2) and c.groups == 1
+            and c.dilation == (1, 1) and c.padding == (1, 1))
+
+
+@torch.no_grad()
+def fold_uint8_input(model) -> None:
+    """Scale layer 0's conv weights by 1/255 so the model takes raw uint8 pixels."""
+    conv = model.model[0].conv
+    conv.weight.div_(255.0)
+    model.uint8_input = True
+
+
+@torch.no_grad()
+def fused_stem_fuse(model) -> None:
+    """Replace layers 0 and 1 (two k3/s2 Convs, BN folded) by one :class:`FusedStem`
+    over the uint8 image (``pallas_stem_fuse``): the /255 folds into ``w0``."""
+    l0, l1 = model.model[0], model.model[1]
+    if not (_is_stem_conv(l0) and _is_stem_conv(l1)):
+        raise ValueError("fused_stem_fuse needs two leading k3/s2 dense Convs")
+    if l0.conv.bias is None or l1.conv.bias is None:
+        raise ValueError("run fuse_bn first (the stem kernel consumes conv biases)")
+    stem = FusedStem(l0.conv.weight / 255.0, l0.conv.bias.clone(), l1.conv.weight, l1.conv.bias.clone())
+    skip = Passthrough()
+    for new, old in ((stem, l0), (skip, l1)):
+        new.i, new.f = old.i, old.f
+    model.model[0], model.model[1] = stem, skip
+    model.uint8_input = True

@@ -1,0 +1,87 @@
+"""Carry weights from the JAX package to the port.
+
+:func:`state_dict_from_jax` is the inverse of
+``yolo_master_tpu/utils/torch_import.py`` (``_torch_key`` and ``convert``)
+for the modules of the yolo-master-n graph: it maps the JAX parameter tree's
+paths to ultralytics state_dict keys and HWIO conv kernels to OIHW.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+_LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias", "mean": "running_mean",
+         "var": "running_var"}
+_BN_LEAVES = {"scale", "bias", "mean", "var"}
+
+
+def _torch_key(path: List[str]) -> List[str]:
+    """Our module path -> torch module path (the ``_torch_key`` subset of the slice)."""
+    parts: List[str] = []
+    for i, seg in enumerate(path):
+        if seg == "layers" and i == 0:
+            parts.append("model")
+        elif seg == "norm_bn":
+            parts.extend(["norm", "0"])
+        elif seg in ("fc1", "fc2") and parts and parts[-1] == "routing":
+            parts.extend(["routing_network", "0" if seg == "fc1" else "2"])
+        else:
+            parts.append(seg)
+    return parts
+
+
+def _to_torch_layout(v: np.ndarray) -> np.ndarray:
+    if v.ndim == 4:  # HWIO -> OIHW
+        return v.transpose(3, 2, 0, 1)
+    if v.ndim == 2:  # router matrix [in, out] -> 1x1 conv [out, in, 1, 1]
+        return v.T[:, :, None, None]
+    return v
+
+
+def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree (numpy leaves, unfused) -> the port's state_dict.
+
+    BatchNorms also get ``num_batches_tracked = 0`` so that
+    ``load_state_dict(strict=True)`` accepts the result.
+    """
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if not isinstance(node, dict):
+            key = ".".join(_torch_key(path[:-1]) + [_LEAF.get(path[-1], path[-1])])
+            arr = np.array(_to_torch_layout(np.asarray(node, np.float32)), order="C")
+            sd[key] = torch.from_numpy(arr)
+            return
+        if _BN_LEAVES <= set(node):
+            sd[".".join(_torch_key(path) + ["num_batches_tracked"])] = torch.tensor(0)
+        for k, v in node.items():
+            walk(v, path + [k])
+
+    walk(params, [])
+    return sd
+
+
+@torch.no_grad()
+def calibrate_bn(model, x_nhwc: torch.Tensor) -> None:
+    """Set every BatchNorm's running statistics to those of one batch.
+
+    At PyTorch's default init, activations shrink about threefold per conv, so
+    by the neck of yolo-master-n they are ~0 and the detections no longer
+    depend on the image. One train-mode pass with momentum 1 makes each BN
+    normalise its layer to unit scale on ``x_nhwc``: random weights then give
+    image-dependent outputs, and BN folding has real statistics to fold.
+    For tests and smoke runs on random weights; trained weights need none of it.
+    """
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [bn.momentum for bn in bns]
+    was_training = model.training
+    for bn in bns:
+        bn.momentum = 1.0
+    model.train()
+    model(x_nhwc)
+    model.train(was_training)
+    for bn, m in zip(bns, momenta):
+        bn.momentum = m
