@@ -2,22 +2,36 @@
 
     python3 chip_smoke.py
 
-Drives yolo_master_tpu_torch's main path, YOLO("yolo-master-n", device="cuda")
-.fuse().predict(...), at 640x640 with seeded random weights, after building
-both hand-written CUDA kernels (csrc/stem.cu, csrc/nms.cu) from the checkout
-and holding each against its plain PyTorch version on the card. Phases:
+Builds the port's four hand-written CUDA kernels from the checkout
+(csrc/stem.cu, csrc/nms.cu, csrc/esmoe.cu, csrc/cw_nms.cu, one nvcc each, in
+parallel), holds each against its plain PyTorch version on the card, and
+drives yolo_master_tpu_torch's three paths at yolo-master-n's full width with
+seeded random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
-  2. build both kernels
+  2. build the four kernels
   3. stem kernel vs F.conv2d x2 (uint8 640x640 input)
   4. NMS kernel vs the plain greedy loop (exact keep sets, ties included)
-  5. the main path at batch 1 and 16: launch counts, max_det detections per
-     image, GPU vs CPU decode, kernel vs plain NMS on the GPU's candidates,
-     end-to-end device time per image
+  5. ES_MOE kernel vs its plain version at the four placements' shapes, B=1
+     and 16, beside the unfused ES_MOE.forward it replaces
+  6. CW-NMS kernel vs its plain loop (equal seeds, scores and validity)
+  7. the predict path, YOLO("yolo-master-n").fuse().predict(...), at batch 1
+     and 16: launch counts, max_det detections per image, GPU vs CPU decode,
+     kernel vs plain NMS on the GPU's candidates, device time per image
+  8. the same with fused_esmoe_fuse: 4 ES_MOE launches per forward, decode
+     against the unswapped model, device time per image beside it
+  9. SparseSAHIPredictor on a 2160x3840 frame: tiles skipped, the CW-NMS
+     kernel's merge equal to its plain version on the same candidates
+ 10. device time by kernel of the predict path with and without
+     fused_esmoe_fuse at batch 16 (torch.profiler)
+ 11. no module of jax or of the JAX package was imported
 
-fp32 throughout: TF32 is off for convs and matmuls. Any failing check raises
-and the script exits non-zero. The second-to-last stdout line is a JSON
-object of per-kernel results; the last is {"ok": true, "device": {...}}.
+Each path's launch counts are set to 0 just before it runs and read just
+after. fp32 throughout: TF32 is off for convs and matmuls. Any failing check
+raises and the script exits non-zero. The second-to-last stdout line is a
+JSON object of per-kernel results (bound_ms: the larger of the bytes moved
+over 3.35 TB/s and the operations over 67 TFLOP/s, the H100 SXM's fp32
+CUDA-core peak); the last is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -30,9 +44,15 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 IMGSZ = 640  # letterbox size of the main path
 FRAME_HW = (480, 640)  # synthetic frames: letterboxed to IMGSZ by padding alone
+SAHI_HW = (2160, 3840)  # a 4K frame for the sparse SAHI path
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+# the four dense ES_MOE placements of yolo-master-n at 640: (layer, H=W, C=O)
+ESMOE_PLACEMENTS = ((3, 160, 64), (6, 80, 128), (9, 40, 128), (12, 20, 256))
 
 
 def log(msg: str) -> None:
@@ -68,6 +88,30 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the least time for moving ``nbytes`` once and doing ``flops`` fp32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def reset_launches():
+    from yolo_master_tpu_torch.ops import cuda_nms, esmoe, stem
+
+    for fn in (stem.fused_stem, cuda_nms.batched_greedy_nms, esmoe.fused_esmoe, cuda_nms.batched_cw_nms):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from yolo_master_tpu_torch.ops import cuda_nms, esmoe, stem
+
+    return {"stem": stem.fused_stem.launches, "nms": cuda_nms.batched_greedy_nms.launches,
+            "esmoe": esmoe.fused_esmoe.launches, "cw_nms": cuda_nms.batched_cw_nms.launches}
+
+
 def phase_environment():
     import torch
 
@@ -87,14 +131,20 @@ def phase_environment():
 
 
 def phase_build():
-    from yolo_master_tpu_torch.ops import cuda_nms, stem
+    """One nvcc per kernel source, all started together."""
+    from yolo_master_tpu_torch.ops import cuda_nms, esmoe, stem
+
+    def timed(lib):
+        t0 = time.perf_counter()
+        lib()
+        return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    stem._lib()
-    t1 = time.perf_counter()
-    cuda_nms._lib()
-    t2 = time.perf_counter()
-    log(f"[build] stem.cu {t1 - t0:.1f} s, nms.cu {t2 - t1:.1f} s")
+    libs = {"stem.cu": stem._lib, "nms.cu": cuda_nms._lib, "esmoe.cu": esmoe._lib, "cw_nms.cu": cuda_nms._cw_lib}
+    with ThreadPoolExecutor(len(libs)) as ex:
+        secs = {name: ex.submit(timed, lib) for name, lib in libs.items()}
+        secs = {name: f.result() for name, f in secs.items()}
+    log(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; wall {time.perf_counter() - t0:.1f} s")
 
 
 def phase_stem(dev):
@@ -119,9 +169,14 @@ def phase_stem(dev):
         require(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()), f"stem kernel disagrees: max abs err {err.max().item()}")
         ms = cuda_ms(lambda: fused_stem(x, w0, b0, w1, b1))
         plain_ms = cuda_ms(lambda: fused_stem_plain(x, w0, b0, w1, b1))
+        # 2 flops per multiply-add; bias + SiLU (5 operations) per output of each conv
+        n0, n1 = b * 320 * 320 * 16, b * 160 * 160 * 32
+        flops = n0 * (2 * 27 + 5) + n1 * (2 * 9 * 16 + 5)
+        bound_ms, bound_by = bound(nbytes(x, w0, b0, w1, b1, out), flops)
         log(f"[stem] B={b} 640x640 u8 -> [{b},160,160,32]: max abs err {err.max().item():.3e}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        result[b] = (err.max().item(), ms, plain_ms)
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        result[b] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
     return result
 
 
@@ -160,11 +215,119 @@ def phase_nms(dev):
         k1, v1 = greedy_nms(boxes[0], scores[0], 0.45, 300)
         require(torch.equal(k1, ki_p[0]) and torch.equal(v1, kv_p[0]), "NMS B=1 entry point differs")
         ms = cuda_ms(lambda: batched_greedy_nms(boxes, scores, 0.45, 300))
-        plain_ms = cuda_ms(lambda: batched_greedy_nms_plain(boxes, scores, 0.45, 300), reps=5, warmup=1)
+        plain_ms = cuda_ms(lambda: batched_greedy_nms_plain(boxes, scores, 0.45, 300), reps=3, warmup=1)
         idx_err = (ki.long() - ki_p.long()).abs().max().item()
+        # steps this data takes (the picks, then the step that finds none), each over all N
+        # candidates: IoU 13 operations, the threshold test and the argmax compare
+        steps = (kv.sum(1) + (kv.sum(1) < 300).long()).sum().item()
+        bound_ms, bound_by = bound(nbytes(boxes, scores, ki, kv), steps * n * 15)
         log(f"[nms] B={b} N={n} max_det=300: keep sets equal ({int(kv.sum())} kept), "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        result[(b, n)] = (idx_err, ms, plain_ms)
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        result[(b, n)] = dict(max_abs_err=idx_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
+def esmoe_block(c: int, dev, seed: int = 0):
+    """A dense ES_MOE block (E=3, k=3/5/7) with seeded weights and BN statistics
+    (as tests/test_pallas_esmoe.py seeds them), eval mode, channels_last."""
+    import torch
+
+    from yolo_master_tpu_torch.nn.moe import ES_MOE
+
+    g = torch.Generator().manual_seed(seed)
+    block = ES_MOE(c, c)
+    with torch.no_grad():
+        for bn in (m for m in block.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+            bn.running_mean.copy_(torch.randn(bn.num_features, generator=g) * 0.2)
+            bn.running_var.copy_(torch.rand(bn.num_features, generator=g) * 1.5 + 0.5)
+        for conv in (m for m in block.modules() if isinstance(m, torch.nn.Conv2d)):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) / conv.weight[0].numel() ** 0.5)
+    return block.eval().to(dev, memory_format=torch.channels_last)
+
+
+def esmoe_flops(b: int, h: int, w: int, c: int, o: int, ks) -> float:
+    """2 flops per multiply-add (each expert's own k*k taps, then its pointwise
+    product); per (pixel, expert, output) bias + SiLU + mix, 6 operations; per
+    (pixel, output) the norm and SiLU, 6."""
+    px = b * h * w
+    return 2 * px * (c * sum(k * k for k in ks) + len(ks) * c * o) + px * o * (6 * len(ks) + 6)
+
+
+def phase_esmoe(dev):
+    """Kernel vs plain at the four placements' shapes, B=1 and 16, beside the
+    unfused ES_MOE.forward (routing included) that the kernel replaces."""
+    import torch
+
+    from yolo_master_tpu_torch.ops.esmoe import fused_esmoe, fused_esmoe_plain, pack_esmoe_params
+
+    result = {}
+    for b in (1, 16):
+        for layer, hw, c in ESMOE_PLACEMENTS:
+            block = esmoe_block(c, dev, seed=layer)
+            g = torch.Generator().manual_seed(layer)
+            x = torch.randn(b, c, hw, hw, generator=g).to(dev).contiguous(memory_format=torch.channels_last)
+            xh = x.permute(0, 2, 3, 1)  # NHWC view of the channels_last map, as FusedESMOE passes it
+            with torch.no_grad():
+                w, _ = block.routing(x)
+                banks = pack_esmoe_params(block)
+                out = fused_esmoe(xh, w, *banks)
+                ref = fused_esmoe_plain(xh, w, *banks)
+                unfused = block(x).permute(0, 2, 3, 1)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            require(out.shape == (b, hw, hw, c) and bool(torch.isfinite(out).all()), "esmoe output shape/finite")
+            require(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()), f"esmoe kernel disagrees: max abs err {err.max().item()}")
+            module_err = (out - unfused).abs().max().item()
+            require(module_err <= 1e-3, f"esmoe kernel vs the unfused block: {module_err}")
+            with torch.no_grad():
+                ms = cuda_ms(lambda: fused_esmoe(xh, w, *banks))
+                plain_ms = cuda_ms(lambda: fused_esmoe_plain(xh, w, *banks))
+                module_ms = cuda_ms(lambda: block(x))
+            bound_ms, bound_by = bound(nbytes(xh, w, *banks[:5], out), esmoe_flops(b, hw, hw, c, c, banks[5]))
+            log(f"[esmoe] layer {layer} B={b} [{b},{hw},{hw},{c}]: max abs err {err.max().item():.3e} "
+                f"(vs unfused block {module_err:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"ES_MOE.forward {module_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            result[(b, layer)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, module_ms=module_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
+def phase_cw_nms(dev):
+    """Kernel vs plain: class-offset boxes (80 classes) with exact ties, an
+    all-invalid row and a row that runs out after 5 picks."""
+    import torch
+
+    from yolo_master_tpu_torch.ops.cuda_nms import batched_cw_nms, batched_cw_nms_plain
+
+    result = {}
+    for b, n in ((1, 4096), (4, 2048)):
+        boxes, scores = nms_inputs(b, n, dev, seed=1)
+        for weighted in (True, False):
+            fb, fs, seed, valid = batched_cw_nms(boxes, scores, 0.45, 300, 0.1, weighted)
+            pb, ps, pseed, pvalid = batched_cw_nms_plain(boxes, scores, 0.45, 300, 0.1, weighted)
+            torch.cuda.synchronize()
+            require(torch.equal(valid, pvalid) and torch.equal(seed, pseed) and torch.equal(fs, ps),
+                    f"CW-NMS kernel seeds/scores/valid differ at B={b} N={n} weighted={weighted}")
+            # sums over the cluster in another order: a few ulp of the class-offset
+            # coordinates (up to 6e5, where an fp32 ulp is 0.0625)
+            err = (fb - pb).abs()
+            require(bool((err <= 1e-4 + 5e-7 * pb.abs()).all()), f"CW-NMS fused boxes differ: {err.max().item()}")
+            if b > 2:
+                require(not bool(valid[1].any()) and int(valid[2].sum()) <= 5, "CW-NMS all-invalid / early-exit rows")
+            ms = cuda_ms(lambda: batched_cw_nms(boxes, scores, 0.45, 300, 0.1, weighted))
+            plain_ms = cuda_ms(lambda: batched_cw_nms_plain(boxes, scores, 0.45, 300, 0.1, weighted), reps=3,
+                               warmup=1)
+            # per step (the picks, then the step that finds none) over all N candidates:
+            # IoU 13 operations, the membership test 3, the argmax compare 1; per member
+            # (at most every candidate with a score) the weight 6 and the five sums 10
+            steps = (valid.sum(1) + (valid.sum(1) < 300).long()).sum().item()
+            members = int((scores > 0).sum())
+            bound_ms, bound_by = bound(nbytes(boxes, scores, fb, fs, seed, valid), steps * n * 17 + members * 16)
+            log(f"[cw_nms] B={b} N={n} weighted_iou={weighted}: seeds/scores/valid equal ({int(valid.sum())} kept), "
+                f"box max err {err.max().item():.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.5f} ms ({bound_by})")
+            result[(b, n, weighted)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                            bound_by=bound_by)
     return result
 
 
@@ -174,7 +337,7 @@ def phase_main_path(dev):
 
     from yolo_master_tpu_torch import YOLO
     from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
-    from yolo_master_tpu_torch.ops import cuda_nms, nms, stem
+    from yolo_master_tpu_torch.ops import cuda_nms, nms
     from yolo_master_tpu_torch.utils.weights import calibrate_bn
 
     rng = np.random.default_rng(0)
@@ -188,18 +351,18 @@ def phase_main_path(dev):
     model = YOLO("yolo-master-n", device=dev)
     x_cal, _ = DetectionPredictor(model.model, imgsz=IMGSZ).preprocess(imgs[:4])  # float /255 before fuse()
     calibrate_bn(model.model, x_cal)
-    cpu = YOLO("yolo-master-n", device="cpu").load_state_dict(model.model.state_dict())
+    state = {k: v.detach().clone() for k, v in model.model.state_dict().items()}
+    cpu = YOLO("yolo-master-n", device="cpu").load_state_dict(state)
     model.fuse()
     cpu.fuse()
 
-    stem.fused_stem.launches = 0
-    cuda_nms.batched_greedy_nms.launches = 0
+    reset_launches()
     r1 = model.predict(imgs[0], batch=1, **kw)
     r16 = model.predict(imgs, batch=16, **kw)
     torch.cuda.synchronize()
-    launches = {"stem": stem.fused_stem.launches, "nms": cuda_nms.batched_greedy_nms.launches}
+    launches = read_launches()
     log(f"[main] predict bs1 + bs16 launches: {launches}")
-    require(launches["stem"] > 0 and launches["nms"] > 0, "main path did not launch both kernels")
+    require(launches["stem"] == 2 and launches["nms"] == 2, "main path did not launch the stem and NMS kernels")
     require(len(r1) == 1 and len(r16) == 16, "result counts")
     for r in r1 + r16:
         d = r.boxes.data
@@ -250,20 +413,166 @@ def phase_main_path(dev):
     require(box_err <= box_tol and logit_err <= logit_tol and conf_err <= logit_tol,
             f"GPU and CPU decode disagree beyond {box_tol:.3e} px / {logit_tol:.3e}")
 
-    # end-to-end device time, uint8 batch on the card -> fixed-shape detections
+    return model, state, imgs, launches
+
+
+def phase_fused_esmoe_path(dev, model, state, imgs):
+    """The predict path after fused_esmoe_fuse, on the same calibrated weights."""
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.nn.moe import FusedESMOE
+    from yolo_master_tpu_torch.utils.fuse import fused_esmoe_fuse
+
+    kw = dict(imgsz=IMGSZ, conf=0.0, iou=0.45, max_det=300)
+    moe = YOLO("yolo-master-n", device=dev).load_state_dict(state).fuse()
+    fused_esmoe_fuse(moe.model)
+    swapped = [m.i for m in moe.model.model if isinstance(m, FusedESMOE)]
+    require(swapped == [3, 6, 9, 12], f"fused_esmoe_fuse swapped layers {swapped}")
+
+    reset_launches()
+    r1 = moe.predict(imgs[0], batch=1, **kw)
+    r16 = moe.predict(imgs, batch=16, **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[esmoe-path] predict bs1 + bs16 launches: {launches}")
+    require(launches["esmoe"] == 4 * 2 and launches["stem"] == 2 and launches["nms"] == 2,
+            "the fused-ES_MOE path must launch the ES_MOE kernel 4 times per forward")
+    for r in r1 + r16:
+        d = r.boxes.data
+        require(len(d) == kw["max_det"] and bool(np.isfinite(d).all()), "fused-ES_MOE path detections")
+
+    # decode against the same weights without the surgery, at the smoke's fixed limits
+    pred = moe._predictor
+    x, _ = pred.preprocess(imgs[:2])
+    with torch.inference_mode():
+        full_moe = moe.model.head.decode(moe.model(x), raw_scores=True)
+        full_base = model.model.head.decode(model.model(x), raw_scores=True)
+    box_err = (full_moe[..., :4] - full_base[..., :4]).abs().max().item()
+    logit_err = (full_moe[..., 4:] - full_base[..., 4:]).abs().max().item()
+    log(f"[esmoe-path] decode vs the unswapped model, all {full_moe.shape[1]} anchors: box max err {box_err:.3e} px, "
+        f"logit max err {logit_err:.3e}")
+    require(box_err <= 5e-2 and logit_err <= 1e-3, "fused-ES_MOE decode disagrees beyond 5e-2 px / 1e-3")
+
+    # device time per image, uint8 batch on the card -> detections, with and
+    # without the surgery, in turns (base, swapped, swapped, base)
     e2e = {}
     for bs in (1, 16):
         xb, _ = pred.preprocess(imgs[:bs])
-        ms = cuda_ms(lambda: pred.run(xb), reps=20, warmup=3)
+        runs = {"base": [], "esmoe": []}
+        for name in ("base", "esmoe", "esmoe", "base"):
+            run = (model if name == "base" else moe)._predictor.run
+            runs[name].append(cuda_ms(lambda: run(xb), reps=10, warmup=2))
         t0 = time.perf_counter()
-        for _ in range(5):
+        for _ in range(3):
             model.predict(imgs[:bs], batch=bs, **kw)
-        host_ms = (time.perf_counter() - t0) / 5 * 1e3
-        e2e[bs] = ms / bs
-        log(f"[main] bs={bs}: device {ms:.3f} ms/batch = {ms / bs:.3f} ms/img (uint8 on card -> detections); "
+        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        e2e[bs] = {k: statistics.median(v) / bs for k, v in runs.items()}
+        log(f"[e2e] bs={bs}: device ms/img (uint8 on card -> detections), predict path "
+            f"{[round(t / bs, 4) for t in runs['base']]}, with fused_esmoe_fuse {[round(t / bs, 4) for t in runs['esmoe']]}; "
             f"predict() with letterbox and Results {host_ms / bs:.3f} ms/img (host clock)")
-    require("jax" not in sys.modules, "the port imported jax")
-    return launches, e2e
+    return moe, launches, e2e
+
+
+def phase_sahi(dev, moe):
+    """SparseSAHIPredictor on a 2160x3840 gray frame with bright rectangles,
+    through the fused-ES_MOE model."""
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch.engine.sahi import MAX_NMS, SparseSAHIPredictor
+    from yolo_master_tpu_torch.ops import cuda_nms, nms
+
+    h, w = SAHI_HW
+    img = np.full((h, w, 3), 114, np.uint8)
+    rng = np.random.default_rng(2)
+    for _ in range(4):
+        y0, x0 = int(rng.integers(0, h - 300)), int(rng.integers(0, w - 300))
+        img[y0:y0 + int(rng.integers(60, 300)), x0:x0 + int(rng.integers(60, 300))] = rng.integers(0, 256, 3)
+    sahi = SparseSAHIPredictor(moe.model, names=moe.names, conf=0.0)
+    # random weights give no meaningful objectness: gate at the 99.95th
+    # percentile of the low-res anchors whose centres lie in the frame (not in
+    # the letterbox padding), so that a few tiles run and most are skipped
+    _, obj, cx, cy, _ = sahi._lowres_pass(img)
+    inside = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+    sahi.objectness_threshold = float(np.quantile(obj[inside], 0.9995))
+
+    reset_launches()
+    r = sahi(img)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    stats = sahi.last_stats
+    log(f"[sahi] {h}x{w} frame: {stats['tiles']} tiles, {stats['active']} active; launches {launches}")
+    require(0 < stats["active"] < stats["tiles"], f"the objectness gate must skip some tiles: {stats}")
+    require(launches["cw_nms"] == 1, "the SAHI path did not launch the CW-NMS kernel")
+    d = r.boxes.data
+    require(len(d) > 0 and bool(np.isfinite(d).all()), "SAHI detections")
+    require(bool((d[:, [0, 2]] >= 0).all() and (d[:, [0, 2]] <= w).all()
+                 and (d[:, [1, 3]] >= 0).all() and (d[:, [1, 3]] <= h).all()), "SAHI boxes outside the frame")
+
+    # the merge: kernel vs plain on the same merged candidates
+    cand = sahi.candidates(img)
+    cboxes, scores, cls_idx, _ = nms._prep_candidates(cand, moe.model.nc, sahi.conf, MAX_NMS, False, None, False)
+    cb = (cboxes + cls_idx[..., None] * nms.MAX_WH).float().contiguous()
+    out = cuda_nms.batched_cw_nms(cb, scores.contiguous(), sahi.iou, sahi.max_det, sahi.sigma)
+    ref = cuda_nms.batched_cw_nms_plain(cb, scores, sahi.iou, sahi.max_det, sahi.sigma)
+    require(torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2]) and torch.equal(out[3], ref[3]),
+            "SAHI merge: CW-NMS kernel seeds/scores/valid differ from the plain version")
+    box_err = (out[0] - ref[0]).abs()
+    require(bool((box_err <= 1e-4 + 5e-7 * ref[0].abs()).all()), f"SAHI merge: fused boxes differ {box_err.max()}")
+    log(f"[sahi] merge of {cand.shape[1]} candidates (top {cb.shape[1]}): CW-NMS kernel == plain "
+        f"({int(out[3].sum())} kept, box max err {box_err.max().item():.3e}); {len(d)} detections")
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sahi(img)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"[sahi] host ms/frame: {[round(t, 2) for t in times]} (median {statistics.median(times):.2f})")
+    return launches
+
+
+def phase_profile(paths, xb):
+    """Device time by kernel over 5 iterations of each path's device graph
+    (uint8 batch on the card -> detections), under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    iters = 5
+    for name, run in paths.items():
+        run(xb)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                run(xb)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = {e.key: e.self_device_time_total / iters for e in kernels}
+        busy_ms = sum(dev_us.values()) / 1e3
+        count = sum(e.count for e in kernels) / iters
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+        log(f"[profile] {name}, B={xb.shape[0]}: wall {wall_ms:.3f} ms/batch under the profiler, device busy "
+            f"{busy_ms:.3f} ms/batch ({100 * busy_ms / wall_ms:.1f}%), {count:.0f} kernels/batch; top: "
+            + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+
+
+def phase_imports():
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "yolo_master_tpu"))
+    require(not bad, f"the port imported {bad[:5]}")
+    log("[imports] no jax, jaxlib or yolo_master_tpu module was imported")
+
+
+def kernel_entry(name, source, replaces, launches, res, shape, library_ms=None, **extra):
+    return {"name": name, "route": "cuda", "source": f"yolo_master_tpu_torch/csrc/{source}",
+            "replaces": f"yolo_master_tpu/ops/{replaces}", "launches": launches,
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": library_ms, "shape": shape,
+            **extra}
 
 
 def main():
@@ -274,16 +583,30 @@ def main():
     phase_build()
     stem_res = phase_stem(dev)
     nms_res = phase_nms(dev)
-    launches, _ = phase_main_path(dev)
+    esmoe_res = phase_esmoe(dev)
+    cw_res = phase_cw_nms(dev)
+    model, state, imgs, main_launches = phase_main_path(dev)
+    moe, moe_launches, _ = phase_fused_esmoe_path(dev, model, state, imgs)
+    sahi_launches = phase_sahi(dev, moe)
+    x16, _ = model._predictor.preprocess(imgs)
+    phase_profile({"predict path": model._predictor.run, "with fused_esmoe_fuse": moe._predictor.run}, x16)
+    phase_imports()
+
+    # ES_MOE: the four placements of one bs-16 forward, summed
+    es16 = [esmoe_res[(16, layer)] for layer, _, _ in ESMOE_PLACEMENTS]
+    es_sum = {k: sum(r[k] for r in es16) for k in ("ms", "plain_ms", "module_ms", "bound_ms")}
+    es_sum.update(max_abs_err=max(r["max_abs_err"] for r in es16), bound_by="operations")
+    require(all(r["bound_by"] == "operations" for r in es16), "ES_MOE bound_by")
     kernels = [
-        {"name": "fused_stem", "route": "cuda", "source": "yolo_master_tpu_torch/csrc/stem.cu",
-         "replaces": "yolo_master_tpu/ops/pallas_stem.py:177", "launches": launches["stem"],
-         "max_abs_err": stem_res[16][0], "ms": stem_res[16][1], "plain_ms": stem_res[16][2],
-         "shape": "uint8 [16,640,640,3] -> [16,160,160,32]"},
-        {"name": "batched_greedy_nms", "route": "cuda", "source": "yolo_master_tpu_torch/csrc/nms.cu",
-         "replaces": "yolo_master_tpu/ops/pallas_nms.py:120", "launches": launches["nms"],
-         "max_abs_err": nms_res[(16, 2048)][0], "ms": nms_res[(16, 2048)][1], "plain_ms": nms_res[(16, 2048)][2],
-         "shape": "B=16 N=2048 max_det=300"},
+        kernel_entry("fused_stem", "stem.cu", "pallas_stem.py:177", main_launches["stem"], stem_res[16],
+                     "uint8 [16,640,640,3] -> [16,160,160,32]"),
+        kernel_entry("batched_greedy_nms", "nms.cu", "pallas_nms.py:120", main_launches["nms"],
+                     nms_res[(16, 2048)], "B=16 N=2048 max_det=300"),
+        kernel_entry("fused_esmoe", "esmoe.cu", "pallas_esmoe.py:81", moe_launches["esmoe"], es_sum,
+                     "B=16, the four placements [16,160,160,64], [16,80,80,128], [16,40,40,128], "
+                     "[16,20,20,256] summed", module_ms=es_sum["module_ms"]),
+        kernel_entry("batched_cw_nms", "cw_nms.cu", "pallas_nms.py:215", sahi_launches["cw_nms"],
+                     cw_res[(1, 4096, True)], "B=1 N=4096 max_det=300 weighted_iou"),
     ]
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

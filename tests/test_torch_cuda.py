@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from yolo_master_tpu_torch.ops.cuda_nms import batched_greedy_nms, batched_greedy_nms_plain, greedy_nms
+from yolo_master_tpu_torch.nn.moe import ES_MOE, FusedESMOE
+from yolo_master_tpu_torch.ops.cuda_nms import (batched_cw_nms, batched_cw_nms_plain, batched_greedy_nms,
+                                                batched_greedy_nms_plain, greedy_nms)
+from yolo_master_tpu_torch.ops.esmoe import fused_esmoe, fused_esmoe_plain, pack_esmoe_params
 from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_weight_layout
 
 pytestmark = pytest.mark.cuda
@@ -92,3 +95,83 @@ def test_nms_kernel_rejects_too_many_candidates(dev):
     boxes, scores = _candidates(1, 20000, dev)
     with pytest.raises(ValueError, match="shared memory"):
         batched_greedy_nms(boxes, scores, 0.45, 300)
+
+
+def _esmoe_block(cin, cout, device, seed=0):
+    """An ES_MOE block with seeded BN statistics, on ``device``."""
+    g = torch.Generator().manual_seed(seed)
+    block = ES_MOE(cin, cout)
+    with torch.no_grad():
+        for bn in (m for m in block.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+            bn.running_mean.copy_(torch.randn(bn.num_features, generator=g) * 0.2)
+            bn.running_var.copy_(torch.rand(bn.num_features, generator=g) * 1.5 + 0.5)
+        for conv in (m for m in block.modules() if isinstance(m, torch.nn.Conv2d)):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) / conv.weight[0].numel() ** 0.5)
+    return block.eval().to(device)
+
+
+@pytest.mark.parametrize("b,hw,cin,cout", [(2, (24, 24), 64, 64), (1, (21, 37), 32, 48), (3, (20, 20), 256, 256),
+                                           (1, (160, 160), 64, 64)])
+def test_esmoe_kernel_matches_plain(dev, b, hw, cin, cout):
+    """Ragged tiles, O not a multiple of the block's 64 channels, and C of one
+    to eight chunks. Tolerance 1e-4 + 1e-4*|ref|: fp32 sums in another order."""
+    block = _esmoe_block(cin, cout, dev)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(b, *hw, cin, generator=g).to(dev)
+    banks = pack_esmoe_params(block)
+    w = torch.softmax(torch.randn(b, 3, generator=g), -1).to(dev)
+    out = fused_esmoe(x, w, *banks)
+    ref = fused_esmoe_plain(x, w, *banks)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (b, *hw, cout)
+    assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+
+
+def test_fused_esmoe_module_counts_launches_and_rejects_bad_input(dev):
+    block = _esmoe_block(64, 64, dev)
+    fused = FusedESMOE(block)
+    x = torch.randn(2, 64, 16, 16, device=dev).contiguous(memory_format=torch.channels_last)
+    before = fused_esmoe.launches
+    with torch.no_grad():
+        y, ref = fused(x), block(x)
+    torch.cuda.synchronize()
+    assert fused_esmoe.launches == before + 1
+    assert bool(((y - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+    banks = pack_esmoe_params(block)
+    w = torch.full((2, 3), 1 / 3, device=dev)
+    xh = x.permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_esmoe(xh.permute(0, 2, 1, 3), w, *banks)
+    with pytest.raises(TypeError):
+        fused_esmoe(xh.half(), w, *banks)
+    with pytest.raises(NotImplementedError):
+        fused_esmoe(xh, w, *banks[:5], (3, 5, 8))
+    assert fused_esmoe.launches == before + 1
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("b,n", [(1, 4096), (4, 2048)])
+def test_cw_nms_kernel_equals_plain(dev, b, n, weighted):
+    """Seeds, scores and validity equal, ties, early exit and an all-invalid row
+    included; fused boxes within 1e-4 + 5e-7*|x| (sums in another order, at
+    class-offset coordinates up to 6e5)."""
+    boxes, scores = _candidates(b, n, dev)
+    cls = torch.randint(0, 80, (b, n, 1), generator=torch.Generator().manual_seed(3)).float().to(dev) * 7680.0
+    boxes = (boxes + cls).contiguous()
+    fb, fs, seed, valid = batched_cw_nms(boxes, scores, 0.45, 300, 0.1, weighted)
+    pb, ps, pseed, pvalid = batched_cw_nms_plain(boxes, scores, 0.45, 300, 0.1, weighted)
+    torch.cuda.synchronize()
+    assert torch.equal(valid, pvalid) and torch.equal(seed, pseed) and torch.equal(fs, ps)
+    assert bool(((fb - pb).abs() <= 1e-4 + 5e-7 * pb.abs()).all())
+    if b > 2:
+        assert not bool(valid[1].any()) and int(valid[2].sum()) <= 4
+
+
+def test_cw_nms_kernel_counts_launches_and_rejects_too_many_candidates(dev):
+    boxes, scores = _candidates(1, 512, dev)
+    before = batched_cw_nms.launches
+    batched_cw_nms(boxes, scores, 0.45, 100)
+    assert batched_cw_nms.launches == before + 1
+    boxes, scores = _candidates(1, 20000, dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        batched_cw_nms(boxes, scores, 0.45, 300)

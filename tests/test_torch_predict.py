@@ -68,13 +68,24 @@ def test_unfused_predict_batch_and_class_filter(facades):
 
 
 def test_device_is_required():
-    with pytest.raises(TypeError):
-        YOLO("yolo-master-n")
+    """The facade runs on the card unless the caller asks for another device;
+    without a card, the default is refused rather than moved to the CPU."""
+    import inspect
+
+    assert inspect.signature(YOLO).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            YOLO("yolo-master-n")
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, yolo_master_tpu_torch, yolo_master_tpu_torch.ops.stem, yolo_master_tpu_torch.ops.cuda_nms; "
-            "bad = [m for m in ('jax', 'yolo_master_tpu.utils', 'yolo_master_tpu.cfg') if m in sys.modules]; "
+    """Importing every module of the port brings in neither jax nor any module
+    of the JAX package."""
+    code = ("import importlib, pkgutil, sys, yolo_master_tpu_torch as p; "
+            "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
+            "[importlib.import_module(n) for n in names]; "
+            "assert len(names) > 20, names; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'yolo_master_tpu')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,

@@ -10,12 +10,8 @@
 // the pick and of every candidate whose IoU with it exceeds iou_thres.
 // Slots after the stop stay index 0 / invalid, as the TPU kernel zero-fills.
 //
-// IoU rounds exactly as the JAX expression does:
-//   inter / (areas + barea - inter + 1e-7), evaluated left to right,
-// with areas = max(x2-x1,0) * max(y2-y1,0). Every operation is written with
-// the _rn intrinsics, which nvcc never contracts into an FMA, and the file is
-// built with -fmad=false as well: a fused multiply-add would round
-// differently and flip boxes that sit on the threshold.
+// IoU rounds exactly as the JAX expression does (nms_common.cuh), so keep
+// sets are bit-equal to JAX's, ties and boxes on the threshold included.
 //
 // What bounds it on the H100: latency, not bandwidth or FLOPs. A step is
 // a block-wide argmax followed by a block-wide IoU update over N candidates,
@@ -36,27 +32,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "nms_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kNoIndex = 0x7fffffff;
-
-__device__ __forceinline__ void take_better(float& v, int& i, float v2, int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_down_sync(0xffffffffu, v, off);
-    const int i2 = __shfl_down_sync(0xffffffffu, i, off);
-    take_better(v, i, v2, i2);
-  }
-}
+using ymt_nms::iou;
+using ymt_nms::kNoIndex;
+using ymt_nms::kThreads;
+using ymt_nms::kWarps;
+using ymt_nms::warp_argmax;
 
 // boxes [B,N,4] xyxy fp32 (class offset applied), scores [B,N] fp32 (invalid <= 0)
 // -> keep_idx [B,max_det] int32, keep_valid [B,max_det] bool (one byte each).
@@ -88,7 +72,7 @@ batched_nms_kernel(const float* __restrict__ boxes, const float* __restrict__ sc
     y1[j] = c;
     x2[j] = d;
     y2[j] = e;
-    area[j] = __fmul_rn(fmaxf(__fsub_rn(d, a), 0.0f), fmaxf(__fsub_rn(e, c), 0.0f));
+    area[j] = ymt_nms::box_area(a, c, d, e);
     alive[j] = sb[j];
   }
   for (int s = tid; s < max_det; s += kThreads) {
@@ -139,13 +123,9 @@ batched_nms_kernel(const float* __restrict__ boxes, const float* __restrict__ sc
     v = -INFINITY;
     vi = kNoIndex;
     for (int j = tid; j < N; j += kThreads) {
-      const float iw = fmaxf(__fsub_rn(fminf(x2[j], bx2), fmaxf(x1[j], bx1)), 0.0f);
-      const float ih = fmaxf(__fsub_rn(fminf(y2[j], by2), fmaxf(y1[j], by1)), 0.0f);
-      const float inter = __fmul_rn(iw, ih);
-      const float denom = __fadd_rn(__fsub_rn(__fadd_rn(area[j], barea), inter), 1e-7f);
-      const float iou = __fdiv_rn(inter, denom);
+      const float ov = iou(x1[j], y1[j], x2[j], y2[j], area[j], bx1, by1, bx2, by2, barea);
       float s = alive[j];
-      if (iou > iou_thres || j == idx) {
+      if (ov > iou_thres || j == idx) {
         s = 0.0f;
         alive[j] = s;
       }

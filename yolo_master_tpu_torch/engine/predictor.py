@@ -1,10 +1,9 @@
 """Batched detection inference (counterpart of ``yolo_master_tpu/engine/predictor.py``).
 
-Host: letterbox (``yolo_master_tpu.data.letterbox``, shared with the JAX
-package) -> BGR->RGB -> uint8 NHWC for a model whose layer 0 takes uint8
-(``YOLO.fuse()``), else float /255. Device: forward -> ``Detect.decode_topk``
--> batched NMS, with no host round trip between them. Host: boxes back to the
-original image -> ``yolo_master_tpu.engine.results.Results``.
+Host: letterbox (``data/letterbox.py``) -> BGR->RGB -> uint8 NHWC for a model
+whose layer 0 takes uint8 (``YOLO.fuse()``), else float /255. Device: forward
+-> ``Detect.decode_topk`` -> batched NMS, with no host round trip between
+them. Host: boxes back to the original image -> ``engine/results.py:Results``.
 
 PyTorch runs eagerly, so there is no per-batch-size compile and no padding of
 ragged batches to a power of two.
@@ -19,10 +18,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from yolo_master_tpu.data.letterbox import letterbox
-from yolo_master_tpu.engine.results import Results
-
+from ..data.letterbox import letterbox
 from ..ops.nms import non_max_suppression
+from .results import Results
 
 
 def load_image(path: str) -> np.ndarray:

@@ -1,9 +1,11 @@
 """YOLO facade (counterpart of ``yolo_master_tpu/models/yolo.py``): detection only.
 
-    YOLO("yolo-master-n", device="cuda").fuse().predict(images)
+    YOLO("yolo-master-n").fuse().predict(images)
 
-The device is an explicit argument. Weights are drawn from ``seed`` with a
-``torch.Generator`` on the CPU, so one seed gives the same model on every device.
+The model runs on the card (``device="cuda"``) unless the caller asks for
+another device, as the CPU tests do with ``device="cpu"``. Weights are drawn
+from ``seed`` with a ``torch.Generator`` on the CPU, so one seed gives the
+same model on every device.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from ..utils.weights import state_dict_from_jax
 
 
 class YOLO:
-    def __init__(self, model: str = "yolo-master-n", *, device, nc: Optional[int] = None, seed: int = 0):
+    def __init__(self, model: str = "yolo-master-n", *, device="cuda", nc: Optional[int] = None, seed: int = 0):
         self.device = torch.device(device)
         self.model_name = str(model)
         self.model = DetectionModel(model, nc=nc, seed=seed).eval()

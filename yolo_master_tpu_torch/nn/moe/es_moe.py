@@ -1,9 +1,11 @@
 """ES_MOE, the YOLO-Master routed block (counterpart of ``yolo_master_tpu/nn/moe/es_moe.py``).
 
-Eval on the masked-dense path only: every expert runs, and the output is the
+Eval on the masked-dense path: every expert runs, and the output is the
 routing-weighted sum, then BatchNorm + SiLU (``norm.0`` in the state_dict;
-left unfolded by deploy fusion, as in the JAX package). The sparse top-k,
-expert-parallel and fused-kernel paths are not ported yet.
+left unfolded by deploy fusion, as in the JAX package). :class:`FusedESMOE`
+is the deploy form that runs the whole block as one CUDA kernel
+(``utils/fuse.py:fused_esmoe_fuse``). The sparse top-k and expert-parallel
+paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Optional
 
 import torch.nn as nn
 
+from ...ops.esmoe import fused_esmoe, pack_esmoe_params
 from ..layers import BN_EPS, BN_MOMENTUM
 from .experts import EfficientExpertGroup
 from .routers import DynamicRoutingLayer
@@ -56,3 +59,40 @@ class ES_MOE(nn.Module):  # noqa: N801 - the graph YAMLs' module name
             y = expert(x) * w[:, i, None, None, None].to(x.dtype)
             out = y if out is None else out + y
         return self.norm(out)
+
+    def fusable(self) -> bool:
+        """Whether ``fused_esmoe_fuse`` can swap this block for :class:`FusedESMOE`:
+        dense eval (always, in the port) and stride-1 experts."""
+        return all(e.conv.depthwise.stride == (1, 1) for e in self.experts)
+
+
+class FusedESMOE(nn.Module):
+    """Deploy form of a dense ES_MOE block (counterpart of ``PallasESMOE``): the
+    routing MLP stays in PyTorch, and the experts, their mix and the output
+    norm run as one kernel (``ops/esmoe.py:fused_esmoe``).
+
+    State: ``routing.*`` as in :class:`ES_MOE`, and ``banks.{dw,pw,pb,gamma,beta}``
+    as in the JAX package's fused tree, except that ``dw`` [E, kmax, kmax, C]
+    is kept as [E, kmax*kmax, C]: a 4-D parameter would be reordered by the
+    facade's channels_last ``.to()``. Eval only.
+    """
+
+    def __init__(self, block: ES_MOE):
+        super().__init__()
+        self.routing = block.routing
+        dw, pw, pb, gamma, beta, ks = pack_esmoe_params(block)
+        self.ks = ks
+        e, kmax, _, c = dw.shape
+        self.banks = nn.ParameterDict({
+            name: nn.Parameter(t.contiguous(), requires_grad=False)
+            for name, t in (("dw", dw.reshape(e, kmax * kmax, c)), ("pw", pw), ("pb", pb), ("gamma", gamma),
+                            ("beta", beta))})
+
+    def forward(self, x):
+        w, _ = self.routing(x)  # [B, E]
+        dw = self.banks["dw"]
+        kmax = max(self.ks)
+        out = fused_esmoe(x.permute(0, 2, 3, 1).contiguous(), w,
+                          dw.view(dw.shape[0], kmax, kmax, dw.shape[2]), self.banks["pw"], self.banks["pb"],
+                          self.banks["gamma"], self.banks["beta"], self.ks)
+        return out.permute(0, 3, 1, 2)

@@ -5,6 +5,8 @@ image (scores below ``conf_thres`` become 0), then run exact greedy NMS for
 ``max_det`` steps with the class-offset trick. Outputs are fixed-shape, with a
 validity mask. The greedy loop is :func:`.cuda_nms.batched_greedy_nms`: the
 CUDA kernel for a CUDA tensor, its plain PyTorch version for a CPU tensor.
+:func:`cluster_weighted_nms` fuses each greedy cluster into one
+score-weighted box instead (:func:`.cuda_nms.batched_cw_nms`).
 
 Top-k selection uses a stable descending sort, so tied scores keep the lower
 index first, as ``jax.lax.top_k`` does (``torch.topk`` promises no tie order).
@@ -17,7 +19,7 @@ from typing import Optional
 import torch
 
 from .boxes import xywh2xyxy
-from .cuda_nms import batched_greedy_nms
+from .cuda_nms import batched_cw_nms, batched_greedy_nms
 
 MAX_WH = 7680.0  # class-offset magnitude
 
@@ -90,3 +92,27 @@ def non_max_suppression(prediction: torch.Tensor, nc: int, conf_thres: float = 0
         "valid": keep_valid,
         "extra": _gather_rows(cextra, keep) * vf[..., None] if cextra.shape[-1] else cextra[:, :max_det],
     }
+
+
+def cluster_weighted_nms(prediction: torch.Tensor, nc: int, conf_thres: float = 0.25, iou_thres: float = 0.45,
+                         max_det: int = 300, max_nms: int = 2048, agnostic: bool = False, sigma: float = 0.1,
+                         weighted_iou: bool = True) -> dict:
+    """Batched cluster-weighted NMS over decoded predictions [B, A, 4+nc] (xywh
+    boxes, class probabilities).
+
+    Each greedy cluster (the top candidate and every alive candidate of the
+    same class with IoU > ``iou_thres``) becomes one box, the mean of its
+    members weighted by score * exp(-(1 - IoU)^2 / ``sigma``) (score * IoU
+    without ``weighted_iou``). Returns boxes [B, max_det, 4] xyxy, scores
+    [B, max_det] (the seeds' scores), classes [B, max_det] (-1 where
+    invalid), valid [B, max_det] bool.
+    """
+    cboxes, scores, cls_idx, _ = _prep_candidates(prediction[..., :4 + nc], nc, conf_thres, max_nms, False, None,
+                                                  False)
+    offset = 0.0 if agnostic else cls_idx[..., None] * MAX_WH
+    fused, fscores, seed, valid = batched_cw_nms((cboxes + offset).float().contiguous(), scores.contiguous(),
+                                                 iou_thres, max_det, sigma, weighted_iou)
+    out_cls = torch.where(valid, cls_idx.gather(1, seed.long()), -1.0)
+    if not agnostic:
+        fused = fused - out_cls[..., None] * MAX_WH * valid[..., None]
+    return {"boxes": fused * valid[..., None], "scores": fscores * valid, "classes": out_cls, "valid": valid}

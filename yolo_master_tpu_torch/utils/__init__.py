@@ -1,8 +1,9 @@
 """Helpers shared by the port (counterpart of ``yolo_master_tpu/utils/__init__.py``).
 
-The graph and dataset YAMLs live in the JAX package's ``cfg/`` tree; both
-packages build from the same files. They are read by path with PyYAML, without
-an import of ``yolo_master_tpu.cfg``.
+The port keeps its own copies of the graph and dataset YAMLs it builds, byte
+for byte those of the JAX package, under ``yolo_master_tpu_torch/cfg/``. A
+YAML is copied when a slice of the port builds it; a model name with no copy
+yet raises, naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from pathlib import Path
 
 import yaml
 
-CFG_DIR = Path(__file__).resolve().parents[2] / "yolo_master_tpu" / "cfg"
+CFG_DIR = Path(__file__).resolve().parents[1] / "cfg"
 MODELS_DIR = CFG_DIR / "models"
 DATASETS_DIR = CFG_DIR / "datasets"
 
@@ -39,7 +40,8 @@ def find_model_yaml(name: str) -> Path:
         cand = MODELS_DIR / f"{stem[:-2]}.yaml"
         if cand.exists():
             return cand
-    raise FileNotFoundError(f"model yaml not found for '{name}' (searched {MODELS_DIR})")
+    raise FileNotFoundError(f"model yaml not found for '{name}' in {MODELS_DIR}: the port holds only the "
+                            f"graphs it builds so far (ROADMAP.md §1.F item 15, every YAML in cfg/models)")
 
 
 def guess_scale(name: str) -> str | None:
@@ -55,5 +57,5 @@ def yaml_load(path) -> dict:
 
 
 def coco_names() -> dict:
-    """{class index: name} from the shared ``cfg/datasets/coco.yaml``."""
+    """{class index: name} from the port's ``cfg/datasets/coco.yaml``."""
     return dict(enumerate(yaml_load(DATASETS_DIR / "coco.yaml")["names"]))

@@ -5,7 +5,9 @@ Where the JAX package rewrites a parameter tree, the port rewrites modules in
 place: BN folds into the preceding conv, the /255 input scale folds into layer
 0, and the two stem convs become one :class:`~..nn.layers.FusedStem` over the
 letterboxed uint8 image. The TPU's space-to-depth blob and lane padding have
-no counterpart: the CUDA stem reads the NHWC image directly.
+no counterpart: the CUDA stem reads the NHWC image directly. Opt-in, as in the
+JAX package: :func:`fused_esmoe_fuse` swaps the dense ES_MOE blocks for the
+fused ES_MOE kernel.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..nn.layers import Conv, FusedStem, Passthrough
+from ..nn.moe.es_moe import ES_MOE, FusedESMOE
 from ..nn.moe.experts import DepthwiseSeparableConv
 
 
@@ -55,3 +58,19 @@ def fused_stem_fuse(model) -> None:
         new.i, new.f = old.i, old.f
     model.model[0], model.model[1] = stem, skip
     model.uint8_input = True
+
+
+@torch.no_grad()
+def fused_esmoe_fuse(model, layers=None) -> None:
+    """Swap every fusable ES_MOE layer (``layers``: only those layer indices) for a
+    :class:`FusedESMOE` over the same weights (``pallas_esmoe_fuse``).
+
+    Works before or after :func:`fuse_bn`: the expert and output-norm BNs are
+    folded into the kernel's banks either way. Inference only.
+    """
+    for pos, m in enumerate(model.model):
+        if type(m) is not ES_MOE or not m.fusable() or (layers is not None and m.i not in layers):
+            continue
+        fused = FusedESMOE(m)
+        fused.i, fused.f = m.i, m.f
+        model.model[pos] = fused

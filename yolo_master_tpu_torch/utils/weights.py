@@ -3,7 +3,9 @@
 :func:`state_dict_from_jax` is the inverse of
 ``yolo_master_tpu/utils/torch_import.py`` (``_torch_key`` and ``convert``)
 for the modules of the yolo-master-n graph: it maps the JAX parameter tree's
-paths to ultralytics state_dict keys and HWIO conv kernels to OIHW.
+paths to ultralytics state_dict keys and HWIO conv kernels to OIHW. A layer
+that ``pallas_esmoe_fuse`` rewrote (``{"routing", "banks"}``) maps to the
+port's :class:`~..nn.moe.es_moe.FusedESMOE`, whose banks keep the JAX layout.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ def _to_torch_layout(v: np.ndarray) -> np.ndarray:
 
 
 def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX parameter tree (numpy leaves, unfused) -> the port's state_dict.
+    """JAX parameter tree (numpy leaves, unfused or ES_MOE-fused) -> the port's state_dict.
 
     BatchNorms also get ``num_batches_tracked = 0`` so that
     ``load_state_dict(strict=True)`` accepts the result.
@@ -51,9 +53,15 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     def walk(node, path):
         if not isinstance(node, dict):
-            key = ".".join(_torch_key(path[:-1]) + [_LEAF.get(path[-1], path[-1])])
-            arr = np.array(_to_torch_layout(np.asarray(node, np.float32)), order="C")
-            sd[key] = torch.from_numpy(arr)
+            arr = np.asarray(node, np.float32)
+            if len(path) > 1 and path[-2] == "banks":  # FusedESMOE: the JAX layout, dw [E,k,k,C] as [E,k*k,C]
+                key = ".".join(_torch_key(path))
+                if path[-1] == "dw":
+                    arr = arr.reshape(arr.shape[0], -1, arr.shape[-1])
+            else:
+                key = ".".join(_torch_key(path[:-1]) + [_LEAF.get(path[-1], path[-1])])
+                arr = _to_torch_layout(arr)
+            sd[key] = torch.from_numpy(np.array(arr, order="C"))
             return
         if _BN_LEAVES <= set(node):
             sd[".".join(_torch_key(path) + ["num_batches_tracked"])] = torch.tensor(0)
