@@ -2,32 +2,45 @@
 
     python3 chip_smoke.py
 
-Builds the port's four hand-written CUDA kernels from the checkout
-(csrc/stem.cu, csrc/nms.cu, csrc/esmoe.cu, csrc/cw_nms.cu, one nvcc each, in
+Builds the port's six hand-written CUDA kernels from the checkout
+(csrc/stem.cu, nms.cu, esmoe.cu, cw_nms.cu, moe.cu, c3k2.cu, one nvcc each, in
 parallel), holds each against its plain PyTorch version on the card, and
-drives yolo_master_tpu_torch's three paths at yolo-master-n's full width with
-seeded random weights. Phases:
+drives yolo_master_tpu_torch's paths at the full width of yolo-master-n and
+yolo-master-v0_1-n with seeded random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
-  2. build the four kernels
+  2. build the six kernels
   3. stem kernel vs F.conv2d x2 (uint8 640x640 input)
   4. NMS kernel vs the plain greedy loop (exact keep sets, ties included)
   5. ES_MOE kernel vs its plain version at the four placements' shapes, B=1
      and 16, beside the unfused ES_MOE.forward it replaces
   6. CW-NMS kernel vs its plain loop (equal seeds, scores and validity)
-  7. the predict path, YOLO("yolo-master-n").fuse().predict(...), at batch 1
+  7. the gathered expert matmul through its entry point at the shapes of
+     yolo-master-v0_1-n's expert banks at 640, B=1 and 16, K=2 (a repeated
+     expert, a zero weight), vs its plain version, beside torch.bmm
+  8. sparse ES_MOE (top_k=2 of 3, dynamic_threshold 0.4) at the four
+     placements' shapes, B=16: sparse eval vs the masked-dense sum
+  9. the predict path, YOLO("yolo-master-n").fuse().predict(...), at batch 1
      and 16: launch counts, max_det detections per image, GPU vs CPU decode,
-     kernel vs plain NMS on the GPU's candidates, device time per image
-  8. the same with fused_esmoe_fuse: 4 ES_MOE launches per forward, decode
-     against the unswapped model, device time per image beside it
-  9. SparseSAHIPredictor on a 2160x3840 frame: tiles skipped, the CW-NMS
+     kernel vs plain NMS on the GPU's candidates
+ 10. the C3k2 kernel through its entry point on the live model's folded
+     layers 2 and 5 and their inputs from the bs-1 and bs-16 frames (and an
+     n=2 block at layer 2's width), vs its plain version and the C3k2 module
+ 11. the same predict path with fused_esmoe_fuse: 4 ES_MOE launches per
+     forward, decode against the unswapped model, device time per image
+ 12. YOLO("yolo-master-v0_1-n").fuse().predict(...) at batch 1 and 16 (sparse
+     gathered MoE dispatch): launch counts, detections, GPU vs CPU decode,
+     sparse vs dense eval, the expert banks' host cost per forward (restacked
+     vs kept), device time per image in both evals beside yolo-master-n's
+ 13. SparseSAHIPredictor on a 2160x3840 frame: tiles skipped, the CW-NMS
      kernel's merge equal to its plain version on the same candidates
- 10. device time by kernel of the predict path with and without
-     fused_esmoe_fuse at batch 16 (torch.profiler)
- 11. no module of jax or of the JAX package was imported
+ 14. device time by kernel of the predict path, with fused_esmoe_fuse, and
+     of the v0_1 path in sparse and dense eval at batch 16 (torch.profiler)
+ 15. no module of jax or of the JAX package was imported
 
 Each path's launch counts are set to 0 just before it runs and read just
-after. fp32 throughout: TF32 is off for convs and matmuls. Any failing check
+after; the gathered matmul's and C3k2's path is their own entry point, as in
+the JAX package, where no model path reaches them. fp32 throughout: TF32 is off for convs and matmuls. Any failing check
 raises and the script exits non-zero. The second-to-last stdout line is a
 JSON object of per-kernel results (bound_ms: the larger of the bytes moved
 over 3.35 TB/s and the operations over 67 TFLOP/s, the H100 SXM's fp32
@@ -53,6 +66,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # the four dense ES_MOE placements of yolo-master-n at 640: (layer, H=W, C=O)
 ESMOE_PLACEMENTS = ((3, 160, 64), (6, 80, 128), (9, 40, 128), (12, 20, 256))
+# the first 1x1 of yolo-master-v0_1-n's SimpleExpert banks at 640: (layer, H=W, C, hidden O, experts E)
+MOE_BANKS = ((5, 80, 128, 256, 4), (8, 40, 128, 256, 8), (11, 20, 256, 512, 16))
+C3K2_LAYERS = (2, 5)  # yolo-master-n's C3k2 blocks with Bottleneck inner blocks (c3k=False) at scale n
+KW = dict(imgsz=IMGSZ, conf=0.0, iou=0.45, max_det=300)
 
 
 def log(msg: str) -> None:
@@ -98,18 +115,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def reset_launches():
-    from yolo_master_tpu_torch.ops import cuda_nms, esmoe, stem
+def _wrappers() -> dict:
+    from yolo_master_tpu_torch.ops import c3k2, cuda_nms, esmoe, moe, stem
 
-    for fn in (stem.fused_stem, cuda_nms.batched_greedy_nms, esmoe.fused_esmoe, cuda_nms.batched_cw_nms):
+    return {"stem": stem.fused_stem, "nms": cuda_nms.batched_greedy_nms, "esmoe": esmoe.fused_esmoe,
+            "cw_nms": cuda_nms.batched_cw_nms, "moe": moe.gathered_expert_matmul, "c3k2": c3k2.fused_c3k2}
+
+
+def reset_launches():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    from yolo_master_tpu_torch.ops import cuda_nms, esmoe, stem
-
-    return {"stem": stem.fused_stem.launches, "nms": cuda_nms.batched_greedy_nms.launches,
-            "esmoe": esmoe.fused_esmoe.launches, "cw_nms": cuda_nms.batched_cw_nms.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase_environment():
@@ -132,7 +151,7 @@ def phase_environment():
 
 def phase_build():
     """One nvcc per kernel source, all started together."""
-    from yolo_master_tpu_torch.ops import cuda_nms, esmoe, stem
+    from yolo_master_tpu_torch.ops import c3k2, cuda_nms, esmoe, moe, stem
 
     def timed(lib):
         t0 = time.perf_counter()
@@ -140,7 +159,8 @@ def phase_build():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    libs = {"stem.cu": stem._lib, "nms.cu": cuda_nms._lib, "esmoe.cu": esmoe._lib, "cw_nms.cu": cuda_nms._cw_lib}
+    libs = {"stem.cu": stem._lib, "nms.cu": cuda_nms._lib, "esmoe.cu": esmoe._lib, "cw_nms.cu": cuda_nms._cw_lib,
+            "moe.cu": moe._lib, "c3k2.cu": c3k2._lib}
     with ThreadPoolExecutor(len(libs)) as ex:
         secs = {name: ex.submit(timed, lib) for name, lib in libs.items()}
         secs = {name: f.result() for name, f in secs.items()}
@@ -227,15 +247,16 @@ def phase_nms(dev):
     return result
 
 
-def esmoe_block(c: int, dev, seed: int = 0):
-    """A dense ES_MOE block (E=3, k=3/5/7) with seeded weights and BN statistics
-    (as tests/test_pallas_esmoe.py seeds them), eval mode, channels_last."""
+def esmoe_block(c: int, dev, seed: int = 0, top_k=None):
+    """An ES_MOE block (E=3, k=3/5/7; dense unless ``top_k``) with seeded weights
+    and BN statistics (as tests/test_pallas_esmoe.py seeds them), eval mode,
+    channels_last."""
     import torch
 
     from yolo_master_tpu_torch.nn.moe import ES_MOE
 
     g = torch.Generator().manual_seed(seed)
-    block = ES_MOE(c, c)
+    block = ES_MOE(c, c, top_k=top_k)
     with torch.no_grad():
         for bn in (m for m in block.modules() if isinstance(m, torch.nn.BatchNorm2d)):
             bn.running_mean.copy_(torch.randn(bn.num_features, generator=g) * 0.2)
@@ -331,6 +352,191 @@ def phase_cw_nms(dev):
     return result
 
 
+def moe_inputs(b: int, n: int, c: int, o: int, e: int, dev, seed: int):
+    """x [B,N,C], w [E,C,O], idx [B,2] (two distinct experts per row, but row 0
+    repeats one), wts [B,2] (softmax; the last row's second slot is 0)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, n, c, generator=g)
+    w = torch.randn(e, c, o, generator=g) / c ** 0.5
+    idx = torch.stack([torch.randperm(e, generator=g)[:2] for _ in range(b)]).int()
+    idx[0, 1] = idx[0, 0]
+    wts = torch.softmax(torch.randn(b, 2, generator=g), -1)
+    wts[-1, 1] = 0.0
+    return [t.to(dev).contiguous() for t in (x, w, idx, wts)]
+
+
+def phase_moe(dev):
+    """The gathered expert matmul through its entry point at the v0_1-n expert
+    banks' shapes (its path: counts set to 0 before, read after), then each
+    output against the plain version, beside the one-call library form."""
+    import torch
+
+    from yolo_master_tpu_torch.ops.moe import dense_expert_matmul, gathered_expert_matmul
+
+    inputs = {(b, layer): moe_inputs(b, hw * hw, c, o, e, dev, seed=layer)
+              for b in (1, 16) for layer, hw, c, o, e in MOE_BANKS}
+    reset_launches()
+    outs = {key: gathered_expert_matmul(*inp) for key, inp in inputs.items()}
+    torch.cuda.synchronize()
+    launches = read_launches()["moe"]
+    log(f"[moe] entry point at the v0_1-n banks, B=1 and 16: {launches} launches")
+    require(launches == len(inputs), "the gathered matmul's path did not launch its kernel once per call")
+    result = {}
+    for (b, layer), (x, w, idx, wts) in inputs.items():
+        out = outs[(b, layer)]
+        ref = dense_expert_matmul(x, w, idx, wts)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        require(out.shape == ref.shape and bool(torch.isfinite(out).all()), "gathered matmul shape/finite")
+        require(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()), f"gathered matmul disagrees: max abs err {err.max().item()}")
+        ms = cuda_ms(lambda: gathered_expert_matmul(x, w, idx, wts))
+        plain_ms = cuda_ms(lambda: dense_expert_matmul(x, w, idx, wts))
+        library_ms = cuda_ms(lambda: torch.bmm(x, (wts[:, :, None, None] * w[idx.long()]).sum(1)))
+        # the function is linear in w: mixing the K selected experts' weights first
+        # (2*B*K*C*O flops) leaves one product, 2*B*N*C*O; the experts this run reads, once each
+        k = idx.shape[1]
+        n_experts = int(torch.unique(idx).numel())
+        c, o = x.shape[2], w.shape[2]
+        bound_ms, bound_by = bound(nbytes(x, idx, wts, out) + n_experts * w[0].numel() * 4,
+                                   2 * b * x.shape[1] * c * o + 2 * b * k * c * o)
+        log(f"[moe] layer {layer} B={b} [{b},{x.shape[1]},{x.shape[2]}]x[{w.shape[0]},{w.shape[1]},{w.shape[2]}] K={k}: "
+            f"max abs err {err.max().item():.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bmm {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        result[(b, layer)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+    return result, launches
+
+
+def phase_sparse_esmoe(dev):
+    """ES_MOE(C, C, 3 experts, top_k=2, dynamic_threshold 0.4) at the four
+    placements' shapes, B=16: sparse eval (gathered dispatch) vs the
+    masked-dense sum over the same retained weights, within 1e-4."""
+    import torch
+
+    for layer, hw, c in ESMOE_PLACEMENTS:
+        block = esmoe_block(c, dev, seed=layer, top_k=2)
+        g = torch.Generator().manual_seed(layer)
+        x = torch.randn(16, c, hw, hw, generator=g).to(dev).contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            ys = block(x)
+            w = block._sparse_retained_weights(block.routing(x)[0])
+            yd = block.norm(sum(e(x) * w[:, i, None, None, None] for i, e in enumerate(block.experts)))
+            torch.cuda.synchronize()
+            err = (ys - yd).abs().max().item()
+            require(bool(torch.isfinite(ys).all()) and err <= 1e-4, f"sparse ES_MOE vs masked dense: {err}")
+            sparse_ms = cuda_ms(lambda: block(x), reps=10)
+            block.sparse_inference = False
+            dense_ms = cuda_ms(lambda: block(x), reps=10)
+        kept = int((w > 0).sum())
+        log(f"[sparse-esmoe] layer {layer} [16,{hw},{hw},{c}]: sparse vs masked dense max abs err {err:.3e}; "
+            f"{kept} of {2 * 16} top-2 slots kept after the 0.4 threshold; sparse eval {sparse_ms:.4f} ms, "
+            f"dense eval {dense_ms:.4f} ms")
+
+
+def c3k2_flops(px: int, c1: int, c: int, cb: int, c2: int, n: int) -> float:
+    """2 flops per multiply-add (cv1, two 3x3 convs per bottleneck, cv2 over the
+    concat); bias + SiLU, 5 operations, per output of each; the shortcut add."""
+    macs = c1 * 2 * c + n * 2 * 9 * c * cb + (2 + n) * c * c2
+    return px * (2 * macs + 5 * (2 * c + n * (cb + c) + c2) + n * c)
+
+
+def c3k2_block(c1: int, c2: int, n: int, dev, seed: int = 0):
+    """C3k2(c1, c2, n, c3k=False, e=0.25) with seeded weights and BN statistics, BN folded, channels_last."""
+    import torch
+
+    from yolo_master_tpu_torch.nn.layers import C3k2
+    from yolo_master_tpu_torch.utils.fuse import fuse_bn
+
+    g = torch.Generator().manual_seed(seed)
+    block = C3k2(c1, c2, n=n, c3k=False, e=0.25)
+    with torch.no_grad():
+        for bn in (m for m in block.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+            bn.running_mean.copy_(torch.randn(bn.num_features, generator=g) * 0.2)
+            bn.running_var.copy_(torch.rand(bn.num_features, generator=g) * 1.5 + 0.5)
+        for conv in (m for m in block.modules() if isinstance(m, torch.nn.Conv2d)):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) / conv.weight[0].numel() ** 0.5)
+    block.eval()
+    fuse_bn(block)
+    return block.to(dev, memory_format=torch.channels_last)
+
+
+def phase_c3k2(dev, model, imgs):
+    """The C3k2 kernel through its entry point on the live yolo-master-n's
+    folded layers 2 and 5, fed the activations those layers receive from the
+    bs-1 and bs-16 frames (its path: counts set to 0 before, read after); then
+    each output against the plain version and the C3k2 module (cuDNN), and an
+    n=2 block at layer 2's width."""
+    import torch
+
+    from yolo_master_tpu_torch.ops.c3k2 import fused_c3k2, fused_c3k2_plain, prepare_c3k2_weights
+
+    layers = model.model.model
+    captured, inputs = {}, {}
+    hooks = [layers[i].register_forward_pre_hook(lambda m, a, i=i: captured.__setitem__(i, a[0]))
+             for i in C3K2_LAYERS]
+    with torch.no_grad():
+        for bs in (1, 16):
+            xb, _ = model._predictor.preprocess(imgs[:bs])
+            model.model(xb)
+            inputs.update({(bs, i): captured[i].permute(0, 2, 3, 1).contiguous() for i in C3K2_LAYERS})
+    for h in hooks:
+        h.remove()
+    blocks = {(i, 1): layers[i] for i in C3K2_LAYERS}
+    blocks[(2, 2)] = c3k2_block(32, 64, 2, dev, seed=2)
+    cases = {(bs, i, 1): x for (bs, i), x in inputs.items()}
+    cases[(16, 2, 2)] = inputs[(16, 2)]
+    weights = {key: prepare_c3k2_weights(block) for key, block in blocks.items()}
+
+    reset_launches()
+    outs = {key: fused_c3k2(x, weights[key[1:]], blocks[key[1:]].c, key[2]) for key, x in cases.items()}
+    torch.cuda.synchronize()
+    launches = read_launches()["c3k2"]
+    log(f"[c3k2] entry point on layers {C3K2_LAYERS} (bs 1, 16) and an n=2 block: {launches} launches")
+    require(launches == len(cases), "the C3k2 path did not launch its kernel once per call")
+    result = {}
+    for (bs, i, n), x in cases.items():
+        block, w, out = blocks[(i, n)], weights[(i, n)], outs[(bs, i, n)]
+        xc = x.permute(0, 3, 1, 2)  # the channels_last map the module takes
+        with torch.no_grad():
+            ref = fused_c3k2_plain(x, w, block.c, n)
+            mod = block(xc).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        require(out.shape == ref.shape and bool(torch.isfinite(out).all()), "c3k2 output shape/finite")
+        require(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()), f"c3k2 kernel disagrees: max abs err {err.max().item()}")
+        mod_err = (out - mod).abs()
+        require(bool((mod_err <= 1e-4 + 1e-4 * mod.abs()).all()), f"c3k2 kernel vs module: {mod_err.max().item()}")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fused_c3k2(x, w, block.c, n))
+            plain_ms = cuda_ms(lambda: fused_c3k2_plain(x, w, block.c, n))
+            module_ms = cuda_ms(lambda: block(xc))
+        b, h, wd, c1 = x.shape
+        cb, c2 = w["m0_b1"].shape[0], w["cv2_b"].shape[0]
+        live = [t for k, t in w.items() if not k.endswith("_sel")]
+        bound_ms, bound_by = bound(nbytes(x, out, *live), c3k2_flops(b * h * wd, c1, block.c, cb, c2, n))
+        log(f"[c3k2] layer {i} n={n} B={bs} [{bs},{h},{wd},{c1}] -> {c2}: max abs err {err.max().item():.3e} "
+            f"(vs module {mod_err.max().item():.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"C3k2 module {module_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        result[(bs, i, n)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, module_ms=module_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+    return result, launches
+
+
+def check_detections(results, frame_hw=FRAME_HW):
+    """max_det finite detections per image, boxes inside the frame, scores in (0, 1]."""
+    import numpy as np
+
+    for r in results:
+        d = r.boxes.data
+        require(len(d) == KW["max_det"], f"expected {KW['max_det']} detections, got {len(d)}")
+        require(bool(np.isfinite(d).all()), "non-finite detections")
+        require(bool((d[:, [0, 2]] >= 0).all() and (d[:, [0, 2]] <= frame_hw[1]).all()
+                     and (d[:, [1, 3]] >= 0).all() and (d[:, [1, 3]] <= frame_hw[0]).all()), "boxes outside the image")
+        require(bool((d[:, 4] > 0).all() and (d[:, 4] <= 1).all()), "scores outside (0, 1]")
+
+
 def phase_main_path(dev):
     import numpy as np
     import torch
@@ -343,7 +549,7 @@ def phase_main_path(dev):
     rng = np.random.default_rng(0)
     # 480x640 BGR frames letterbox to 640x640 by padding alone (no resize library needed)
     imgs = [rng.integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8) for _ in range(16)]
-    kw = dict(imgsz=IMGSZ, conf=0.0, iou=0.45, max_det=300)
+    kw = KW
 
     # seeded random weights; BN statistics calibrated on four frames so that
     # activations keep unit scale through the depth and detections depend on
@@ -364,13 +570,7 @@ def phase_main_path(dev):
     log(f"[main] predict bs1 + bs16 launches: {launches}")
     require(launches["stem"] == 2 and launches["nms"] == 2, "main path did not launch the stem and NMS kernels")
     require(len(r1) == 1 and len(r16) == 16, "result counts")
-    for r in r1 + r16:
-        d = r.boxes.data
-        require(len(d) == kw["max_det"], f"expected {kw['max_det']} detections, got {len(d)}")
-        require(bool(np.isfinite(d).all()), "non-finite detections")
-        require(bool((d[:, [0, 2]] >= 0).all() and (d[:, [0, 2]] <= FRAME_HW[1]).all()
-                     and (d[:, [1, 3]] >= 0).all() and (d[:, [1, 3]] <= FRAME_HW[0]).all()), "boxes outside the image")
-        require(bool((d[:, 4] > 0).all() and (d[:, 4] <= 1).all()), "scores outside (0, 1]")
+    check_detections(r1 + r16)
     counts = [len(r.boxes) for r in r16]
     log(f"[main] detections per image (bs16): {counts}; image 0 top: {np.round(r1[0].boxes.data[0], 2).tolist()}")
 
@@ -473,6 +673,98 @@ def phase_fused_esmoe_path(dev, model, state, imgs):
             f"{[round(t / bs, 4) for t in runs['base']]}, with fused_esmoe_fuse {[round(t / bs, 4) for t in runs['esmoe']]}; "
             f"predict() with letterbox and Results {host_ms / bs:.3f} ms/img (host clock)")
     return moe, launches, e2e
+
+
+def decode_err(a, b):
+    """(box, logit) max abs difference of two [B, A, 4+nc] raw-score decodes."""
+    return (a[..., :4] - b[..., :4]).abs().max().item(), (a[..., 4:] - b[..., 4:]).abs().max().item()
+
+
+def phase_v0_1_path(dev, base, imgs):
+    """yolo-master-v0_1-n's predict path (OptimizedMOEImproved blocks of 4/8/16
+    SimpleExperts, top-2, sparse gathered dispatch), seeded weights with BN
+    calibrated on four frames, as the main path."""
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    v01 = YOLO("yolo-master-v0_1-n", device=dev)
+    x_cal, _ = DetectionPredictor(v01.model, imgsz=IMGSZ).preprocess(imgs[:4])
+    calibrate_bn(v01.model, x_cal)
+    state = {k: v.detach().clone() for k, v in v01.model.state_dict().items()}
+    cpu = YOLO("yolo-master-v0_1-n", device="cpu").load_state_dict(state)
+    v01.fuse()
+    cpu.fuse()
+    require(v01.model.sparse_inference, "sparse eval is the default")
+
+    reset_launches()
+    r1 = v01.predict(imgs[0], batch=1, **KW)
+    r16 = v01.predict(imgs, batch=16, **KW)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[v0_1] predict bs1 + bs16 launches: {launches}")
+    require(launches["stem"] == 2 and launches["nms"] == 2, "the v0_1 path did not launch the stem and NMS kernels")
+    require(len(r1) == 1 and len(r16) == 16, "v0_1 result counts")
+    check_detections(r1 + r16)
+    log(f"[v0_1] image 0 top: {np.round(r1[0].boxes.data[0], 2).tolist()}")
+
+    # GPU vs CPU (the same port and weights), and sparse vs dense eval on the card
+    pred = v01._predictor
+    x, _ = pred.preprocess(imgs[:2])
+    with torch.inference_mode():
+        full_gpu = v01.model.head.decode(v01.model(x), raw_scores=True).cpu()
+        full_cpu = cpu.model.head.decode(cpu.model(x.cpu()), raw_scores=True)
+        v01.model.sparse_inference = False
+        full_dense = v01.model.head.decode(v01.model(x), raw_scores=True).cpu()
+        v01.model.sparse_inference = True
+    (box_err, logit_err), (sd_box, sd_logit) = decode_err(full_gpu, full_cpu), decode_err(full_gpu, full_dense)
+    log(f"[v0_1] GPU vs CPU decode, all {full_gpu.shape[1]} anchors: box max err {box_err:.3e} px, logit max err "
+        f"{logit_err:.3e}; sparse vs dense eval on the card: box {sd_box:.3e} px, logit {sd_logit:.3e}")
+    require(box_err <= 5e-2 and logit_err <= 1e-3, "v0_1 GPU and CPU decode disagree beyond 5e-2 px / 1e-3")
+    require(sd_box <= 5e-2 and sd_logit <= 1e-3, "v0_1 sparse and dense eval disagree beyond 5e-2 px / 1e-3")
+
+    # host cost per forward of the three blocks' expert banks: restacked on every
+    # call (stack_expert_params) against kept until a parameter changes
+    # (expert_bank, what sparse eval calls); 20 calls enqueued, then one sync
+    from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved
+    from yolo_master_tpu_torch.nn.moe.dispatch import expert_bank, stack_expert_params
+
+    banks = [m.experts for m in v01.model.modules() if isinstance(m, OptimizedMOEImproved)]
+    require(len(banks) == 3, f"v0_1-n has three MoE blocks, found {len(banks)}")
+
+    def host_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    restack_ms = host_ms(lambda: [stack_expert_params(e) for e in banks])
+    kept_ms = host_ms(lambda: [expert_bank(e) for e in banks])
+    log(f"[v0_1] expert banks of the 3 MoE blocks, per forward (host clock): restacked {restack_ms:.4f} ms, "
+        f"kept {kept_ms:.4f} ms")
+
+    # device time per image, uint8 batch on the card -> detections: v0_1 in
+    # sparse and in dense eval, beside yolo-master-n, in turns
+    e2e = {}
+    for bs in (1, 16):
+        xb, _ = pred.preprocess(imgs[:bs])
+        runs = {"yolo-master-n": [], "sparse": [], "dense": []}
+        for name in ("yolo-master-n", "sparse", "dense", "dense", "sparse", "yolo-master-n"):
+            v01.model.sparse_inference = name != "dense"
+            run = (base if name == "yolo-master-n" else v01)._predictor.run
+            runs[name].append(cuda_ms(lambda: run(xb), reps=10, warmup=2) / bs)
+        v01.model.sparse_inference = True
+        e2e[bs] = {k: statistics.median(v) for k, v in runs.items()}
+        log(f"[e2e] bs={bs}: device ms/img, yolo-master-n {[round(t, 4) for t in runs['yolo-master-n']]}, "
+            f"yolo-master-v0_1-n sparse eval {[round(t, 4) for t in runs['sparse']]}, "
+            f"dense eval {[round(t, 4) for t in runs['dense']]}")
+    return v01, launches, e2e
 
 
 def phase_sahi(dev, moe):
@@ -585,11 +877,24 @@ def main():
     nms_res = phase_nms(dev)
     esmoe_res = phase_esmoe(dev)
     cw_res = phase_cw_nms(dev)
+    gm_res, gm_launches = phase_moe(dev)
+    phase_sparse_esmoe(dev)
     model, state, imgs, main_launches = phase_main_path(dev)
+    c3k2_res, c3k2_launches = phase_c3k2(dev, model, imgs)
     moe, moe_launches, _ = phase_fused_esmoe_path(dev, model, state, imgs)
+    v01, _, _ = phase_v0_1_path(dev, model, imgs)
     sahi_launches = phase_sahi(dev, moe)
     x16, _ = model._predictor.preprocess(imgs)
-    phase_profile({"predict path": model._predictor.run, "with fused_esmoe_fuse": moe._predictor.run}, x16)
+    def v01_dense(xb):
+        v01.model.sparse_inference = False
+        try:
+            return v01._predictor.run(xb)
+        finally:
+            v01.model.sparse_inference = True
+
+    phase_profile({"predict path": model._predictor.run, "with fused_esmoe_fuse": moe._predictor.run,
+                   "yolo-master-v0_1-n predict path": v01._predictor.run, "yolo-master-v0_1-n, dense eval": v01_dense},
+                  x16)
     phase_imports()
 
     # ES_MOE: the four placements of one bs-16 forward, summed
@@ -597,6 +902,12 @@ def main():
     es_sum = {k: sum(r[k] for r in es16) for k in ("ms", "plain_ms", "module_ms", "bound_ms")}
     es_sum.update(max_abs_err=max(r["max_abs_err"] for r in es16), bound_by="operations")
     require(all(r["bound_by"] == "operations" for r in es16), "ES_MOE bound_by")
+    # C3k2: layers 2 and 5 of one bs-16 forward, summed
+    c16 = [c3k2_res[(16, i, 1)] for i in C3K2_LAYERS]
+    c_sum = {k: sum(r[k] for r in c16) for k in ("ms", "plain_ms", "module_ms", "bound_ms")}
+    c_sum.update(max_abs_err=max(r["max_abs_err"] for r in c16), bound_by="operations")
+    require(all(r["bound_by"] == "operations" for r in c16), "C3k2 bound_by")
+    gm = gm_res[(16, MOE_BANKS[0][0])]
     kernels = [
         kernel_entry("fused_stem", "stem.cu", "pallas_stem.py:177", main_launches["stem"], stem_res[16],
                      "uint8 [16,640,640,3] -> [16,160,160,32]"),
@@ -607,6 +918,11 @@ def main():
                      "[16,20,20,256] summed", module_ms=es_sum["module_ms"]),
         kernel_entry("batched_cw_nms", "cw_nms.cu", "pallas_nms.py:215", sahi_launches["cw_nms"],
                      cw_res[(1, 4096, True)], "B=1 N=4096 max_det=300 weighted_iou"),
+        kernel_entry("gathered_expert_matmul", "moe.cu", "pallas_moe.py:45", gm_launches, gm,
+                     "[16,6400,128] x [4,128,256], K=2 (v0_1-n layer 5's expert bank)", library_ms=gm["library_ms"]),
+        kernel_entry("fused_c3k2", "c3k2.cu", "pallas_c3k2.py:152", c3k2_launches, c_sum,
+                     "B=16, yolo-master-n layers 2 [16,160,160,32]->64 and 5 [16,80,80,64]->128 summed "
+                     "(also replaces pallas_c3k2_cf, pallas_c3k2.py:239)", module_ms=c_sum["module_ms"]),
     ]
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

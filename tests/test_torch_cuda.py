@@ -11,11 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+from yolo_master_tpu_torch.nn.layers import C3k2
 from yolo_master_tpu_torch.nn.moe import ES_MOE, FusedESMOE
+from yolo_master_tpu_torch.ops.c3k2 import fused_c3k2, fused_c3k2_plain, prepare_c3k2_weights
 from yolo_master_tpu_torch.ops.cuda_nms import (batched_cw_nms, batched_cw_nms_plain, batched_greedy_nms,
                                                 batched_greedy_nms_plain, greedy_nms)
 from yolo_master_tpu_torch.ops.esmoe import fused_esmoe, fused_esmoe_plain, pack_esmoe_params
+from yolo_master_tpu_torch.ops.moe import dense_expert_matmul, gathered_expert_matmul
 from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_weight_layout
+from yolo_master_tpu_torch.utils.fuse import fuse_bn
 
 pytestmark = pytest.mark.cuda
 
@@ -175,3 +179,99 @@ def test_cw_nms_kernel_counts_launches_and_rejects_too_many_candidates(dev):
     boxes, scores = _candidates(1, 20000, dev)
     with pytest.raises(ValueError, match="shared memory"):
         batched_cw_nms(boxes, scores, 0.45, 300)
+
+
+def _matmul_inputs(b, n, c, o, e, k, device, seed=0):
+    """Row 0 repeats one expert; the last row has a zero weight."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(device)
+    w = torch.from_numpy((rng.standard_normal((e, c, o)) / c ** 0.5).astype(np.float32)).to(device)
+    idx = rng.integers(0, e, (b, k)).astype(np.int32)
+    idx[0, :] = idx[0, 0]
+    wts = rng.uniform(0.2, 0.8, (b, k)).astype(np.float32)
+    wts[-1, -1] = 0.0
+    return x, w, torch.from_numpy(idx).to(device), torch.from_numpy(wts).to(device)
+
+
+@pytest.mark.parametrize("b,n,c,o,e,k", [(2, 128, 32, 64, 8, 2), (3, 100, 36, 20, 4, 3), (16, 6400, 128, 256, 4, 2),
+                                         (2, 400, 256, 512, 16, 2), (1, 1, 4, 4, 2, 1)])
+def test_gathered_matmul_kernel_matches_plain(dev, b, n, c, o, e, k):
+    """Ragged N and O tiles, C not a multiple of the 8-channel chunk, repeated
+    experts and zero weights. Tolerance 1e-4 + 1e-4*|ref|: fp32 sums in
+    another order, and the weight applied before the sum over C."""
+    x, w, idx, wts = _matmul_inputs(b, n, c, o, e, k, dev)
+    out = gathered_expert_matmul(x, w, idx, wts)
+    ref = dense_expert_matmul(x, w, idx, wts)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (b, n, o)
+    assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+
+
+def test_gathered_matmul_counts_launches_skips_bad_indices_and_rejects_bad_input(dev):
+    x, w, idx, wts = _matmul_inputs(2, 64, 32, 64, 4, 2, dev)
+    before = gathered_expert_matmul.launches
+    idx[1, 1] = 4  # outside [0, E): adds nothing
+    out = gathered_expert_matmul(x, w, idx, wts)
+    ref = dense_expert_matmul(x, w, idx, wts)
+    torch.cuda.synchronize()
+    assert gathered_expert_matmul.launches == before + 1
+    assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+    with pytest.raises(TypeError):
+        gathered_expert_matmul(x.half(), w, idx, wts)
+    with pytest.raises(TypeError):
+        gathered_expert_matmul(x, w, idx.long(), wts)
+    with pytest.raises(NotImplementedError):
+        gathered_expert_matmul(x[..., :30].contiguous(), w[:, :30].contiguous(), idx, wts)
+    with pytest.raises(ValueError, match="contiguous"):
+        gathered_expert_matmul(torch.cat([x, x], -1)[..., :32], w, idx, wts)
+    assert gathered_expert_matmul.launches == before + 1
+
+
+def _c3k2_block(c1, c2, n, device, seed=0):
+    """A C3k2 (Bottleneck inner blocks) with seeded weights and BN statistics, BN folded."""
+    g = torch.Generator().manual_seed(seed)
+    block = C3k2(c1, c2, n=n, c3k=False, e=0.25)
+    with torch.no_grad():
+        for bn in (m for m in block.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+            bn.running_mean.copy_(torch.randn(bn.num_features, generator=g) * 0.2)
+            bn.running_var.copy_(torch.rand(bn.num_features, generator=g) * 1.5 + 0.5)
+        for conv in (m for m in block.modules() if isinstance(m, torch.nn.Conv2d)):
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) / conv.weight[0].numel() ** 0.5)
+    block.eval()
+    fuse_bn(block)
+    return block.to(device, memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("b,hw,c1,c2,n", [(2, (16, 20), 32, 64, 1), (1, (37, 45), 32, 64, 2), (2, (160, 160), 32, 64, 1),
+                                          (2, (80, 80), 64, 128, 1), (1, (5, 3), 32, 64, 2)])
+def test_c3k2_kernel_matches_plain_and_module(dev, b, hw, c1, c2, n):
+    """Ragged tiles, images smaller than a tile, n = 1 and 2 (halos of 2 and 4
+    pixels). Tolerance 1e-4 + 1e-4*|ref| against the plain version and the
+    module (cuDNN, TF32 off): fp32 sums in another order."""
+    block = _c3k2_block(c1, c2, n, dev)
+    w = prepare_c3k2_weights(block)
+    x = torch.randn(b, *hw, c1, generator=torch.Generator().manual_seed(1)).to(dev)
+    out = fused_c3k2(x, w, block.c, n)
+    ref = fused_c3k2_plain(x, w, block.c, n)
+    with torch.no_grad():
+        mod = block(x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (b, *hw, c2)
+    for r in (ref, mod):
+        assert bool(((out - r).abs() <= 1e-4 + 1e-4 * r.abs()).all())
+
+
+def test_c3k2_kernel_counts_launches_and_rejects_bad_input(dev):
+    block = _c3k2_block(32, 64, 1, dev)
+    w = prepare_c3k2_weights(block)
+    x = torch.randn(1, 16, 16, 32, device=dev)
+    before = fused_c3k2.launches
+    fused_c3k2(x, w, block.c, 1)
+    assert fused_c3k2.launches == before + 1
+    with pytest.raises(TypeError):
+        fused_c3k2(x.half(), w, block.c, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_c3k2(x.transpose(1, 2), w, block.c, 1)
+    with pytest.raises(NotImplementedError):
+        fused_c3k2(x, w, block.c, 5)
+    assert fused_c3k2.launches == before + 1

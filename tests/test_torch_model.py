@@ -24,6 +24,7 @@ from yolo_master_tpu.nn import layers as jlayers
 from yolo_master_tpu.nn.module import Context
 from yolo_master_tpu.nn.moe import ES_MOE as JaxESMOE
 from yolo_master_tpu.nn.tasks import DetectionModel as JaxDetectionModel
+from yolo_master_tpu.utils.fuse import fuse_bn_params
 from yolo_master_tpu.utils.torch_import import import_state_dict
 from yolo_master_tpu_torch.nn import heads as theads
 from yolo_master_tpu_torch.nn import layers as tlayers
@@ -258,7 +259,7 @@ def test_unported_module_names_its_roadmap_item():
 
 
 @pytest.mark.parametrize("name", ["yolo-master-seg-n", "yolo-master-cls-n", "yolo-master-world-n",
-                                  "yolo-master-dymoe-n", "yolo-master-v0_1-n", "yolo-master-v0_10-n",
+                                  "yolo-master-dymoe-n", "yolo-master-v0_10-n",
                                   "rtdetr-master-hgnet-l", "yolo26-master-n"])
 def test_other_model_yamls_name_their_roadmap_item(name):
     """Every graph YAML of the JAX package beyond yolo-master.yaml has no copy in
@@ -267,6 +268,96 @@ def test_other_model_yamls_name_their_roadmap_item(name):
         DetectionModel(name)
 
 
-def test_sparse_es_moe_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ES_MOE(32, 32, top_k=2)
+# -- yolo-master-v0_1-n: OptimizedMOEImproved blocks with sparse gathered dispatch --------
+
+def _trainable(tree):
+    """Leaves the JAX package counts as parameters (tests/test_model_configs.py:trainable)."""
+    if isinstance(tree, dict):
+        return sum(_trainable(v) for k, v in tree.items() if k not in ("mean", "var") and not k.startswith("_"))
+    return int(np.asarray(tree).size)
+
+
+@pytest.fixture(scope="module")
+def v0_1():
+    """v0_1-n at 64 px: the JAX model and the port on the same weights, JAX
+    init as it is ("default") and with BN calibrated in the port and carried
+    back ("calibrated"), both in sparse eval (the default)."""
+    jm = JaxDetectionModel("yolo-master-v0_1-n")
+    init = _np_tree(jax.jit(jm.init)(jax.random.PRNGKey(0)))
+    forward = jax.jit(jm.forward_predict)
+    x = np.random.default_rng(5).random((2, 64, 64, 3)).astype(np.float32)
+    out = {}
+    for setting in ("default", "calibrated"):
+        port = DetectionModel("yolo-master-v0_1-n")
+        port.load_state_dict(state_dict_from_jax(init), strict=True)
+        if setting == "calibrated":
+            calibrate_bn(port, torch.from_numpy(x))
+        port.eval()
+        params = import_state_dict(init, port.state_dict(), strict=True)
+        out[setting] = (port, params, np.asarray(forward(params, jnp.asarray(x))))
+    return jm, init, x, out, forward
+
+
+def test_v0_1_builds_with_the_jax_parameter_count(v0_1):
+    """7,546,984 parameters in the reference, less the 16 frozen DFL weights."""
+    _, init, _, out, _ = v0_1
+    port = out["default"][0]
+    assert sum(p.numel() for p in port.parameters()) == _trainable(init) == 7_546_984 - 16
+    assert [type(m).__name__ for m in port.model if type(m).__name__ == "OptimizedMOEImproved"] == [
+        "OptimizedMOEImproved"] * 3
+    assert [m.num_experts for m in port.model if hasattr(m, "num_experts")] == [4, 8, 16]
+
+
+def test_v0_1_weight_round_trip_through_torch_import(v0_1):
+    _, init, _, out, _ = v0_1
+    back = import_state_dict(init, out["default"][0].state_dict(), strict=True)
+    for a, b in zip(jax.tree_util.tree_leaves(init), jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("setting", ["default", "calibrated"])
+def test_v0_1_forward_predict_matches_jax(v0_1, setting):
+    """Sparse eval, the port against JAX: at the JAX init within 2e-3 px and
+    1e-5 on scores; with calibrated BN within 4x the port's own fp32-vs-fp64
+    error (floors 2e-3 px, 1e-5), as test_forward_predict_matches_jax_calibrated_bn.
+    The port's dense eval (sparse_inference=False) agrees with its sparse eval
+    within the same limits."""
+    _, _, x, out, _ = v0_1
+    port, _, ref = out[setting]
+    with torch.no_grad():
+        y = port.forward_predict(torch.from_numpy(x)).numpy()
+        port.sparse_inference = False
+        assert not any(getattr(m, "sparse_inference", False) for m in port.model.modules())
+        yd = port.forward_predict(torch.from_numpy(x)).numpy()
+        port.sparse_inference = True
+    assert y.shape == ref.shape == (2, 84, 84)
+    if setting == "default":
+        tols = ((np.s_[..., :4], 2e-3), (np.s_[..., 4:], 1e-5))
+    else:
+        assert np.abs(ref[0] - ref[1]).max() > 1.0  # the output depends on the image
+        noise = _fp32_noise(port, x)
+        tols = ((np.s_[..., :4], max(4 * noise[..., :4].max(), 2e-3)), (np.s_[..., 4:], max(4 * noise[..., 4:].max(), 1e-5)))
+    for sl, tol in tols:
+        assert np.abs(y[sl] - ref[sl]).max() <= tol
+        assert np.abs(yd[sl] - y[sl]).max() <= tol
+
+
+def test_v0_1_fuse_bn_folds_what_jax_folds(v0_1):
+    """fuse_bn folds the {conv, bn} pairs and leaves the routers' and shared
+    experts' [PlainConv, BatchNorm] sequences, exactly as fuse_bn_params does
+    to the JAX tree: that tree loads strict into the folded port, and the two
+    folded models agree within 4x the folded port's own fp32-vs-fp64 error
+    (floors 2e-3 px, 1e-5): folding changes where fp32 rounds."""
+    _, _, x, out, forward = v0_1
+    port, params, _ = out["calibrated"]
+    fused = copy.deepcopy(port)
+    fuse_bn(fused)
+    assert sum(isinstance(m, torch.nn.BatchNorm2d) for m in fused.modules()) == 9  # 3 blocks x (2 router + 1 shared)
+    jfused = _np_tree(fuse_bn_params(params))
+    fused.load_state_dict(state_dict_from_jax(jfused), strict=True)
+    ref = np.asarray(forward(jfused, jnp.asarray(x)))
+    with torch.no_grad():
+        y = fused.forward_predict(torch.from_numpy(x)).numpy()
+    noise = _fp32_noise(fused, x)
+    assert np.abs(y[..., :4] - ref[..., :4]).max() <= max(4 * noise[..., :4].max(), 2e-3)
+    assert np.abs(y[..., 4:] - ref[..., 4:]).max() <= max(4 * noise[..., 4:].max(), 1e-5)

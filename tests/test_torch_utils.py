@@ -35,7 +35,7 @@ def test_model_name_helpers_match_jax(name):
             utils.find_model_yaml(name)
 
 
-@pytest.mark.parametrize("rel", ["models/yolo-master.yaml", "datasets/coco.yaml"])
+@pytest.mark.parametrize("rel", ["models/yolo-master.yaml", "models/yolo-master-v0_1.yaml", "datasets/coco.yaml"])
 def test_copied_yamls_load_equal_to_jax(rel):
     """The port's cfg/ holds byte-for-byte copies, and they load equal."""
     ours, theirs = utils.CFG_DIR / rel, jutils.CFG_DIR / rel

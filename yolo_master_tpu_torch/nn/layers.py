@@ -216,6 +216,33 @@ class A2C2f(nn.Module):
         return y
 
 
+def get_safe_groups(channels: int, groups: int = 8) -> int:
+    """Largest group count <= ``groups`` that divides ``channels``."""
+    g = min(groups, channels)
+    while g > 1 and channels % g:
+        g -= 1
+    return max(g, 1)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm with a safe group count and eps 1e-5 (the MoE experts' norm)."""
+
+    def __init__(self, c: int, groups: int = 8, eps: float = 1e-5):
+        super().__init__(get_safe_groups(c, groups), c, eps=eps)
+
+
+class PlainConv(nn.Conv2d):
+    """A bare conv2d with 'same' padding, no norm or activation, optional bias."""
+
+    def __init__(self, c1, c2, k=1, s=1, g=1, bias=False):
+        super().__init__(c1, c2, k, s, autopad(k), groups=g, bias=bias)
+
+
+def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k average pooling with stride k over VALID windows (no padding), summed in fp32."""
+    return F.avg_pool2d(x.float(), k).to(x.dtype)
+
+
 class Concat(nn.Module):
     """Concatenate a list of maps along channels."""
 

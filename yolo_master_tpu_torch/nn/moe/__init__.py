@@ -1,7 +1,10 @@
-"""ES-MoE blocks of the yolo-master-n graph (dense eval path and its fused deploy form)."""
+"""MoE blocks of the ported graphs: ES_MOE (dense and sparse eval, and its fused
+deploy form) and OptimizedMOEImproved / ModularRouterExpertMoE (eval)."""
 
 from .es_moe import ES_MOE, FusedESMOE
 from .experts import DepthwiseSeparableConv, EfficientExpertGroup
+from .mixtures import EfficientSpatialRouter, ModularRouterExpertMoE, OptimizedMOEImproved, SimpleExpert
 from .routers import DynamicRoutingLayer
 
-__all__ = ["ES_MOE", "FusedESMOE", "DepthwiseSeparableConv", "EfficientExpertGroup", "DynamicRoutingLayer"]
+__all__ = ["ES_MOE", "FusedESMOE", "DepthwiseSeparableConv", "EfficientExpertGroup", "DynamicRoutingLayer",
+           "EfficientSpatialRouter", "ModularRouterExpertMoE", "OptimizedMOEImproved", "SimpleExpert"]

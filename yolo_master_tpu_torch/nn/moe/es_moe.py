@@ -1,21 +1,26 @@
 """ES_MOE, the YOLO-Master routed block (counterpart of ``yolo_master_tpu/nn/moe/es_moe.py``).
 
-Eval on the masked-dense path: every expert runs, and the output is the
+Dense eval (``top_k=None``): every expert runs, and the output is the
 routing-weighted sum, then BatchNorm + SiLU (``norm.0`` in the state_dict;
-left unfolded by deploy fusion, as in the JAX package). :class:`FusedESMOE`
-is the deploy form that runs the whole block as one CUDA kernel
-(``utils/fuse.py:fused_esmoe_fuse``). The sparse top-k and expert-parallel
-paths are not ported yet.
+left unfolded by deploy fusion, as in the JAX package). Sparse eval (``top_k``
+below the expert count, ``use_sparse_inference``, and the model's
+``sparse_inference`` switch on, as by default): the top-k weights, pruned by
+``dynamic_threshold`` and renormalised, and only the selected experts run
+(``nn/moe/dispatch.py``). :class:`FusedESMOE` is the deploy form of a dense
+block as one CUDA kernel (``utils/fuse.py:fused_esmoe_fuse``). The
+expert-parallel path is not ported yet (ROADMAP.md §1.H item 20).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
 import torch.nn as nn
 
 from ...ops.esmoe import fused_esmoe, pack_esmoe_params
 from ..layers import BN_EPS, BN_MOMENTUM
+from .dispatch import expert_bank, gather_dispatch, top_k_from_weights
 from .experts import EfficientExpertGroup
 from .routers import DynamicRoutingLayer
 
@@ -35,10 +40,12 @@ class ES_MOE(nn.Module):  # noqa: N801 - the graph YAMLs' module name
         super().__init__()
         if in_channels < 1 or (out_channels is not None and out_channels < 1):
             raise ValueError("in_channels and out_channels must be positive")
-        if top_k is not None:
-            raise NotImplementedError(
-                "ES_MOE with top_k (soft top-k routing and sparse gathered dispatch) is not ported yet: "
-                "ROADMAP.md §1.D item 10 (sparse ES_MOE eval)")
+        if num_experts < 1:
+            raise ValueError(f"num_experts must be positive, got {num_experts}")
+        if top_k is not None and not 1 <= top_k <= num_experts:
+            raise ValueError(f"top_k must be in [1, {num_experts}], got {top_k}")
+        if not 0.0 <= dynamic_threshold <= 1.0:
+            raise ValueError(f"dynamic_threshold must be in [0, 1], got {dynamic_threshold}")
         if max_kernel_size < 3:
             raise ValueError(f"max_kernel_size must be at least 3, got {max_kernel_size}")
         max_kernel_size = int(max_kernel_size)
@@ -46,24 +53,45 @@ class ES_MOE(nn.Module):  # noqa: N801 - the graph YAMLs' module name
             max_kernel_size -= 1
         out_channels = out_channels or in_channels
         self.num_experts = num_experts
-        self.routing = DynamicRoutingLayer(in_channels, num_experts, reduction)
+        self.top_k = top_k
+        self.use_sparse_inference = use_sparse_inference
+        self.dynamic_threshold = dynamic_threshold
+        self.sparse_inference = True  # the model-level switch (DetectionModel.sparse_inference)
+        self.routing = DynamicRoutingLayer(in_channels, num_experts, reduction, top_k)
         self.experts = nn.ModuleList(
             EfficientExpertGroup(in_channels, out_channels, k)
             for k in expert_kernel_sizes(num_experts, max_kernel_size))
         self.norm = nn.Sequential(nn.BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM), nn.SiLU())
 
+    def _sparse_block(self) -> bool:
+        return self.use_sparse_inference and self.top_k is not None and self.top_k < self.num_experts
+
+    def _sparse_retained_weights(self, w: torch.Tensor) -> torch.Tensor:
+        """Top-k weights [B, E] -> those of at least ``dynamic_threshold`` (and
+        always the largest), renormalised."""
+        if self.dynamic_threshold <= 0:
+            return w
+        wf = w.float()
+        retained = (wf >= wf.max(-1, keepdim=True).values) | (wf >= self.dynamic_threshold)
+        wf = wf * retained
+        return (wf / wf.sum(-1, keepdim=True).clamp_min(1e-9)).to(w.dtype)
+
     def forward(self, x):
         w, _ = self.routing(x)  # [B, E]
-        out = None
-        for i, expert in enumerate(self.experts):
-            y = expert(x) * w[:, i, None, None, None].to(x.dtype)
-            out = y if out is None else out + y
+        if not self.training and self.sparse_inference and self._sparse_block():
+            wts, idx = top_k_from_weights(self._sparse_retained_weights(w), self.top_k)
+            out = gather_dispatch(self.experts[-1], expert_bank(self.experts), x, idx, wts)
+        else:  # masked dense: zeros in w for the experts outside the top-k
+            out = None
+            for i, expert in enumerate(self.experts):
+                y = expert(x) * w[:, i, None, None, None].to(x.dtype)
+                out = y if out is None else out + y
         return self.norm(out)
 
     def fusable(self) -> bool:
         """Whether ``fused_esmoe_fuse`` can swap this block for :class:`FusedESMOE`:
-        dense eval (always, in the port) and stride-1 experts."""
-        return all(e.conv.depthwise.stride == (1, 1) for e in self.experts)
+        a block that evaluates densely (no sparse top-k path) with stride-1 experts."""
+        return not self._sparse_block() and all(e.conv.depthwise.stride == (1, 1) for e in self.experts)
 
 
 class FusedESMOE(nn.Module):

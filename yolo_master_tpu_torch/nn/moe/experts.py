@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..layers import BN_EPS, BN_MOMENTUM, fold_bn
 
@@ -21,6 +22,26 @@ class DepthwiseSeparableConv(nn.Module):
 
     def forward(self, x):
         return self.act(self.bn(self.pointwise(self.depthwise(x))))
+
+    def forward_gathered(self, sel, x):
+        """Expert (b, k) on sample b, for gathered banks ``sel`` [B, K, ...]
+        (``nn/moe/dispatch.py``): x [B, C, H, W] -> [B, K, O, H', W']."""
+        dw = sel["depthwise.weight"]  # [B, K, C, 1, k, k], centre-padded
+        b, kk, c, _, k, _ = dw.shape
+        xr = x.unsqueeze(1).expand(b, kk, *x.shape[1:]).reshape(1, b * kk * c, *x.shape[2:])
+        d = F.conv2d(xr, dw.reshape(b * kk * c, 1, k, k), stride=self.depthwise.stride, padding=(k - 1) // 2,
+                     groups=b * kk * c)
+        hw = d.shape[2:]
+        pw = sel["pointwise.weight"].flatten(3)  # [B, K, O, C]
+        y = torch.bmm(pw.flatten(0, 1), d.reshape(b * kk, c, -1))  # [B*K, O, H'W']
+        if "pointwise.bias" in sel:  # BN folded by fuse()
+            y = y + sel["pointwise.bias"].flatten(0, 1)[..., None]
+        else:
+            mean, var = sel["bn.running_mean"], sel["bn.running_var"]
+            scale, shift = sel["bn.weight"], sel["bn.bias"]
+            y = ((y - mean.flatten(0, 1)[..., None]) / torch.sqrt(var.flatten(0, 1)[..., None] + self.bn.eps)
+                 * scale.flatten(0, 1)[..., None] + shift.flatten(0, 1)[..., None])
+        return F.silu(y).reshape(b, kk, -1, *hw)
 
     @torch.no_grad()
     def fuse(self):
@@ -44,3 +65,6 @@ class EfficientExpertGroup(nn.Module):
 
     def forward(self, x):
         return self.conv(x)
+
+    def forward_gathered(self, sel, x):
+        return self.conv.forward_gathered({k[len("conv."):]: v for k, v in sel.items()}, x)

@@ -2,8 +2,9 @@
 
 Counterpart of ``yolo_master_tpu/nn/tasks.py`` (``parse_model``,
 ``DetectionModel``) with the same scaling rules, over the same YAML files.
-The registry holds the modules of the yolo-master-n graph; any other module
-name raises ``KeyError`` naming the ROADMAP item that ports it.
+The registry holds the modules of the yolo-master-n and yolo-master-v0_1
+graphs; any other module name raises ``KeyError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch.nn as nn
 from ..utils import find_model_yaml, guess_scale, make_divisible, yaml_load
 from .heads import Detect
 from .layers import A2C2f, ABlock, Bottleneck, C2f, C3, C3k, C3k2, Concat, Conv, DWConv, FusedStem, Upsample
-from .moe import ES_MOE
+from .moe import ES_MOE, OptimizedMOEImproved
 
 MODULE_REGISTRY = {
     "Conv": Conv,
@@ -32,9 +33,13 @@ MODULE_REGISTRY = {
     "nn.Upsample": Upsample,
     "Detect": Detect,
     "ES_MOE": ES_MOE,
+    "ModularRouterExpertMoE": OptimizedMOEImproved,
+    "OptimizedMOEImproved": OptimizedMOEImproved,
 }
 REPEAT_MODULES = {C2f, C3, C3k, C3k2, A2C2f}
-SCALED_MODULES = {Conv, DWConv, Bottleneck, C2f, C3, C3k, C3k2, A2C2f, ES_MOE}  # c2 scales with the width
+# c2 scales with the width and args become [c1, c2, ...]; for OptimizedMOEImproved
+# this is the JAX package's mixture rule (yolo_master_tpu/nn/tasks.py:218-226)
+SCALED_MODULES = {Conv, DWConv, Bottleneck, C2f, C3, C3k, C3k2, A2C2f, ES_MOE, OptimizedMOEImproved}
 _LITERALS = {"None": None, "True": True, "False": False, "none": None, "true": True, "false": False}
 
 
@@ -154,6 +159,7 @@ class DetectionModel(nn.Module):
             self.yaml["nc"] = nc
         self.nc = self.yaml.get("nc", 80)
         self.uint8_input = False  # set by utils/fuse.py when /255 is folded into layer 0
+        self._sparse_inference = True
         self.model, self.save = parse_model(self.yaml, ch, scale=scale)
         if not isinstance(self.head, Detect):
             raise ValueError("a detection model must end with Detect")
@@ -161,6 +167,20 @@ class DetectionModel(nn.Module):
         self.head.set_strides(self._probe_strides())
         self.head.bias_init()
         self.stride = max(self.head.strides)
+
+    @property
+    def sparse_inference(self) -> bool:
+        """Whether the MoE blocks with top-k routing evaluate sparsely, computing
+        only the selected experts (default True, the JAX package's
+        ``Context.sparse_inference``); False evaluates them masked-dense."""
+        return self._sparse_inference
+
+    @sparse_inference.setter
+    def sparse_inference(self, on: bool) -> None:
+        self._sparse_inference = bool(on)
+        for m in self.model.modules():
+            if hasattr(m, "sparse_inference"):
+                m.sparse_inference = bool(on)
 
     @property
     def head(self) -> Detect:

@@ -22,7 +22,9 @@ from ..nn.moe.experts import DepthwiseSeparableConv
 def fuse_bn(model) -> None:
     """Fold every Conv+BN and every expert's pointwise+BN pair (``fuse_bn_params``).
 
-    Standalone BatchNorms (the ES_MOE output ``norm.0``) stay as they are.
+    Standalone BatchNorms (the ES_MOE output ``norm.0``, and the
+    [PlainConv, BatchNorm] sequences of the MoE routers and shared experts)
+    stay as they are, as in the JAX package.
     """
     for m in model.modules():
         if isinstance(m, (Conv, DepthwiseSeparableConv)):

@@ -2,7 +2,8 @@
 
 :func:`state_dict_from_jax` is the inverse of
 ``yolo_master_tpu/utils/torch_import.py`` (``_torch_key`` and ``convert``)
-for the modules of the yolo-master-n graph: it maps the JAX parameter tree's
+for the modules of the yolo-master-n and yolo-master-v0_1 graphs (ES_MOE with
+or without top_k, OptimizedMOEImproved): it maps the JAX parameter tree's
 paths to ultralytics state_dict keys and HWIO conv kernels to OIHW. A layer
 that ``pallas_esmoe_fuse`` rewrote (``{"routing", "banks"}``) maps to the
 port's :class:`~..nn.moe.es_moe.FusedESMOE`, whose banks keep the JAX layout.
