@@ -13,6 +13,7 @@ import torch
 
 from yolo_master_tpu_torch.nn.layers import C3k2
 from yolo_master_tpu_torch.nn.moe import ES_MOE, FusedESMOE
+from yolo_master_tpu_torch.ops._tf32 import split_product_check
 from yolo_master_tpu_torch.ops.c3k2 import fused_c3k2, fused_c3k2_plain, prepare_c3k2_weights
 from yolo_master_tpu_torch.ops.cuda_nms import (batched_cw_nms, batched_cw_nms_plain, batched_greedy_nms,
                                                 batched_greedy_nms_plain, greedy_nms)
@@ -32,6 +33,26 @@ def dev():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("depth", [32, 8, 20])
+def test_split_tf32_product_matches_fp64(dev, depth):
+    """csrc/mma_tf32.cuh on its own: one warpgroup's [64, depth] x [depth, N] split
+    product in both wgmma forms (operands from shared memory, N = 64; A from
+    registers, N = 128) against the fp64 product of the same float32 inputs of
+    mixed magnitude. Tolerance 2e-6 * sum_k |a||b|: fp32's rounding step 6e-8
+    times the three products, the dropped lo*lo term and the sum over depth; a
+    one-pass TF32 product is off by 1e-3 of that sum."""
+    rng = np.random.default_rng(depth)
+    a = (rng.standard_normal((64, 32)) * 10.0 ** rng.integers(-2, 3, (64, 32))).astype(np.float32)
+    b = (rng.standard_normal((128, 32)) * 10.0 ** rng.integers(-2, 3, (128, 32))).astype(np.float32)
+    d_ss, d_rs = split_product_check(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), depth)
+    torch.cuda.synchronize()
+    a64, b64 = a[:, :depth].astype(np.float64), b[:, :depth].astype(np.float64)
+    ref, scale = a64 @ b64.T, np.abs(a64) @ np.abs(b64).T
+    for got, cols in ((d_ss, 64), (d_rs, 128)):
+        err = np.abs(got.cpu().numpy().astype(np.float64) - ref[:, :cols])
+        assert (err <= 2e-6 * scale[:, :cols]).all(), (err / scale[:, :cols]).max()
 
 
 def _stem_weights(rng, c0, c1, device):
@@ -131,6 +152,33 @@ def test_esmoe_kernel_matches_plain(dev, b, hw, cin, cout):
     assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
 
 
+@pytest.mark.parametrize("b,hw,cin,cout,ks", [
+    (1, (9, 17), 4, 4, (3,)), (2, (7, 5), 12, 68, (3, 5, 7)), (1, (23, 31), 36, 260, (15,)),
+    (1, (17, 33), 132, 36, (3, 5, 7, 9, 11, 13, 15, 3)), (2, (8, 16), 64, 64, (5, 3)), (1, (1, 1), 8, 8, (7,)),
+])
+def test_esmoe_kernel_tile_tails(dev, b, hw, cin, cout, ks):
+    """What a tensor-core tile can get wrong: C of 4, 12, 36, 132 (the last 32-deep
+    chunk zero-filled, its depth-8 steps partly empty), O of 4, 36, 68, 260 (columns
+    past O in the last 64-wide slice), H and W off the 8x16 tile and below one tile,
+    one to eight experts up to 15x15 (the widest halo). The depthwise bank is
+    random outside each expert's own taps too: neither version may read them.
+    Tolerance 1e-4 + 1e-4*|ref|."""
+    rng = np.random.default_rng(cin + cout)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    e, kmax = len(ks), max(ks)
+    x = t(rng.standard_normal((b, *hw, cin)))
+    w = torch.softmax(t(rng.standard_normal((b, e))), -1)
+    banks = (t(rng.standard_normal((e, kmax, kmax, cin)) / kmax), t(rng.standard_normal((e, cin, cout)) / cin ** 0.5),
+             t(rng.standard_normal((e, cout)) * 0.2), t(rng.uniform(0.5, 1.5, cout)), t(rng.standard_normal(cout) * 0.2),
+             ks)
+    out = fused_esmoe(x, w, *banks)
+    ref = fused_esmoe_plain(x, w, *banks)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (b, *hw, cout)
+    assert bool(torch.isfinite(out).all())
+    assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), (out - ref).abs().max().item()
+
+
 def test_fused_esmoe_module_counts_launches_and_rejects_bad_input(dev):
     block = _esmoe_block(64, 64, dev)
     fused = FusedESMOE(block)
@@ -205,6 +253,27 @@ def test_gathered_matmul_kernel_matches_plain(dev, b, n, c, o, e, k):
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (b, n, o)
     assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("b,n,c,o,e,k", [
+    (1, 1, 4, 4, 8, 1), (1, 63, 12, 68, 8, 3), (2, 129, 36, 260, 8, 1), (1, 6401, 132, 4, 8, 3),
+    (3, 257, 128, 132, 8, 2), (2, 64, 260, 128, 3, 3), (1, 400, 256, 512, 16, 2), (5, 1000, 32, 256, 8, 2),
+])
+def test_gathered_matmul_tile_tails(dev, b, n, c, o, e, k):
+    """What a tensor-core tile can get wrong: C of 4, 12, 36, 132, 260 (the last
+    32-deep chunk zero-filled), O of 4, 68, 132, 260 (columns past O in the last
+    128-wide tile), N of 1, 63, 129, 257, 6401 (rows past N; more tiles than
+    resident blocks), B = 1, K = 1 and 3, E = 8, with a repeated expert, a zero
+    weight and an index outside [0, E). Tolerance 1e-4 + 1e-4*|ref|."""
+    x, w, idx, wts = _matmul_inputs(b, n, c, o, e, k, dev, seed=n)
+    if k > 1:
+        idx[-1, 0] = e  # outside [0, E): adds nothing
+    out = gathered_expert_matmul(x, w, idx, wts)
+    ref = dense_expert_matmul(x, w, idx, wts)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (b, n, o)
+    assert bool(torch.isfinite(out).all())
+    assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), (out - ref).abs().max().item()
 
 
 def test_gathered_matmul_counts_launches_skips_bad_indices_and_rejects_bad_input(dev):

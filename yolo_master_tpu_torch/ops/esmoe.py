@@ -6,10 +6,12 @@
 
 :func:`pack_esmoe_params` stacks an :class:`~..nn.moe.es_moe.ES_MOE` block's
 experts into the JAX package's banks and layout; :func:`fused_esmoe` runs the
-block on them, with the CUDA kernel ``csrc/esmoe.cu`` on a CUDA tensor and
-:func:`fused_esmoe_plain` on a CPU tensor. Tensors are NHWC, as in the JAX
-package: the port's channels_last NCHW feature maps are NHWC in memory, so
-``x.permute(0, 2, 3, 1)`` hands the kernel its layout without a copy.
+block on them, with the CUDA kernel ``csrc/esmoe.cu`` (depthwise taps on the
+CUDA cores, the pointwise product as a split-TF32 product on the tensor cores,
+fp32 accuracy) on a CUDA tensor and :func:`fused_esmoe_plain` on a CPU tensor.
+Tensors are NHWC, as in the JAX package: the port's channels_last NCHW feature
+maps are NHWC in memory, so ``x.permute(0, 2, 3, 1)`` hands the kernel its
+layout without a copy.
 """
 
 from __future__ import annotations
@@ -73,11 +75,13 @@ def fused_esmoe_plain(x, w, dw, pw, pb, gamma, beta, ks) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = load_library("esmoe")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ymt_fused_esmoe.argtypes = [ptr] * 8 + [i32] * 6 + [ctypes.POINTER(i32), ptr]
+    lib.ymt_fused_esmoe.argtypes = [ptr] * 9 + [i32] * 6 + [ctypes.POINTER(i32), ptr]
     lib.ymt_fused_esmoe.restype = i32
-    for fn in (lib.esmoe_smem_bytes, lib.esmoe_max_experts, lib.esmoe_max_kernel):
+    for fn in (lib.esmoe_smem_bytes, lib.esmoe_max_experts, lib.esmoe_max_kernel, lib.esmoe_bank_cpad,
+               lib.esmoe_bank_opad):
         fn.restype = i32
-    lib.esmoe_smem_bytes.argtypes = [i32]
+    for fn in (lib.esmoe_smem_bytes, lib.esmoe_bank_cpad, lib.esmoe_bank_opad):
+        fn.argtypes = [i32]
     lib.esmoe_max_experts.argtypes = []
     lib.esmoe_max_kernel.argtypes = []
     return lib
@@ -91,6 +95,13 @@ def _supported(ks: tuple) -> bool:
     return (1 <= len(ks) <= lib.esmoe_max_experts()
             and all(k % 2 == 1 and 3 <= k <= lib.esmoe_max_kernel() for k in ks)
             and lib.esmoe_smem_bytes(max(ks)) <= SMEM_LIMIT_BYTES)
+
+
+@functools.cache
+def _bank_shape(c: int, o: int) -> tuple:
+    """Padded (O, C) of the scratch bank the kernel transposes and splits pw into."""
+    lib = _lib()
+    return lib.esmoe_bank_opad(o), lib.esmoe_bank_cpad(c)
 
 
 def _check_args(x, w, dw, pw, pb, gamma, beta, ks):
@@ -115,9 +126,9 @@ def _check_args(x, w, dw, pw, pb, gamma, beta, ks):
         if not t.is_contiguous():
             raise ValueError(f"fused_esmoe: {name} must be contiguous "
                              f"(x: a channels_last NCHW map viewed as NHWC)")
-    for name, t in (("x", x), ("pw", pw)):
+    for name, t in (("x", x), ("dw", dw), ("pw", pw)):
         if t.data_ptr() % 16:
-            raise ValueError(f"fused_esmoe: {name} must be 16-byte aligned for the kernel's float4 loads")
+            raise ValueError(f"fused_esmoe: {name} must be 16-byte aligned for the kernel's 16-byte copies")
 
 
 def fused_esmoe(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, pb: torch.Tensor,
@@ -139,9 +150,11 @@ def fused_esmoe(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor, pw: torch.Te
     if out.numel() == 0:
         return out
     ks_arr = (ctypes.c_int * e)(*ks)
+    # scratch for the pointwise weights, transposed and split in TF32 halves: [E, hi/lo, O, C] padded
+    pw_bank = torch.empty((e, 2, *_bank_shape(c, o)), dtype=torch.float32, device=x.device)
     check(_lib().ymt_fused_esmoe(x.data_ptr(), w.data_ptr(), dw.data_ptr(), pw.data_ptr(), pb.data_ptr(),
-                                 gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), b, h, wd, c, o, e, ks_arr,
-                                 stream_ptr(x.device)), "esmoe kernel")
+                                 gamma.data_ptr(), beta.data_ptr(), pw_bank.data_ptr(), out.data_ptr(), b, h, wd, c,
+                                 o, e, ks_arr, stream_ptr(x.device)), "esmoe kernel")
     fused_esmoe.launches += 1
     return out
 

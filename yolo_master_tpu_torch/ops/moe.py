@@ -4,8 +4,9 @@
     out[b] = sum_k wts[b,k] * (x[b] @ w[idx[b,k]])
 
 :func:`gathered_expert_matmul` reads only the K selected experts' weights:
-with the CUDA kernel ``csrc/moe.cu`` on a CUDA tensor, with
-:func:`dense_expert_matmul` (all E experts, then a gather) on a CPU tensor.
+with the CUDA kernel ``csrc/moe.cu`` (a split-TF32 product on the tensor
+cores, fp32 accuracy) on a CUDA tensor, with :func:`dense_expert_matmul` (all
+E experts, then a gather) on a CPU tensor.
 The TPU kernel's ``tile_n`` and ``interpret`` knobs have no counterpart.
 """
 
@@ -35,9 +36,18 @@ def dense_expert_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, wts
 def _lib() -> ctypes.CDLL:
     lib = load_library("moe")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ymt_gathered_expert_matmul.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    lib.ymt_gathered_expert_matmul.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
     lib.ymt_gathered_expert_matmul.restype = i32
+    for fn in (lib.moe_bank_cpad, lib.moe_bank_opad):
+        fn.argtypes, fn.restype = [i32], i32
     return lib
+
+
+@functools.cache
+def _bank_shape(c: int, o: int) -> tuple:
+    """Padded (O, C) of the scratch bank the kernel mixes the selected weights into."""
+    lib = _lib()
+    return lib.moe_bank_opad(o), lib.moe_bank_cpad(c)
 
 
 def _check_args(x, w, idx, wts):
@@ -61,7 +71,7 @@ def _check_args(x, w, idx, wts):
             raise ValueError(f"gathered_expert_matmul: {name} must be contiguous")
     for name, t in (("x", x), ("w", w)):
         if t.data_ptr() % 16:
-            raise ValueError(f"gathered_expert_matmul: {name} must be 16-byte aligned for the kernel's float4 loads")
+            raise ValueError(f"gathered_expert_matmul: {name} must be 16-byte aligned for the kernel's 16-byte copies")
 
 
 def gathered_expert_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
@@ -78,10 +88,12 @@ def gathered_expert_matmul(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor, 
     _check_args(x, w, idx, wts)
     b, n, c = x.shape
     e, _, o = w.shape
+    if b * n * o == 0 or c == 0 or idx.shape[1] == 0:  # nothing to multiply: an empty or all-zero result
+        return torch.zeros((b, n, o), dtype=torch.float32, device=x.device)
     out = torch.empty((b, n, o), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
-    check(_lib().ymt_gathered_expert_matmul(x.data_ptr(), w.data_ptr(), idx.data_ptr(), wts.data_ptr(),
+    # scratch for the mixed weights of each image, transposed and split in TF32 halves: [B, hi/lo, O, C] padded
+    bank = torch.empty((b, 2, *_bank_shape(c, o)), dtype=torch.float32, device=x.device)
+    check(_lib().ymt_gathered_expert_matmul(x.data_ptr(), w.data_ptr(), idx.data_ptr(), wts.data_ptr(), bank.data_ptr(),
                                             out.data_ptr(), b, n, c, o, e, idx.shape[1], stream_ptr(x.device)),
           "gathered expert matmul kernel")
     gathered_expert_matmul.launches += 1
