@@ -11,11 +11,14 @@ yolo-master-v0_1-n with seeded random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
   2. build the six kernels; the split-TF32 header's self-check against fp64
-  3. stem kernel vs F.conv2d x2 (uint8 640x640 input)
-  4. NMS kernel vs the plain greedy loop (exact keep sets, ties included)
+  3. stem kernel vs F.conv2d x2 (uint8 640x640 input) at the stem widths of
+     scales n (B=1, 2, 16), s, m/l and x (B=16)
+  4. NMS kernel vs the plain greedy loop (exact keep sets, ties included;
+     candidates in order and shuffled; N up to 4096)
   5. ES_MOE kernel vs its plain version at the four placements' shapes, B=1
      and 16, beside the unfused ES_MOE.forward it replaces
-  6. CW-NMS kernel vs its plain loop (equal seeds, scores and validity)
+  6. CW-NMS kernel vs its plain loop (equal seeds, scores and validity;
+     candidates in order and shuffled)
   7. the gathered expert matmul through its entry point at the shapes of
      yolo-master-v0_1-n's expert banks at 640, B=1 and 16, K=2 (a repeated
      expert, a zero weight), vs its plain version, beside torch.bmm in fp32
@@ -24,7 +27,9 @@ yolo-master-v0_1-n with seeded random weights. Phases:
      placements' shapes, B=16: sparse eval vs the masked-dense sum
   9. the predict path, YOLO("yolo-master-n").fuse().predict(...), at batch 1
      and 16: launch counts, max_det detections per image, GPU vs CPU decode,
-     kernel vs plain NMS on the GPU's candidates
+     kernel vs plain NMS on the GPU's candidates; then the same path at scale
+     m, YOLO("yolo-master-m").fuse().predict(...) (the stem kernel's sliced
+     plan): launch counts, detections, GPU vs CPU decode
  10. the C3k2 kernel through its entry point on the live model's folded
      layers 2 and 5 and their inputs from the bs-1 and bs-16 frames (and an
      n=2 block at layer 2's width), vs its plain version and the C3k2 module
@@ -75,8 +80,13 @@ TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 ESMOE_PLACEMENTS = ((3, 160, 64), (6, 80, 128), (9, 40, 128), (12, 20, 256))
 # the first 1x1 of yolo-master-v0_1-n's SimpleExpert banks at 640: (layer, H=W, C, hidden O, experts E)
 MOE_BANKS = ((5, 80, 128, 256, 4), (8, 40, 128, 256, 8), (11, 20, 256, 512, 16))
+STEM_WIDTHS = {"n": (16, 32), "s": (32, 64), "m/l": (64, 128), "x": (96, 192)}  # c0/c1 of the YAMLs' scales
 C3K2_LAYERS = (2, 5)  # yolo-master-n's C3k2 blocks with Bottleneck inner blocks (c3k=False) at scale n
 KW = dict(imgsz=IMGSZ, conf=0.0, iou=0.45, max_det=300)
+# the port's CUDA kernels as the profiler names them (substrings of the mangled names)
+NMS_PHASES = ("sort_candidates_kernel", "iou_mask_kernel", "scan_kernel")
+PORT_KERNEL_NAMES = ("stem_kernel", *NMS_PHASES, "fused_esmoe_kernel", "split_bank_kernel",
+                     "gathered_expert_matmul_kernel")
 
 
 def log(msg: str) -> None:
@@ -212,41 +222,50 @@ def phase_split_tf32(dev):
 
 
 def phase_stem(dev):
-    """Kernel vs plain at the main path's shapes (B=1, 16) and B=2, 640x640, c0=16, c1=32."""
+    """Kernel vs plain at 640x640: the main path's widths c0/c1 = 16/32 (scale n)
+    at B=1, 16 and 2, and the widths of scales s, m/l and x at B=16 (wider
+    stems stage conv1's weights in output-channel slices: the plan printed)."""
     import torch
 
-    from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_weight_layout
+    from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_plan, stem_weight_layout
 
-    g = torch.Generator().manual_seed(0)
-    w0 = stem_weight_layout(((torch.rand(16, 3, 3, 3, generator=g) - 0.5) * 0.6 / 255.0).to(dev))
-    b0 = (torch.rand(16, generator=g) - 0.5).to(dev)
-    w1 = stem_weight_layout(((torch.rand(32, 16, 3, 3, generator=g) - 0.5) * 0.3).to(dev))
-    b1 = (torch.rand(32, generator=g) - 0.5).to(dev)
     result = {}
-    for b in (2, 1, 16):
-        x = torch.randint(0, 256, (b, 640, 640, 3), generator=g, dtype=torch.uint8).to(dev)
-        out = fused_stem(x, w0, b0, w1, b1)
-        ref = fused_stem_plain(x, w0, b0, w1, b1)
-        torch.cuda.synchronize()
-        err = (out - ref).abs()
-        require(out.shape == (b, 160, 160, 32) and bool(torch.isfinite(out).all()), "stem output shape/finite")
-        require(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()), f"stem kernel disagrees: max abs err {err.max().item()}")
-        ms = cuda_ms(lambda: fused_stem(x, w0, b0, w1, b1))
-        plain_ms = cuda_ms(lambda: fused_stem_plain(x, w0, b0, w1, b1))
-        # 2 flops per multiply-add; bias + SiLU (5 operations) per output of each conv
-        n0, n1 = b * 320 * 320 * 16, b * 160 * 160 * 32
-        flops = n0 * (2 * 27 + 5) + n1 * (2 * 9 * 16 + 5)
-        bound_ms, bound_by, _ = bound(nbytes(x, w0, b0, w1, b1, out), flops)
-        log(f"[stem] B={b} 640x640 u8 -> [{b},160,160,32]: max abs err {err.max().item():.3e}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        result[b] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+    for scale, (c0, c1) in STEM_WIDTHS.items():
+        g = torch.Generator().manual_seed(0)
+        w0 = stem_weight_layout(((torch.rand(c0, 3, 3, 3, generator=g) - 0.5) * 0.6 / 255.0).to(dev))
+        b0 = (torch.rand(c0, generator=g) - 0.5).to(dev)
+        # 0.3 at c0 = 16, shrinking as 1/sqrt(c0): conv1's outputs keep one scale at every width
+        w1 = stem_weight_layout(((torch.rand(c1, c0, 3, 3, generator=g) - 0.5) * 1.2 / c0 ** 0.5).to(dev))
+        b1 = (torch.rand(c1, generator=g) - 0.5).to(dev)
+        plan = stem_plan(c0, c1)
+        for b in ((2, 1, 16) if scale == "n" else (16,)):
+            x = torch.randint(0, 256, (b, 640, 640, 3), generator=g, dtype=torch.uint8).to(dev)
+            out = fused_stem(x, w0, b0, w1, b1)
+            ref = fused_stem_plain(x, w0, b0, w1, b1)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            require(out.shape == (b, 160, 160, c1) and bool(torch.isfinite(out).all()), "stem output shape/finite")
+            require(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()),
+                    f"stem kernel disagrees at c0/c1 {c0}/{c1}: max abs err {err.max().item()}")
+            ms = cuda_ms(lambda: fused_stem(x, w0, b0, w1, b1))
+            plain_ms = cuda_ms(lambda: fused_stem_plain(x, w0, b0, w1, b1))
+            # 2 flops per multiply-add; bias + SiLU (5 operations) per output of each conv
+            n0, n1 = b * 320 * 320 * c0, b * 160 * 160 * c1
+            flops = n0 * (2 * 27 + 5) + n1 * (2 * 9 * c0 + 5)
+            bound_ms, bound_by, _ = bound(nbytes(x, w0, b0, w1, b1, out), flops)
+            log(f"[stem] scale {scale} B={b} 640x640 u8 -> [{b},160,160,{c1}] (plan {plan}): max abs err "
+                f"{err.max().item():.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+            result[(scale, b)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by)
     return result
 
 
-def nms_inputs(b: int, n: int, dev, seed: int = 0):
+def nms_inputs(b: int, n: int, dev, seed: int = 0, shuffle: bool = False):
     """Class-offset boxes and scores: exact ties in every row, row 1 all invalid,
-    row 2 with 5 valid candidates (exhausts long before max_det)."""
+    row 2 with 5 valid candidates (exhausts long before max_det); with
+    ``shuffle``, each row's candidates in a random order (the main path hands
+    them over sorted by score; the kernels take any order)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -259,6 +278,9 @@ def nms_inputs(b: int, n: int, dev, seed: int = 0):
     if b > 2:
         scores[1] = 0.0
         scores[2, 5:] = 0.0
+    if shuffle:
+        perm = torch.stack([torch.randperm(n, generator=g) for _ in range(b)])
+        boxes, scores = boxes.gather(1, perm[..., None].expand(-1, -1, 4)), scores.gather(1, perm)
     return boxes.to(dev).contiguous(), scores.to(dev).contiguous()
 
 
@@ -268,8 +290,9 @@ def phase_nms(dev):
     from yolo_master_tpu_torch.ops.cuda_nms import batched_greedy_nms, batched_greedy_nms_plain, greedy_nms
 
     result = {}
-    for b, n in ((16, 1024), (16, 2048), (1, 2048)):
-        boxes, scores = nms_inputs(b, n, dev)
+    for b, n, shuffle in ((16, 1024, False), (16, 2048, False), (1, 2048, False), (1, 4096, False),
+                          (16, 2048, True), (1, 4096, True)):
+        boxes, scores = nms_inputs(b, n, dev, shuffle=shuffle)
         ki, kv = batched_greedy_nms(boxes, scores, 0.45, 300)
         ki_p, kv_p = batched_greedy_nms_plain(boxes, scores, 0.45, 300)
         torch.cuda.synchronize()
@@ -278,16 +301,18 @@ def phase_nms(dev):
             require(not bool(kv[1].any()) and int(kv[2].sum()) <= 5, "NMS all-invalid / early-exit rows")
         k1, v1 = greedy_nms(boxes[0], scores[0], 0.45, 300)
         require(torch.equal(k1, ki_p[0]) and torch.equal(v1, kv_p[0]), "NMS B=1 entry point differs")
-        ms = cuda_ms(lambda: batched_greedy_nms(boxes, scores, 0.45, 300))
+        ms = cuda_ms(lambda: batched_greedy_nms(boxes, scores, 0.45, 300), inner=10)
         plain_ms = cuda_ms(lambda: batched_greedy_nms_plain(boxes, scores, 0.45, 300), reps=3, warmup=1)
         idx_err = (ki.long() - ki_p.long()).abs().max().item()
         # steps this data takes (the picks, then the step that finds none), each over all N
         # candidates: IoU 13 operations, the threshold test and the argmax compare
         steps = (kv.sum(1) + (kv.sum(1) < 300).long()).sum().item()
         bound_ms, bound_by, _ = bound(nbytes(boxes, scores, ki, kv), steps * n * 15)
-        log(f"[nms] B={b} N={n} max_det=300: keep sets equal ({int(kv.sum())} kept), "
+        order = " shuffled" if shuffle else ""
+        log(f"[nms] B={b} N={n} max_det=300{order}: keep sets equal ({int(kv.sum())} kept), "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-        result[(b, n)] = dict(max_abs_err=idx_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        result[(b, n, shuffle)] = dict(max_abs_err=idx_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by)
     return result
 
 
@@ -366,9 +391,9 @@ def phase_cw_nms(dev):
     from yolo_master_tpu_torch.ops.cuda_nms import batched_cw_nms, batched_cw_nms_plain
 
     result = {}
-    for b, n in ((1, 4096), (4, 2048)):
-        boxes, scores = nms_inputs(b, n, dev, seed=1)
-        for weighted in (True, False):
+    for b, n, shuffle in ((1, 4096, False), (4, 2048, False), (1, 4096, True)):
+        boxes, scores = nms_inputs(b, n, dev, seed=1, shuffle=shuffle)
+        for weighted in ((True, False) if not shuffle else (True,)):
             fb, fs, seed, valid = batched_cw_nms(boxes, scores, 0.45, 300, 0.1, weighted)
             pb, ps, pseed, pvalid = batched_cw_nms_plain(boxes, scores, 0.45, 300, 0.1, weighted)
             torch.cuda.synchronize()
@@ -380,7 +405,7 @@ def phase_cw_nms(dev):
             require(bool((err <= 1e-4 + 5e-7 * pb.abs()).all()), f"CW-NMS fused boxes differ: {err.max().item()}")
             if b > 2:
                 require(not bool(valid[1].any()) and int(valid[2].sum()) <= 5, "CW-NMS all-invalid / early-exit rows")
-            ms = cuda_ms(lambda: batched_cw_nms(boxes, scores, 0.45, 300, 0.1, weighted))
+            ms = cuda_ms(lambda: batched_cw_nms(boxes, scores, 0.45, 300, 0.1, weighted), inner=10)
             plain_ms = cuda_ms(lambda: batched_cw_nms_plain(boxes, scores, 0.45, 300, 0.1, weighted), reps=3,
                                warmup=1)
             # per step (the picks, then the step that finds none) over all N candidates:
@@ -389,11 +414,12 @@ def phase_cw_nms(dev):
             steps = (valid.sum(1) + (valid.sum(1) < 300).long()).sum().item()
             members = int((scores > 0).sum())
             bound_ms, bound_by, _ = bound(nbytes(boxes, scores, fb, fs, seed, valid), steps * n * 17 + members * 16)
-            log(f"[cw_nms] B={b} N={n} weighted_iou={weighted}: seeds/scores/valid equal ({int(valid.sum())} kept), "
-                f"box max err {err.max().item():.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            order = " shuffled" if shuffle else ""
+            log(f"[cw_nms] B={b} N={n}{order} weighted_iou={weighted}: seeds/scores/valid equal "
+                f"({int(valid.sum())} kept), box max err {err.max().item():.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bound_ms:.5f} ms ({bound_by})")
-            result[(b, n, weighted)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                            bound_by=bound_by)
+            result[(b, n, weighted, shuffle)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                                                     bound_ms=bound_ms, bound_by=bound_by)
     return result
 
 
@@ -676,6 +702,56 @@ def phase_main_path(dev):
     return model, state, imgs, launches
 
 
+def phase_scale_m(dev, imgs):
+    """YOLO("yolo-master-m").fuse().predict(...) at batch 1 and 16, full width
+    (stem c0/c1 = 64/128: the stem kernel's sliced plan; C3k2 with C3k inner
+    blocks), seeded weights with BN calibrated on four frames, as the main
+    path: launch counts, max_det detections per image, GPU vs CPU decode at the
+    fixed limits, device time per image at bs 16."""
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    model = YOLO("yolo-master-m", device=dev)
+    x_cal, _ = DetectionPredictor(model.model, imgsz=IMGSZ).preprocess(imgs[:4])
+    calibrate_bn(model.model, x_cal)
+    state = {k: v.detach().clone() for k, v in model.model.state_dict().items()}
+    cpu = YOLO("yolo-master-m", device="cpu").load_state_dict(state)
+    model.fuse()
+    cpu.fuse()
+
+    reset_launches()
+    r1 = model.predict(imgs[0], batch=1, **KW)
+    r16 = model.predict(imgs, batch=16, **KW)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[scale-m] predict bs1 + bs16 launches: {launches}")
+    require(launches["stem"] == 2 and launches["nms"] == 2, "the scale-m path did not launch the stem and NMS kernels")
+    require(len(r1) == 1 and len(r16) == 16, "scale-m result counts")
+    check_detections(r1 + r16)
+    log(f"[scale-m] image 0 top: {np.round(r1[0].boxes.data[0], 2).tolist()}")
+
+    pred = model._predictor
+    x, _ = pred.preprocess(imgs[:2])
+    with torch.inference_mode():
+        full_gpu = model.model.head.decode(model.model(x), raw_scores=True).cpu()
+        full_cpu = cpu.model.head.decode(cpu.model(x.cpu()), raw_scores=True)
+        full_cpu64 = cpu.model.head.decode(copy.deepcopy(cpu.model).double()(x.cpu()), raw_scores=True)
+    box_err, logit_err = decode_err(full_gpu, full_cpu)
+    box_noise, logit_noise = decode_err(full_cpu, full_cpu64)
+    log(f"[scale-m] GPU vs CPU decode, all {full_gpu.shape[1]} anchors: box max err {box_err:.3e} px, logit max err "
+        f"{logit_err:.3e}; CPU fp32 vs fp64 noise: box {box_noise:.3e} px, logit {logit_noise:.3e}")
+    require(box_err <= 5e-2 and logit_err <= 1e-3, "scale-m GPU and CPU decode disagree beyond 5e-2 px / 1e-3")
+
+    xb, _ = pred.preprocess(imgs)
+    ms = cuda_ms(lambda: pred.run(xb), reps=5, warmup=2)
+    log(f"[scale-m] bs=16: device {ms / 16:.4f} ms/img (uint8 on card -> detections)")
+    return launches
+
+
 def phase_fused_esmoe_path(dev, model, state, imgs):
     """The predict path after fused_esmoe_fuse, on the same calibrated weights."""
     import numpy as np
@@ -911,6 +987,10 @@ def phase_profile(paths, xb):
         log(f"[profile] {name}, B={xb.shape[0]}: wall {wall_ms:.3f} ms/batch under the profiler, device busy "
             f"{busy_ms:.3f} ms/batch ({100 * busy_ms / wall_ms:.1f}%), {count:.0f} kernels/batch; top: "
             + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+        ours = {part: sum(v for k, v in dev_us.items() if part in k) for part in PORT_KERNEL_NAMES}
+        log(f"[profile] {name}, B={xb.shape[0]}: the port's kernels, ms/batch: "
+            + "; ".join(f"{k} {v / 1e3:.4f}" for k, v in ours.items() if v)
+            + f"; NMS (sort + mask + scan) {sum(ours[k] for k in NMS_PHASES) / 1e3:.4f}")
 
 
 def phase_imports():
@@ -941,6 +1021,7 @@ def main():
     gm_res, gm_launches = phase_moe(dev)
     phase_sparse_esmoe(dev)
     model, state, imgs, main_launches = phase_main_path(dev)
+    phase_scale_m(dev, imgs)
     c3k2_res, c3k2_launches = phase_c3k2(dev, model, imgs)
     moe, moe_launches, _ = phase_fused_esmoe_path(dev, model, state, imgs)
     v01, _, _ = phase_v0_1_path(dev, model, imgs)
@@ -971,15 +1052,17 @@ def main():
     require(all(r["bound_by"] == "operations" for r in c16), "C3k2 bound_by")
     gm = gm_res[(16, MOE_BANKS[0][0])]
     kernels = [
-        kernel_entry("fused_stem", "stem.cu", "pallas_stem.py:177", main_launches["stem"], stem_res[16],
-                     "uint8 [16,640,640,3] -> [16,160,160,32]"),
+        kernel_entry("fused_stem", "stem.cu", "pallas_stem.py:177", main_launches["stem"], stem_res[("n", 16)],
+                     "uint8 [16,640,640,3] -> [16,160,160,32]",
+                     widths={scale: {k: stem_res[(scale, 16)][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                             for scale in STEM_WIDTHS}),
         kernel_entry("batched_greedy_nms", "nms.cu", "pallas_nms.py:120", main_launches["nms"],
-                     nms_res[(16, 2048)], "B=16 N=2048 max_det=300"),
+                     nms_res[(16, 2048, False)], "B=16 N=2048 max_det=300"),
         kernel_entry("fused_esmoe", "esmoe.cu", "pallas_esmoe.py:81", moe_launches["esmoe"], es_sum,
                      "B=16, the four placements [16,160,160,64], [16,80,80,128], [16,40,40,128], "
                      "[16,20,20,256] summed", module_ms=es_sum["module_ms"], bound_peak=es_sum["bound_peak"]),
         kernel_entry("batched_cw_nms", "cw_nms.cu", "pallas_nms.py:215", sahi_launches["cw_nms"],
-                     cw_res[(1, 4096, True)], "B=1 N=4096 max_det=300 weighted_iou"),
+                     cw_res[(1, 4096, True, False)], "B=1 N=4096 max_det=300 weighted_iou"),
         kernel_entry("gathered_expert_matmul", "moe.cu", "pallas_moe.py:45", gm_launches, gm,
                      "[16,6400,128] x [4,128,256], K=2 (v0_1-n layer 5's expert bank)", library_ms=gm["library_ms"],
                      library_tf32_ms=gm["library_tf32_ms"], bound_peak=gm["bound_peak"]),

@@ -19,7 +19,8 @@ from yolo_master_tpu_torch.ops.cuda_nms import (batched_cw_nms, batched_cw_nms_p
                                                 batched_greedy_nms_plain, greedy_nms)
 from yolo_master_tpu_torch.ops.esmoe import fused_esmoe, fused_esmoe_plain, pack_esmoe_params
 from yolo_master_tpu_torch.ops.moe import dense_expert_matmul, gathered_expert_matmul
-from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_weight_layout
+from yolo_master_tpu_torch.ops._build import SMEM_LIMIT_BYTES
+from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_plan, stem_weight_layout
 from yolo_master_tpu_torch.utils.fuse import fuse_bn
 
 pytestmark = pytest.mark.cuda
@@ -56,9 +57,10 @@ def test_split_tf32_product_matches_fp64(dev, depth):
 
 
 def _stem_weights(rng, c0, c1, device):
+    """w1 scaled by 0.8 / sqrt(c0) (0.2 at c0 = 16), so conv1's outputs keep one scale at every width."""
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
     return (stem_weight_layout(t(rng.standard_normal((c0, 3, 3, 3)) * 0.2)), t(rng.standard_normal(c0)),
-            stem_weight_layout(t(rng.standard_normal((c1, c0, 3, 3)) * 0.2)), t(rng.standard_normal(c1)))
+            stem_weight_layout(t(rng.standard_normal((c1, c0, 3, 3)) * (0.8 / c0 ** 0.5))), t(rng.standard_normal(c1)))
 
 
 @pytest.mark.parametrize("shape", [(2, 96, 128), (1, 36, 44), (3, 640, 640)])
@@ -74,6 +76,33 @@ def test_stem_kernel_matches_plain(dev, shape):
         torch.cuda.synchronize()
         assert out.shape == ref.shape
         assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 128), (1, 36, 44), (2, 640, 640)])
+@pytest.mark.parametrize("c0,c1", [(32, 64), (64, 128), (96, 192)], ids=["s", "m_l", "x"])
+def test_stem_kernel_at_every_scale_width(dev, c0, c1, shape):
+    """The stem widths of scales s, m/l and x (conv1's weights staged in
+    output-channel slices past s), uint8 and float input, ragged tiles
+    included. Tolerance 1e-4 + 1e-4*|ref|: fp32 sums in another order."""
+    rng = np.random.default_rng(c0)
+    w0, b0, w1, b1 = _stem_weights(rng, c0, c1, dev)
+    img = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(dev)
+    for x, w in ((img, stem_weight_layout(w0 / 255.0)), (img.float() / 255.0, w0)):
+        out = fused_stem(x, w, b0, w1, b1)
+        ref = fused_stem_plain(x, w, b0, w1, b1)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape == (shape[0], shape[1] // 4, shape[2] // 4, c1)
+        assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), (out - ref).abs().max().item()
+
+
+def test_stem_plan_keeps_scale_n_and_fits_every_width(dev):
+    """Scale n's plan is the one its times were measured with (8x16 tile, all
+    of w1, two positions per thread); every YAML width fits one block."""
+    assert stem_plan(16, 32) == {"tile": (8, 16), "c1_slice": 32, "positions": 2, "smem_bytes": 86640}
+    assert stem_plan(32, 64)["c1_slice"] == 64
+    for c0, c1 in ((64, 128), (96, 192)):
+        plan = stem_plan(c0, c1)
+        assert plan["c1_slice"] < c1 and c1 % plan["c1_slice"] == 0 and plan["smem_bytes"] <= SMEM_LIMIT_BYTES
 
 
 def test_stem_kernel_counts_launches_and_rejects_bad_input(dev):
@@ -114,6 +143,43 @@ def test_nms_kernel_equals_plain(dev, b, n):
     assert not bool(kv[1].any()) and int(kv[2].sum()) <= 4
     k1, v1 = greedy_nms(boxes[0], scores[0], 0.45, 300)
     assert torch.equal(k1, ki_p[0]) and torch.equal(v1, kv_p[0])
+
+
+def _shuffled(boxes, scores, seed=0):
+    """The same candidates in a random order per image (the kernels sort them themselves)."""
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.stack([torch.randperm(scores.shape[1], generator=g) for _ in range(scores.shape[0])]).to(scores.device)
+    return boxes.gather(1, perm[..., None].expand(-1, -1, 4)).contiguous(), scores.gather(1, perm).contiguous()
+
+
+@pytest.mark.parametrize("n", [1000, 2047, 2048, 4096])
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_nms_kernel_equals_plain_shuffled(dev, b, n):
+    """Candidates in no order, N off and on a multiple of 64, 80 class offsets:
+    keep sets equal to the plain loop's."""
+    boxes, scores = _candidates(b, n, dev, seed=n)
+    cls = torch.randint(0, 80, (b, n, 1), generator=torch.Generator().manual_seed(b)).float().to(dev) * 7680.0
+    boxes, scores = _shuffled((boxes + cls).contiguous(), scores, seed=b)
+    ki, kv = batched_greedy_nms(boxes, scores, 0.45, 300)
+    ki_p, kv_p = batched_greedy_nms_plain(boxes, scores, 0.45, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, ki_p) and torch.equal(kv, kv_p)
+
+
+def test_nms_kernel_counts_launches_and_takes_up_to_its_candidate_limit(dev):
+    """One count per call (three kernels inside); the sort's keys bound N at
+    16384 (128 KB of shared memory), above which the wrapper refuses."""
+    from yolo_master_tpu_torch.ops.cuda_nms import _cw_max_candidates, _max_candidates
+
+    assert _max_candidates() == _cw_max_candidates() == 16384
+    boxes, scores = _candidates(1, 16384, dev)
+    before = batched_greedy_nms.launches
+    ki, kv = batched_greedy_nms(boxes, scores, 0.45, 300)
+    greedy_nms(boxes[0], scores[0], 0.45, 300)
+    assert batched_greedy_nms.launches == before + 2
+    ki_p, kv_p = batched_greedy_nms_plain(boxes, scores, 0.45, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, ki_p) and torch.equal(kv, kv_p)
 
 
 def test_nms_kernel_rejects_too_many_candidates(dev):
@@ -217,6 +283,21 @@ def test_cw_nms_kernel_equals_plain(dev, b, n, weighted):
     assert bool(((fb - pb).abs() <= 1e-4 + 5e-7 * pb.abs()).all())
     if b > 2:
         assert not bool(valid[1].any()) and int(valid[2].sum()) <= 4
+
+
+@pytest.mark.parametrize("n", [1000, 2047, 2048, 4096])
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_cw_nms_kernel_equals_plain_shuffled(dev, b, n):
+    """Candidates in no order, N off and on a multiple of 64, 80 class offsets:
+    seeds, scores and validity equal, fused boxes within 1e-4 + 5e-7*|x|."""
+    boxes, scores = _candidates(b, n, dev, seed=n)
+    cls = torch.randint(0, 80, (b, n, 1), generator=torch.Generator().manual_seed(b)).float().to(dev) * 7680.0
+    boxes, scores = _shuffled((boxes + cls).contiguous(), scores, seed=b)
+    fb, fs, seed, valid = batched_cw_nms(boxes, scores, 0.45, 300, 0.1, True)
+    pb, ps, pseed, pvalid = batched_cw_nms_plain(boxes, scores, 0.45, 300, 0.1, True)
+    torch.cuda.synchronize()
+    assert torch.equal(valid, pvalid) and torch.equal(seed, pseed) and torch.equal(fs, ps)
+    assert bool(((fb - pb).abs() <= 1e-4 + 5e-7 * pb.abs()).all())
 
 
 def test_cw_nms_kernel_counts_launches_and_rejects_too_many_candidates(dev):

@@ -193,6 +193,10 @@ def _module_cases():
         return (jlayers.A2C2f(64, 64, n=1, a2=True, area=4), tlayers.A2C2f(64, 64, n=1, a2=True, area=4),
                 [(2, 8, 8, 64)])
 
+    def a2c2f_residual():  # the l/x form (parse_model's scale rule): gamma-scaled residual, mlp_ratio 1.2
+        return (jlayers.A2C2f(64, 64, n=1, a2=True, area=4, residual=True, mlp_ratio=1.2),
+                tlayers.A2C2f(64, 64, n=1, a2=True, area=4, residual=True, mlp_ratio=1.2), [(2, 8, 8, 64)])
+
     def es_moe():
         return JaxESMOE(32, 32), ES_MOE(32, 32), [(2, 10, 10, 32)]
 
@@ -204,16 +208,20 @@ def _module_cases():
         t.set_strides((8, 16, 32))
         return j, t, [(2, 8, 8, 16), (2, 4, 4, 32), (2, 2, 2, 64)]
 
-    return rng, {"Conv": conv, "C3k2": c3k2, "A2C2f": a2c2f, "ES_MOE": es_moe, "Detect": detect}
+    return rng, {"Conv": conv, "C3k2": c3k2, "A2C2f": a2c2f, "A2C2f_residual": a2c2f_residual, "ES_MOE": es_moe,
+                 "Detect": detect}
 
 
-@pytest.mark.parametrize("name", ["Conv", "C3k2", "A2C2f", "ES_MOE", "Detect"])
+@pytest.mark.parametrize("name", ["Conv", "C3k2", "A2C2f", "A2C2f_residual", "ES_MOE", "Detect"])
 def test_module_matches_jax(name):
-    """Each module on its own, fp32: 1e-5 on activations and scores, 2e-3 px on boxes."""
+    """Each module on its own, fp32: 1e-5 on activations and scores, 2e-3 px on boxes.
+    A residual A2C2f's gamma is drawn away from its 0.01 init, so the branch counts."""
     rng, cases = _module_cases()
     jm, tm, shapes = cases[name]()
     jm = jm.finalize("m")
     p = _perturb_bn(_np_tree(jm.init(jax.random.PRNGKey(3))), rng)
+    if "gamma" in p:
+        p["gamma"] = rng.uniform(0.5, 1.5, p["gamma"].shape).astype(np.float32)
     tm = _load_module(tm, p)
     xs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
     xt = [torch.from_numpy(x).permute(0, 3, 1, 2) for x in xs]

@@ -14,33 +14,73 @@
 // Unfused, the 320x320x16 fp32 conv0 activation (6.6 MB) would also be
 // written and read back, and the image read as fp32.
 //
-// What the design does about it: each block owns an 8x16 tile of conv1
-// outputs. It stages the uint8 input tile with its halo (35x67x3) and both
-// weight sets in shared memory, computes the 17x33xc0 conv0 tile (with the
-// one-row/one-column halo conv1 needs) into shared memory, and only conv1's
-// output goes to device memory. conv0 positions outside [0,H/2)x[0,W/2) are
-// stored as 0: they are conv1's zero padding, not SiLU(b0). The halo costs
-// 10% extra conv0 work. Each thread accumulates 8 output channels (conv1: of
-// two positions) in registers from float4 weight loads, so one shared-memory
-// load feeds 4-8 FMAs; the conv0 tile's odd per-position stride keeps the
-// stride-2 reads free of bank conflicts. Plain fp32 FMAs on the CUDA cores;
-// no tensor cores (fp32 has none but TF32), TMA or pipelining yet.
+// What the design does about it: each block owns a TH x TW tile of conv1
+// outputs. It stages the uint8 input tile with its halo ((4TH+3)x(4TW+3)x3),
+// conv0's weights and a slice of conv1's in shared memory, computes the
+// (2TH+1)x(2TW+1)xc0 conv0 tile (with the one-row/one-column halo conv1
+// needs) into shared memory, and only conv1's output goes to device memory.
+// conv0 positions outside [0,H/2)x[0,W/2) are stored as 0: they are conv1's
+// zero padding, not SiLU(b0). Each thread accumulates 8 output channels of
+// one or two positions in registers from float4 weight loads, so one
+// shared-memory load feeds 4-16 FMAs; the conv0 tile's odd per-position
+// stride keeps the stride-2 reads free of bank conflicts. Plain fp32 FMAs on
+// the CUDA cores; no tensor cores (fp32 has none but TF32), TMA or
+// pipelining yet.
+//
+// The block's layout is a function of the widths (stem_plan, below, which
+// the wrapper and the launch both read). Where it fits, an 8x16 tile with
+// all of w1 resident and two positions per thread (scales n and s). Wider
+// stems (c0/c1 = 64/128 at m and l, 96/192 at x) cannot hold all of w1 (up to
+// 663 KB) beside the conv0 tile: the block then loops over slices of conv1's
+// output channels, reloading only the w1 slice and reusing the conv0 tile,
+// and the tile shrinks to 8x8 where c0 is wide. Of the plans that fit, the
+// one with the most conv1 work per slice (tile area x slice width) wins.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-extern "C" long long stem_smem_floats(int c0, int c1);
-
 namespace {
 
-constexpr int kTH = 8;               // conv1 output rows per block
-constexpr int kTW = 16;              // conv1 output cols per block
-constexpr int kC0H = 2 * kTH + 1;    // conv0 rows per block (17)
-constexpr int kC0W = 2 * kTW + 1;    // conv0 cols per block (33)
-constexpr int kInH = 4 * kTH + 3;    // input rows per block (35)
-constexpr int kInW = 4 * kTW + 3;    // input cols per block (67)
 constexpr int kCin = 3;
 constexpr int kThreads = 256;
+constexpr long long kSmemLimitBytes = 232448;  // shared memory one Hopper block may use (227 KB)
+
+// One block's layout: a th x tw tile of conv1 outputs, conv1's output
+// channels in slices of c1s, `pairs` positions per thread work item.
+struct StemPlan {
+  int th, tw, c1s, pairs;
+};
+
+long long plan_floats(int c0, int c1, const StemPlan& p) {
+  const long long in_tile = static_cast<long long>(4 * p.th + 3) * (4 * p.tw + 3) * kCin;
+  const long long c0_tile = static_cast<long long>(2 * p.th + 1) * (2 * p.tw + 1) * (c0 | 1);
+  return 9LL * c0 * p.c1s + 9LL * kCin * c0 + c0 + c1 + in_tile + c0_tile;
+}
+
+// The 8x16 tile with all of w1 if it fits; else, over the tiles 8x16 and 8x8
+// and the slices of c1 that are multiples of 8 and divide it, the fitting
+// plan with the largest tile area x slice (the larger tile on ties). If none
+// fits, the smallest plan, which the wrapper then refuses.
+StemPlan stem_plan(int c0, int c1) {
+  const StemPlan whole{8, 16, c1, 2};
+  if (plan_floats(c0, c1, whole) * 4 <= kSmemLimitBytes) return whole;
+  const int tiles[2][2] = {{8, 16}, {8, 8}};
+  StemPlan best{8, 8, 8, 1};
+  long long best_work = 0;
+  for (const auto& t : tiles) {
+    for (int s = c1; s >= 8; s -= 8) {  // the widest slice that fits this tile
+      const StemPlan p{t[0], t[1], s, 1};
+      if (c1 % s || plan_floats(c0, c1, p) * 4 > kSmemLimitBytes) continue;
+      const long long work = static_cast<long long>(t[0]) * t[1] * s;
+      if (work > best_work) {
+        best = p;
+        best_work = work;
+      }
+      break;
+    }
+  }
+  return best;
+}
 
 __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
@@ -76,19 +116,39 @@ __device__ __forceinline__ void store_silu8(float* dst, const float* acc, const 
   reinterpret_cast<float4*>(dst)[1] = hi;
 }
 
+// s_w1[(k * c0 + ic) * c1s + j] = w1[(k * c0 + ic) * c1 + s0 + j]: one slice of conv1's output channels
+// (all of w1, copied as it lies, when the slice is the whole of c1).
+__device__ __forceinline__ void stage_w1_slice(float* s_w1, const float* __restrict__ w1, int c0, int c1, int c1s,
+                                               int s0) {
+  if (c1s == c1) {
+    for (int i = threadIdx.x; i < 9 * c0 * c1; i += kThreads) s_w1[i] = w1[i];
+    return;
+  }
+  for (int i = threadIdx.x; i < 9 * c0 * c1s; i += kThreads) {
+    const int j = i % c1s, row = i / c1s;
+    s_w1[i] = w1[static_cast<size_t>(row) * c1 + s0 + j];
+  }
+}
+
 // x [B,H,W,3]; w0 [3,3,3,c0] (kh,kw,cin,c0); w1 [3,3,c0,c1]; out [B,H/4,W/4,c1].
-// c0 and c1 are multiples of 8: each thread computes 8 output channels at a
-// time from float4 weight loads, so a shared-memory load feeds 4-8 FMAs.
-template <typename T>
+// c0, c1 and c1s are multiples of 8: each thread computes 8 output channels
+// at a time from float4 weight loads. TH x TW is the conv1 tile; P the
+// positions per work item (2: (ty, tx) and (ty, tx + TW/2)).
+template <typename T, int TH, int TW, int P>
 __global__ void __launch_bounds__(kThreads)
 stem_kernel(const T* __restrict__ x, const float* __restrict__ w0, const float* __restrict__ b0,
             const float* __restrict__ w1, const float* __restrict__ b1, float* __restrict__ out,
-            int H, int W, int c0, int c1) {
+            int H, int W, int c0, int c1, int c1s) {
+  constexpr int kC0H = 2 * TH + 1;  // conv0 rows per block
+  constexpr int kC0W = 2 * TW + 1;  // conv0 cols per block
+  constexpr int kInH = 4 * TH + 3;  // input rows per block
+  constexpr int kInW = 4 * TW + 3;  // input cols per block
+  constexpr int kPW = TW / P;       // work items across a tile row
   extern __shared__ __align__(16) float smem[];
   const int cp = c0 | 1;                       // odd per-position stride of the conv0 tile:
                                                // stride-2 position reads hit distinct banks
-  float* s_w1 = smem;                          // 9 * c0 * c1, 16-byte aligned
-  float* s_w0 = s_w1 + 9 * c0 * c1;            // 9 * kCin * c0
+  float* s_w1 = smem;                          // 9 * c0 * c1s, 16-byte aligned
+  float* s_w0 = s_w1 + 9 * c0 * c1s;           // 9 * kCin * c0
   float* s_b0 = s_w0 + 9 * kCin * c0;          // c0
   float* s_b1 = s_b0 + c0;                     // c1
   float* s_in = s_b1 + c1;                     // kInH * kInW * kCin
@@ -96,16 +156,16 @@ stem_kernel(const T* __restrict__ x, const float* __restrict__ w0, const float* 
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
-  const int oy0 = blockIdx.y * kTH;
-  const int ox0 = blockIdx.x * kTW;
+  const int oy0 = blockIdx.y * TH;
+  const int ox0 = blockIdx.x * TW;
   const int H2 = H / 2, W2 = W / 2, H4 = H / 4, W4 = W / 4;
 
-  for (int i = tid; i < 9 * c0 * c1; i += kThreads) s_w1[i] = w1[i];
+  stage_w1_slice(s_w1, w1, c0, c1, c1s, 0);
   for (int i = tid; i < 9 * kCin * c0; i += kThreads) s_w0[i] = w0[i];
   for (int i = tid; i < c0; i += kThreads) s_b0[i] = b0[i];
   for (int i = tid; i < c1; i += kThreads) s_b1[i] = b1[i];
 
-  // Input tile: image rows 4*oy0-3 .. 4*oy0+4*kTH-1, zero outside the image
+  // Input tile: image rows 4*oy0-3 .. 4*oy0+4*TH-1, zero outside the image
   // (conv0's own padding). Consecutive threads read consecutive bytes.
   const int iy0 = 4 * oy0 - 3, ix0 = 4 * ox0 - 3;
   const T* xb = x + static_cast<size_t>(b) * H * W * kCin;
@@ -152,53 +212,76 @@ stem_kernel(const T* __restrict__ x, const float* __restrict__ w0, const float* 
   }
   __syncthreads();
 
-  // conv1: output (oy0+ty, ox0+tx) reads conv0 tile rows 2ty..2ty+2.
-  // One work item: positions (ty, tx) and (ty, tx + kTW/2), 8 output channels;
-  // per input channel, 2 conv0 loads and 2 float4 weight loads feed 16 FMAs.
-  const int oct1 = c1 / 8;
+  // conv1, one slice of c1s output channels at a time (one slice when all of
+  // w1 fits): output (oy0+ty, ox0+tx) reads conv0 tile rows 2ty..2ty+2. One
+  // work item: P positions (ty, tx + p * TW/P), 8 output channels; per input
+  // channel, P conv0 loads and 2 float4 weight loads feed 8P FMAs.
+  const int oct1 = c1s / 8;
   float* ob = out + static_cast<size_t>(b) * H4 * W4 * c1;
-  for (int u = tid; u < (kTH * kTW / 2) * oct1; u += kThreads) {
-    const int o = 8 * (u % oct1);
-    const int pp = u / oct1;
-    const int tx = pp % (kTW / 2), ty = pp / (kTW / 2);
-    float acc0[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float acc1[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int s0 = 0; s0 < c1; s0 += c1s) {
+    if (s0 > 0) {
+      __syncthreads();  // every thread is done with the previous slice
+      stage_w1_slice(s_w1, w1, c0, c1, c1s, s0);
+      __syncthreads();
+    }
+    for (int u = tid; u < TH * kPW * oct1; u += kThreads) {
+      const int o = 8 * (u % oct1);
+      const int pp = u / oct1;
+      const int tx = pp % kPW, ty = pp / kPW;
+      float acc[P][8];
 #pragma unroll
-    for (int kh = 0; kh < 3; ++kh) {
+      for (int p = 0; p < P; ++p)
 #pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        const float* pa = s_c0 + ((2 * ty + kh) * kC0W + (2 * tx + kw)) * cp;
-        const float* pb = pa + kTW * cp;  // the second position, kTW/2 outputs = kTW conv0 columns right
-        const float* pw = s_w1 + (kh * 3 + kw) * c0 * c1 + o;
+        for (int j = 0; j < 8; ++j) acc[p][j] = 0.0f;
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw) {
+          const float* pa = s_c0 + ((2 * ty + kh) * kC0W + (2 * tx + kw)) * cp;
+          const float* pw = s_w1 + (kh * 3 + kw) * c0 * c1s + o;
 #pragma unroll 4
-        for (int ic = 0; ic < c0; ++ic) {
-          const float4 wa = load4(pw + ic * c1), wb = load4(pw + ic * c1 + 4);
-          fma8(acc0, pa[ic], wa, wb);
-          fma8(acc1, pb[ic], wa, wb);
+          for (int ic = 0; ic < c0; ++ic) {
+            const float4 wa = load4(pw + ic * c1s), wb = load4(pw + ic * c1s + 4);
+#pragma unroll
+            for (int p = 0; p < P; ++p) fma8(acc[p], pa[p * 2 * kPW * cp + ic], wa, wb);  // kPW outputs: 2*kPW columns
+          }
         }
       }
+      const int oy = oy0 + ty;
+      if (oy >= H4) continue;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int ox = ox0 + tx + p * kPW;
+        if (ox < W4) store_silu8(ob + (static_cast<size_t>(oy) * W4 + ox) * c1 + s0 + o, acc[p], s_b1 + s0 + o);
+      }
     }
-    const int oy = oy0 + ty, ox = ox0 + tx;
-    if (oy >= H4) continue;
-    float* dst = ob + (static_cast<size_t>(oy) * W4 + ox) * c1 + o;
-    if (ox < W4) store_silu8(dst, acc0, s_b1 + o);
-    if (ox + kTW / 2 < W4) store_silu8(dst + (kTW / 2) * c1, acc1, s_b1 + o);
   }
+}
+
+template <typename T, int TH, int TW, int P>
+int launch_plan(const void* x, const void* w0, const void* b0, const void* w1, const void* b1, void* out, int B,
+                int H, int W, int c0, int c1, int c1s, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(stem_kernel<T, TH, TW, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int H4 = H / 4, W4 = W / 4;
+  dim3 grid((W4 + TW - 1) / TW, (H4 + TH - 1) / TH, B);
+  stem_kernel<T, TH, TW, P><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w0), static_cast<const float*>(b0),
+      static_cast<const float*>(w1), static_cast<const float*>(b1), static_cast<float*>(out), H, W, c0, c1, c1s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, const void* w0, const void* b0, const void* w1, const void* b1, void* out,
            int B, int H, int W, int c0, int c1, void* stream) {
-  const size_t smem = stem_smem_floats(c0, c1) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(stem_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int H4 = H / 4, W4 = W / 4;
-  dim3 grid((W4 + kTW - 1) / kTW, (H4 + kTH - 1) / kTH, B);
-  stem_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w0), static_cast<const float*>(b0),
-      static_cast<const float*>(w1), static_cast<const float*>(b1), static_cast<float*>(out), H, W, c0, c1);
-  return static_cast<int>(cudaGetLastError());
+  const StemPlan p = stem_plan(c0, c1);
+  const size_t smem = plan_floats(c0, c1, p) * sizeof(float);
+  if (smem > static_cast<size_t>(kSmemLimitBytes)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.pairs == 2) return launch_plan<T, 8, 16, 2>(x, w0, b0, w1, b1, out, B, H, W, c0, c1, p.c1s, smem, s);
+  if (p.tw == 16) return launch_plan<T, 8, 16, 1>(x, w0, b0, w1, b1, out, B, H, W, c0, c1, p.c1s, smem, s);
+  return launch_plan<T, 8, 8, 1>(x, w0, b0, w1, b1, out, B, H, W, c0, c1, p.c1s, smem, s);
 }
 
 }  // namespace
@@ -206,9 +289,15 @@ int launch(const void* x, const void* w0, const void* b0, const void* w1, const 
 extern "C" {
 
 // Shared memory one block needs, in floats (the wrapper checks it against the card's limit).
-long long stem_smem_floats(int c0, int c1) {
-  return 9LL * c0 * c1 + 9LL * kCin * c0 + c0 + c1 + static_cast<long long>(kInH) * kInW * kCin +
-         static_cast<long long>(kC0H) * kC0W * (c0 | 1);
+long long stem_smem_floats(int c0, int c1) { return plan_floats(c0, c1, stem_plan(c0, c1)); }
+
+// The block's layout for these widths: {conv1 tile rows, tile cols, c1 slice, positions per work item}.
+void stem_plan_of(int c0, int c1, int* plan) {
+  const StemPlan p = stem_plan(c0, c1);
+  plan[0] = p.th;
+  plan[1] = p.tw;
+  plan[2] = p.c1s;
+  plan[3] = p.pairs;
 }
 
 int ymt_stem_u8(const void* x, const void* w0, const void* b0, const void* w1, const void* b1, void* out,

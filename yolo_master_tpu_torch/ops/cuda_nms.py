@@ -1,12 +1,19 @@
 """Exact batched greedy NMS and cluster-weighted NMS over fixed-size candidate sets.
 
 Counterpart of ``yolo_master_tpu/ops/pallas_nms.py``: ``pallas_batched_greedy_nms``
-becomes :func:`batched_greedy_nms` (CUDA kernel ``csrc/nms.cu``, one block per
-image), the single-image ``pallas_greedy_nms`` becomes :func:`greedy_nms`, the
-same kernel at B=1, and ``pallas_batched_cw_nms`` becomes :func:`batched_cw_nms`
-(``csrc/cw_nms.cu``). :func:`batched_greedy_nms_plain` and
-:func:`batched_cw_nms_plain` are the plain PyTorch versions (the ``lax.scan``
-loops of ``ops/nms.py:_greedy_nms`` and ``_greedy_cw_nms``, batched).
+becomes :func:`batched_greedy_nms` (CUDA ``csrc/nms.cu``), the single-image
+``pallas_greedy_nms`` becomes :func:`greedy_nms`, the same kernel at B=1, and
+``pallas_batched_cw_nms`` becomes :func:`batched_cw_nms` (``csrc/cw_nms.cu``).
+:func:`batched_greedy_nms_plain` and :func:`batched_cw_nms_plain` are the plain
+PyTorch versions (the ``lax.scan`` loops of ``ops/nms.py:_greedy_nms`` and
+``_greedy_cw_nms``, batched).
+
+The CUDA versions do not step: they sort each image's candidates by (score
+descending, index ascending), compute the IoU bitmask of every earlier/later
+pair, and scan the sorted candidates once with the removed set in a warp's
+registers (``csrc/nms_common.cuh``); CW-NMS then sums each kept box's cluster.
+One wrapper call launches three or four kernels and counts one launch; their
+scratch is one ``torch.empty`` buffer on the caller's device.
 
 Picks are exact: the same candidates, in the same order, as the JAX package,
 ties included (the lowest index wins, as ``jnp.argmax``). Slots after an image
@@ -71,16 +78,18 @@ def batched_greedy_nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thre
 def _lib() -> ctypes.CDLL:
     lib = load_library("nms", ("-fmad=false",))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ymt_batched_greedy_nms.argtypes = [ptr] * 4 + [i32] * 3 + [ctypes.c_float, ptr]
+    lib.ymt_batched_greedy_nms.argtypes = [ptr] * 5 + [i32] * 3 + [ctypes.c_float, ptr]
     lib.ymt_batched_greedy_nms.restype = i32
     lib.nms_max_candidates.argtypes = [i32]
     lib.nms_max_candidates.restype = i32
+    lib.nms_scratch_bytes.argtypes = [i32] * 3
+    lib.nms_scratch_bytes.restype = ctypes.c_size_t
     return lib
 
 
 @functools.cache
 def _max_candidates() -> int:
-    """The largest N whose candidates fit one block's shared memory."""
+    """The largest N whose sort keys fit one block's shared memory."""
     return _lib().nms_max_candidates(SMEM_LIMIT_BYTES)
 
 
@@ -100,9 +109,11 @@ def batched_greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: flo
     keep_valid = torch.empty((b, max_det), dtype=torch.bool, device=scores.device)
     if b == 0 or max_det == 0:
         return keep_idx.zero_(), keep_valid.zero_()
-    check(_lib().ymt_batched_greedy_nms(boxes.data_ptr(), scores.data_ptr(), keep_idx.data_ptr(),
-                                        keep_valid.data_ptr(), b, n, max_det, float(iou_thres),
-                                        stream_ptr(scores.device)), "nms kernel")
+    lib = _lib()
+    scratch = torch.empty(lib.nms_scratch_bytes(b, n, max_det), dtype=torch.uint8, device=scores.device)
+    check(lib.ymt_batched_greedy_nms(boxes.data_ptr(), scores.data_ptr(), keep_idx.data_ptr(),
+                                     keep_valid.data_ptr(), scratch.data_ptr(), b, n, max_det, float(iou_thres),
+                                     stream_ptr(scores.device)), "nms kernel")
     batched_greedy_nms.launches += 1
     return keep_idx, keep_valid
 
@@ -164,10 +175,12 @@ def batched_cw_nms_plain(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: f
 def _cw_lib() -> ctypes.CDLL:
     lib = load_library("cw_nms", ("-fmad=false",))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ymt_batched_cw_nms.argtypes = [ptr] * 6 + [i32] * 3 + [f32, f32, i32, ptr]
+    lib.ymt_batched_cw_nms.argtypes = [ptr] * 7 + [i32] * 3 + [f32, f32, i32, ptr]
     lib.ymt_batched_cw_nms.restype = i32
     lib.cw_nms_max_candidates.argtypes = [i32]
     lib.cw_nms_max_candidates.restype = i32
+    lib.cw_nms_scratch_bytes.argtypes = [i32] * 3
+    lib.cw_nms_scratch_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -197,9 +210,12 @@ def batched_cw_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float, 
     valid = torch.empty((b, max_det), dtype=torch.bool, device=dev)
     if b == 0 or max_det == 0:
         return fused.zero_(), fscore.zero_(), seed.zero_(), valid.zero_()
-    check(_cw_lib().ymt_batched_cw_nms(boxes.data_ptr(), scores.data_ptr(), fused.data_ptr(), fscore.data_ptr(),
-                                       seed.data_ptr(), valid.data_ptr(), b, n, max_det, float(iou_thres),
-                                       float(sigma), int(bool(weighted_iou)), stream_ptr(dev)), "cw nms kernel")
+    lib = _cw_lib()
+    scratch = torch.empty(lib.cw_nms_scratch_bytes(b, n, max_det), dtype=torch.uint8, device=dev)
+    check(lib.ymt_batched_cw_nms(boxes.data_ptr(), scores.data_ptr(), fused.data_ptr(), fscore.data_ptr(),
+                                 seed.data_ptr(), valid.data_ptr(), scratch.data_ptr(), b, n, max_det,
+                                 float(iou_thres), float(sigma), int(bool(weighted_iou)), stream_ptr(dev)),
+          "cw nms kernel")
     batched_cw_nms.launches += 1
     return fused, fscore, seed, valid
 

@@ -10,6 +10,10 @@ reads them in HWIO memory order: :func:`stem_weight_layout` makes that copy
 once, as an OIHW view, and the wrapper only checks it. The output is float32
 NHWC ``[B, H/4, W/4, c1]``, whose ``permute(0, 3, 1, 2)`` is the channels_last
 NCHW tensor the trunk consumes.
+
+The kernel takes every stem width of the port's YAMLs (c0/c1 = 16/32 at scale
+n, 32/64 at s, 64/128 at m and l, 96/192 at x): wide stems stage conv1's
+weights in output-channel slices over a smaller tile (:func:`stem_plan`).
 """
 
 from __future__ import annotations
@@ -46,12 +50,21 @@ def _lib() -> ctypes.CDLL:
         fn.restype = i32
     lib.stem_smem_floats.argtypes = [i32, i32]
     lib.stem_smem_floats.restype = ctypes.c_longlong
+    lib.stem_plan_of.argtypes = [i32, i32, ptr]
+    lib.stem_plan_of.restype = None
     return lib
 
 
 @functools.cache
-def _fits_shared_memory(c0: int, c1: int) -> bool:
-    return _lib().stem_smem_floats(c0, c1) * 4 <= SMEM_LIMIT_BYTES
+def stem_plan(c0: int, c1: int) -> dict:
+    """The kernel's block layout for these widths, as ``csrc/stem.cu:stem_plan``
+    chooses it: conv1 tile rows and columns, the slice of conv1's output
+    channels staged at a time, positions per thread, and shared memory in bytes."""
+    lib = _lib()
+    plan = (ctypes.c_int * 4)()
+    lib.stem_plan_of(c0, c1, plan)
+    return {"tile": (plan[0], plan[1]), "c1_slice": plan[2], "positions": plan[3],
+            "smem_bytes": lib.stem_smem_floats(c0, c1) * 4}
 
 
 def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
@@ -86,7 +99,7 @@ def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Te
     for name, t in (("w0", w0.permute(2, 3, 1, 0)), ("w1", w1.permute(2, 3, 1, 0)), ("b0", b0), ("b1", b1)):
         if not t.is_contiguous():
             raise ValueError(f"fused_stem: {name} is not in the kernel's layout (see stem_weight_layout)")
-    if not _fits_shared_memory(c0, c1):
+    if stem_plan(c0, c1)["smem_bytes"] > SMEM_LIMIT_BYTES:  # no YAML the port holds gives such widths
         raise NotImplementedError(f"fused_stem: widths c0={c0}, c1={c1} exceed one block's shared memory")
     out = torch.empty((B, H // 4, W // 4, c1), dtype=torch.float32, device=x.device)
     if B == 0:
