@@ -4,15 +4,15 @@
 
 Builds the port's six hand-written CUDA kernels from the checkout
 (csrc/stem.cu, nms.cu, esmoe.cu, cw_nms.cu, moe.cu, c3k2.cu, and the self-check
-of the split-TF32 header that esmoe.cu and moe.cu share, one nvcc each, in
-parallel), holds each against its plain PyTorch version on the card, and
+of the split-TF32 header that stem.cu, esmoe.cu and moe.cu share, one nvcc
+each, in parallel), holds each against its plain PyTorch version on the card, and
 drives yolo_master_tpu_torch's paths at the full width of yolo-master-n and
 yolo-master-v0_1-n with seeded random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
   2. build the six kernels; the split-TF32 header's self-check against fp64
-  3. stem kernel vs F.conv2d x2 (uint8 640x640 input) at the stem widths of
-     scales n (B=1, 2, 16), s, m/l and x (B=16)
+  3. stem kernel vs F.conv2d x2 + SiLU (the cuDNN pair; uint8 640x640 input)
+     at the stem widths of scales n (B=1, 2, 16), s, m/l and x (B=16)
   4. NMS kernel vs the plain greedy loop (exact keep sets, ties included;
      candidates in order and shuffled; N up to 4096)
   5. ES_MOE kernel vs its plain version at the four placements' shapes, B=1
@@ -28,8 +28,9 @@ yolo-master-v0_1-n with seeded random weights. Phases:
   9. the predict path, YOLO("yolo-master-n").fuse().predict(...), at batch 1
      and 16: launch counts, max_det detections per image, GPU vs CPU decode,
      kernel vs plain NMS on the GPU's candidates; then the same path at scale
-     m, YOLO("yolo-master-m").fuse().predict(...) (the stem kernel's sliced
-     plan): launch counts, detections, GPU vs CPU decode
+     m, YOLO("yolo-master-m").fuse().predict(...) (the stem at 64/128):
+     launch counts, detections, GPU vs CPU decode, the stem's share of the
+     device time at bs 16 (torch.profiler)
  10. the C3k2 kernel through its entry point on the live model's folded
      layers 2 and 5 and their inputs from the bs-1 and bs-16 frames (and an
      n=2 block at layer 2's width), vs its plain version and the C3k2 module
@@ -46,16 +47,19 @@ yolo-master-v0_1-n with seeded random weights. Phases:
  15. no module of jax or of the JAX package was imported
 
 Each path's launch counts are set to 0 just before it runs and read just
-after; the gathered matmul's and C3k2's path is their own entry point, as in
-the JAX package, where no model path reaches them. fp32 throughout: TF32 is
-off for PyTorch's convs and matmuls, and the two kernels that use the tensor
-cores (esmoe.cu, moe.cu) compute a three-term split-TF32 product that holds
-fp32 accuracy, at the same tolerances as before. Any failing check raises and
-the script exits non-zero. The second-to-last stdout line is a JSON object of
-per-kernel results (bound_ms: the largest of the bytes moved over 3.35 TB/s,
-the matrix-product operations of esmoe.cu and moe.cu, counted once, over 495
-TFLOP/s, the H100 SXM's TF32 tensor-core peak, and every other operation over
-67 TFLOP/s, its fp32 CUDA-core peak); the last is {"ok": true, "device": {...}}.
+after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
+as "stem_bank"); the gathered matmul's and C3k2's path is their own entry point,
+as in the JAX package, where no model path reaches them. fp32 throughout: TF32
+is off for PyTorch's convs and matmuls, and the three kernels that use the
+tensor cores (stem.cu, esmoe.cu, moe.cu) compute a three-term split-TF32
+product that holds fp32 accuracy, at the same tolerances as before. Any
+failing check raises and the script exits non-zero. The second-to-last stdout
+line is a JSON object of per-kernel results (bound_ms: the largest of the
+bytes moved over 3.35 TB/s, the matrix-product operations of stem.cu's two
+convs, esmoe.cu and moe.cu, counted once, over 495 TFLOP/s, the H100 SXM's TF32
+tensor-core peak, and every other operation over 67 TFLOP/s, its fp32
+CUDA-core peak; bound_peak names the one that sets it); the last is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -85,7 +89,7 @@ C3K2_LAYERS = (2, 5)  # yolo-master-n's C3k2 blocks with Bottleneck inner blocks
 KW = dict(imgsz=IMGSZ, conf=0.0, iou=0.45, max_det=300)
 # the port's CUDA kernels as the profiler names them (substrings of the mangled names)
 NMS_PHASES = ("sort_candidates_kernel", "iou_mask_kernel", "scan_kernel")
-PORT_KERNEL_NAMES = ("stem_kernel", *NMS_PHASES, "fused_esmoe_kernel", "split_bank_kernel",
+PORT_KERNEL_NAMES = ("stem_kernel", "stem_bank_kernel", *NMS_PHASES, "fused_esmoe_kernel", "split_bank_kernel",
                      "gathered_expert_matmul_kernel")
 
 
@@ -152,10 +156,13 @@ def _wrappers() -> dict:
 def reset_launches():
     for fn in _wrappers().values():
         fn.launches = 0
+    _wrappers()["stem"].bank_launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Each wrapper's kernel launches, and apart from them the stem wrapper's weight-bank launches."""
+    wrappers = _wrappers()
+    return {**{name: fn.launches for name, fn in wrappers.items()}, "stem_bank": wrappers["stem"].bank_launches}
 
 
 def phase_environment():
@@ -222,11 +229,13 @@ def phase_split_tf32(dev):
 
 
 def phase_stem(dev):
-    """Kernel vs plain at 640x640: the main path's widths c0/c1 = 16/32 (scale n)
-    at B=1, 16 and 2, and the widths of scales s, m/l and x at B=16 (wider
-    stems stage conv1's weights in output-channel slices: the plan printed)."""
+    """Kernel vs plain (the cuDNN pair) at 640x640: the main path's widths
+    c0/c1 = 16/32 (scale n) at B=1, 16 and 2, and the widths of scales s, m/l
+    and x at B=16, with the block layout each width takes."""
     import torch
 
+    from yolo_master_tpu_torch.ops import stem
+    from yolo_master_tpu_torch.ops._build import check, stream_ptr
     from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_plan, stem_weight_layout
 
     result = {}
@@ -238,6 +247,10 @@ def phase_stem(dev):
         w1 = stem_weight_layout(((torch.rand(c1, c0, 3, 3, generator=g) - 0.5) * 1.2 / c0 ** 0.5).to(dev))
         b1 = (torch.rand(c1, generator=g) - 0.5).to(dev)
         plan = stem_plan(c0, c1)
+        bank = torch.empty(plan["bank_floats"], device=dev)
+        bank_ms = cuda_ms(lambda: check(stem._lib().ymt_stem_bank(w1.data_ptr(), bank.data_ptr(), c0, c1,
+                                                                  stream_ptr(dev)), "stem weight-bank kernel"),
+                          inner=10)
         for b in ((2, 1, 16) if scale == "n" else (16,)):
             x = torch.randint(0, 256, (b, 640, 640, 3), generator=g, dtype=torch.uint8).to(dev)
             out = fused_stem(x, w0, b0, w1, b1)
@@ -247,17 +260,18 @@ def phase_stem(dev):
             require(out.shape == (b, 160, 160, c1) and bool(torch.isfinite(out).all()), "stem output shape/finite")
             require(bool((err <= 1e-4 + 1e-4 * ref.abs()).all()),
                     f"stem kernel disagrees at c0/c1 {c0}/{c1}: max abs err {err.max().item()}")
-            ms = cuda_ms(lambda: fused_stem(x, w0, b0, w1, b1))
+            ms = cuda_ms(lambda: fused_stem(x, w0, b0, w1, b1))  # w1's bank is kept: the stem kernel alone
             plain_ms = cuda_ms(lambda: fused_stem_plain(x, w0, b0, w1, b1))
-            # 2 flops per multiply-add; bias + SiLU (5 operations) per output of each conv
+            # 2 flops per multiply-add: both convs' are matrix products (tensor cores); bias + SiLU
+            # (5 operations) per output of each conv count as fp32 operations
             n0, n1 = b * 320 * 320 * c0, b * 160 * 160 * c1
-            flops = n0 * (2 * 27 + 5) + n1 * (2 * 9 * c0 + 5)
-            bound_ms, bound_by, _ = bound(nbytes(x, w0, b0, w1, b1, out), flops)
+            bound_ms, bound_by, peak = bound(nbytes(x, w0, b0, w1, b1, out), (n0 + n1) * 5,
+                                             n0 * 2 * 27 + n1 * 2 * 9 * c0)
             log(f"[stem] scale {scale} B={b} 640x640 u8 -> [{b},160,160,{c1}] (plan {plan}): max abs err "
-                f"{err.max().item():.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by})")
+                f"{err.max().item():.3e}, kernel {ms:.4f} ms, cuDNN pair {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({peak}); w1's weight bank, written once per w1, {bank_ms:.4f} ms")
             result[(scale, b)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                      bound_by=bound_by)
+                                      bound_by=bound_by, bound_peak=peak)
     return result
 
 
@@ -654,7 +668,9 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"[main] predict bs1 + bs16 launches: {launches}")
-    require(launches["stem"] == 2 and launches["nms"] == 2, "main path did not launch the stem and NMS kernels")
+    # the stem's weight bank is written at the fused model's first call and kept after it
+    require(launches["stem"] == 2 and launches["stem_bank"] == 1 and launches["nms"] == 2,
+            "main path did not launch the stem and NMS kernels")
     require(len(r1) == 1 and len(r16) == 16, "result counts")
     check_detections(r1 + r16)
     counts = [len(r.boxes) for r in r16]
@@ -729,7 +745,8 @@ def phase_scale_m(dev, imgs):
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"[scale-m] predict bs1 + bs16 launches: {launches}")
-    require(launches["stem"] == 2 and launches["nms"] == 2, "the scale-m path did not launch the stem and NMS kernels")
+    require(launches["stem"] == 2 and launches["stem_bank"] == 1 and launches["nms"] == 2,
+            "the scale-m path did not launch the stem and NMS kernels")
     require(len(r1) == 1 and len(r16) == 16, "scale-m result counts")
     check_detections(r1 + r16)
     log(f"[scale-m] image 0 top: {np.round(r1[0].boxes.data[0], 2).tolist()}")
@@ -749,6 +766,12 @@ def phase_scale_m(dev, imgs):
     xb, _ = pred.preprocess(imgs)
     ms = cuda_ms(lambda: pred.run(xb), reps=5, warmup=2)
     log(f"[scale-m] bs=16: device {ms / 16:.4f} ms/img (uint8 on card -> detections)")
+    busy_ms, ours = device_time_by_kernel(pred.run, xb)
+    stem_ms = ours["stem_kernel"] + ours["stem_bank_kernel"]  # the bank is kept: 0 ms of it here
+    log(f"[scale-m] bs=16 under torch.profiler: device busy {busy_ms:.3f} ms/batch, stem {stem_ms:.4f} ms/batch "
+        f"(stem_kernel {ours['stem_kernel']:.4f}, stem_bank_kernel {ours['stem_bank_kernel']:.4f}): "
+        f"{100 * stem_ms / busy_ms:.1f}% of the device time")
+    require(stem_ms > 0, "the scale-m profile shows no stem kernel")
     return launches
 
 
@@ -963,31 +986,47 @@ def phase_sahi(dev, moe):
     return launches
 
 
-def phase_profile(paths, xb):
-    """Device time by kernel over 5 iterations of each path's device graph
-    (uint8 batch on the card -> detections), under torch.profiler."""
+def profile_kernels(run, xb, iters: int = 5):
+    """(wall ms per iteration, {kernel name: device us per iteration}, kernels per iteration)
+    of ``run(xb)`` under torch.profiler, after one untimed call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    iters = 5
-    for name, run in paths.items():
-        run(xb)
+    run(xb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run(xb)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                run(xb)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = {e.key: e.self_device_time_total / iters for e in kernels}
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall_ms, {e.key: e.self_device_time_total / iters for e in kernels}, sum(e.count for e in kernels) / iters
+
+
+def ports_kernels(dev_us: dict) -> dict:
+    """Device us of each of the port's kernels (PORT_KERNEL_NAMES; "stem_kernel" is not
+    a substring of "stem_bank_kernel")."""
+    return {part: sum(v for k, v in dev_us.items() if part in k) for part in PORT_KERNEL_NAMES}
+
+
+def device_time_by_kernel(run, xb):
+    """(device busy ms per iteration, {port kernel: ms per iteration}) under torch.profiler."""
+    _, dev_us, _ = profile_kernels(run, xb)
+    return sum(dev_us.values()) / 1e3, {k: v / 1e3 for k, v in ports_kernels(dev_us).items()}
+
+
+def phase_profile(paths, xb):
+    """Device time by kernel over 5 iterations of each path's device graph
+    (uint8 batch on the card -> detections), under torch.profiler."""
+    for name, run in paths.items():
+        wall_ms, dev_us, count = profile_kernels(run, xb)
         busy_ms = sum(dev_us.values()) / 1e3
-        count = sum(e.count for e in kernels) / iters
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
         log(f"[profile] {name}, B={xb.shape[0]}: wall {wall_ms:.3f} ms/batch under the profiler, device busy "
             f"{busy_ms:.3f} ms/batch ({100 * busy_ms / wall_ms:.1f}%), {count:.0f} kernels/batch; top: "
             + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
-        ours = {part: sum(v for k, v in dev_us.items() if part in k) for part in PORT_KERNEL_NAMES}
+        ours = ports_kernels(dev_us)
         log(f"[profile] {name}, B={xb.shape[0]}: the port's kernels, ms/batch: "
             + "; ".join(f"{k} {v / 1e3:.4f}" for k, v in ours.items() if v)
             + f"; NMS (sort + mask + scan) {sum(ours[k] for k in NMS_PHASES) / 1e3:.4f}")
@@ -1053,8 +1092,10 @@ def main():
     gm = gm_res[(16, MOE_BANKS[0][0])]
     kernels = [
         kernel_entry("fused_stem", "stem.cu", "pallas_stem.py:177", main_launches["stem"], stem_res[("n", 16)],
-                     "uint8 [16,640,640,3] -> [16,160,160,32]",
-                     widths={scale: {k: stem_res[(scale, 16)][k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                     "uint8 [16,640,640,3] -> [16,160,160,32]", bound_peak=stem_res[("n", 16)]["bound_peak"],
+                     bank_launches=main_launches["stem_bank"],
+                     widths={scale: {k: stem_res[(scale, 16)][k]
+                                     for k in ("ms", "plain_ms", "bound_ms", "bound_peak", "max_abs_err")}
                              for scale in STEM_WIDTHS}),
         kernel_entry("batched_greedy_nms", "nms.cu", "pallas_nms.py:120", main_launches["nms"],
                      nms_res[(16, 2048, False)], "B=16 N=2048 max_det=300"),

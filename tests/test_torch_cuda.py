@@ -96,27 +96,95 @@ def test_stem_kernel_at_every_scale_width(dev, c0, c1, shape):
 
 
 def test_stem_plan_keeps_scale_n_and_fits_every_width(dev):
-    """Scale n's plan is the one its times were measured with (8x16 tile, all
-    of w1, two positions per thread); every YAML width fits one block."""
-    assert stem_plan(16, 32) == {"tile": (8, 16), "c1_slice": 32, "positions": 2, "smem_bytes": 86640}
-    assert stem_plan(32, 64)["c1_slice"] == 64
-    for c0, c1 in ((64, 128), (96, 192)):
+    """Scale n's plan: an 8x16 tile, one warpgroup per 64 pixels with all 32 of
+    c1, a three-stage weight ring; every YAML width fits one block, and n, s
+    and m/l fit two per SM (each block also holds 1 KB of the SM's 228 KB)."""
+    assert stem_plan(16, 32) == {"tile": (8, 16), "c1_per_warpgroup": 32, "warpgroups_per_64_pixels": 1,
+                                 "stages": 3, "smem_bytes": 102908, "bank_floats": 10240}
+    for c0, c1 in ((16, 32), (32, 64), (64, 128), (96, 192)):
         plan = stem_plan(c0, c1)
-        assert plan["c1_slice"] < c1 and c1 % plan["c1_slice"] == 0 and plan["smem_bytes"] <= SMEM_LIMIT_BYTES
+        assert plan["c1_per_warpgroup"] * plan["warpgroups_per_64_pixels"] >= c1
+        assert 0 < plan["smem_bytes"] <= SMEM_LIMIT_BYTES
+        if c1 <= 128:
+            assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("shape", [(3, 36, 52), (3, 68, 100), (0, 36, 52)])
+@pytest.mark.parametrize("c0,c1", [(8, 16), (16, 32), (32, 64), (64, 128), (96, 192)],
+                         ids=["c8", "n", "s", "m_l", "x"])
+def test_stem_kernel_ragged_tiles_and_batch_edges(dev, c0, c1, shape):
+    """H/4 and W/4 off the tile (9x13, 17x25), B=3 and B=0, uint8 and float
+    input, at every width (and c0 = 8, half a conv0 chunk). Tolerance
+    1e-4 + 1e-4*|ref|, the kernel's gate at every width."""
+    rng = np.random.default_rng(c0 + shape[1])
+    w0, b0, w1, b1 = _stem_weights(rng, c0, c1, dev)
+    img = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(dev)
+    before = fused_stem.launches
+    for x, w in ((img, stem_weight_layout(w0 / 255.0)), (img.float() / 255.0, w0)):
+        out = fused_stem(x, w, b0, w1, b1)
+        ref = fused_stem_plain(x, w, b0, w1, b1)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape == (shape[0], shape[1] // 4, shape[2] // 4, c1)
+        assert bool(torch.isfinite(out).all())
+        assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+    assert fused_stem.launches == before + (2 if shape[0] else 0)
 
 
 def test_stem_kernel_counts_launches_and_rejects_bad_input(dev):
     w = _stem_weights(np.random.default_rng(5), 8, 16, dev)
-    before = fused_stem.launches
+    before, bank_before = fused_stem.launches, fused_stem.bank_launches
     fused_stem(torch.zeros(1, 32, 32, 3, dtype=torch.uint8, device=dev), *w)
-    assert fused_stem.launches == before + 1
+    assert fused_stem.launches == before + 1 and fused_stem.bank_launches == bank_before + 1
+    fused_stem(torch.zeros(2, 32, 32, 3, dtype=torch.uint8, device=dev), *w)  # w1's bank is kept
+    assert fused_stem.launches == before + 2 and fused_stem.bank_launches == bank_before + 1
     with pytest.raises(ValueError):
         fused_stem(torch.zeros(1, 30, 32, 3, dtype=torch.uint8, device=dev), *w)
     with pytest.raises(TypeError):
         fused_stem(torch.zeros(1, 32, 32, 3, dtype=torch.float16, device=dev), *w)
     with pytest.raises(ValueError, match="layout"):  # OIHW-contiguous weights
         fused_stem(torch.zeros(1, 32, 32, 3, dtype=torch.uint8, device=dev), w[0].contiguous(), *w[1:])
-    assert fused_stem.launches == before + 1
+    assert fused_stem.launches == before + 2 and fused_stem.bank_launches == bank_before + 1
+
+
+def test_stem_bank_is_kept_until_w1_changes(dev):
+    """The weight bank is written at w1's first call and kept after it; an
+    in-place write to w1 (FusedStem: load_state_dict) and a move to another
+    address (.to()) rebuild it, and the output follows the new weights; an
+    inference tensor's bank is written at every call."""
+    from yolo_master_tpu_torch.nn.layers import FusedStem
+
+    rng = np.random.default_rng(6)
+    w0, b0, w1, b1 = (t.cpu() for t in _stem_weights(rng, 16, 32, dev))
+    stem = FusedStem(w0 / 255.0, b0, w1, b1).to(dev)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8)).to(dev)
+
+    def check(expect_bank_launches):
+        before, bank_before = fused_stem.launches, fused_stem.bank_launches
+        out = stem(x).permute(0, 2, 3, 1)
+        ref = fused_stem_plain(x, *stem.weights())
+        torch.cuda.synchronize()
+        assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), (out - ref).abs().max().item()
+        assert fused_stem.launches == before + 1
+        assert fused_stem.bank_launches == bank_before + expect_bank_launches
+
+    check(1)
+    check(0)
+    state = {k: v.clone() for k, v in stem.state_dict().items()}
+    state["w1"] = state["w1"].flip(0) * 0.5
+    stem.load_state_dict(state)
+    check(1)
+    check(0)
+    held = stem.w1.data  # keeps w1's old block, so that .to() moves it to another address
+    stem.cpu().to(dev)
+    assert stem.w1.data_ptr() != held.data_ptr()
+    check(1)
+    with torch.inference_mode():  # an inference tensor has no version counter: its bank is written every call
+        w = [stem_weight_layout(t) if t.dim() == 4 else t.clone() for t in stem.weights()]
+        for _ in range(2):
+            bank_before = fused_stem.bank_launches
+            out, ref = fused_stem(x, *w), fused_stem_plain(x, *w)
+            assert fused_stem.bank_launches == bank_before + 1
+            assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
 
 
 def _candidates(b, n, device, seed=0):

@@ -1,5 +1,5 @@
-// Split-TF32 matrix products on Hopper's tensor cores, shared by moe.cu and
-// esmoe.cu.
+// Split-TF32 matrix products on Hopper's tensor cores, shared by moe.cu,
+// esmoe.cu and stem.cu.
 //
 // A TF32 operand keeps 10 mantissa bits, so one tensor-core pass holds about
 // three decimal digits. The kernels keep fp32 accuracy by splitting every
@@ -20,7 +20,7 @@
 //
 // Here: the split, the swizzled offset, the shared-memory matrix descriptor,
 // wgmma in the two forms the kernels use (A and B from shared memory, N = 64;
-// A from registers, N = 128) with its fence / commit / wait, a 16-byte
+// A from registers, N = 16 to 128) with its fence / commit / wait, a 16-byte
 // cp.async with zero fill, and the kernel that writes a weight bank
 // transposed and split to scratch.
 
@@ -138,7 +138,77 @@ __device__ __forceinline__ void wgmma_m64n128k8_rs(float (&d)[64], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// The register form at the narrower widths the stem kernel uses (N = 16, 32,
+// 64, 96): A and d laid out as in wgmma_m64n128k8_rs, j < N / 8.
+__device__ __forceinline__ void wgmma_m64n16k8_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n"
+      "}\n"
+      : TF32_ACC8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : TF32_ACC8(d, 0), TF32_ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : TF32_ACC8(d, 0), TF32_ACC8(d, 8), TF32_ACC8(d, 16), TF32_ACC8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n96k8_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n"
+      "}\n"
+      : TF32_ACC8(d, 0), TF32_ACC8(d, 8), TF32_ACC8(d, 16), TF32_ACC8(d, 24), TF32_ACC8(d, 32), TF32_ACC8(d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 #undef TF32_ACC8
+
+// The register form by width N (16, 32, 64, 96 or 128).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b) {
+  if constexpr (N == 16) wgmma_m64n16k8_rs(d, a, desc_b);
+  else if constexpr (N == 32) wgmma_m64n32k8_rs(d, a, desc_b);
+  else if constexpr (N == 64) wgmma_m64n64k8_rs(d, a, desc_b);
+  else if constexpr (N == 96) wgmma_m64n96k8_rs(d, a, desc_b);
+  else {
+    static_assert(N == 128, "wgmma_rs: N must be 16, 32, 64, 96 or 128");
+    wgmma_m64n128k8_rs(d, a, desc_b);
+  }
+}
 
 // Keeps the compiler from moving uses of wgmma's registers across a wait.
 template <int N>

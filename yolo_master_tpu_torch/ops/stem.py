@@ -11,9 +11,13 @@ once, as an OIHW view, and the wrapper only checks it. The output is float32
 NHWC ``[B, H/4, W/4, c1]``, whose ``permute(0, 3, 1, 2)`` is the channels_last
 NCHW tensor the trunk consumes.
 
-The kernel takes every stem width of the port's YAMLs (c0/c1 = 16/32 at scale
-n, 32/64 at s, 64/128 at m and l, 96/192 at x): wide stems stage conv1's
-weights in output-channel slices over a smaller tile (:func:`stem_plan`).
+The kernel runs both convs as implicit GEMMs on the tensor cores (split-TF32
+``wgmma`` products at fp32 accuracy), with bias, SiLU and conv1's zero border
+on the CUDA cores. It reads w1 from a scratch bank, transposed, split and
+zero-padded, that a small kernel writes once per w1 (:func:`stem_bank`,
+counted in ``fused_stem.bank_launches``); each call launches the stem kernel
+alone (``fused_stem.launches``). It takes every stem width of the port's YAMLs (c0/c1 = 16/32 at scale n, 32/64 at s, 64/128 at m and l,
+96/192 at x), with a block layout chosen by width (:func:`stem_plan`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ._build import SMEM_LIMIT_BYTES, check, load_library, stream_ptr
 
@@ -41,30 +46,63 @@ def stem_weight_layout(w: torch.Tensor) -> torch.Tensor:
     return w.detach().permute(2, 3, 1, 0).clone(memory_format=torch.contiguous_format).permute(3, 2, 0, 1)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = load_library("stem")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of a built ``stem.cu``'s entry points."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.ymt_stem_u8, lib.ymt_stem_f32):
         fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         fn.restype = i32
-    lib.stem_smem_floats.argtypes = [i32, i32]
-    lib.stem_smem_floats.restype = ctypes.c_longlong
+    lib.ymt_stem_bank.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.ymt_stem_bank.restype = i32
+    for fn in (lib.stem_smem_bytes, lib.stem_bank_floats):
+        fn.argtypes = [i32, i32]
+        fn.restype = ctypes.c_longlong
     lib.stem_plan_of.argtypes = [i32, i32, ptr]
     lib.stem_plan_of.restype = None
     return lib
 
 
 @functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(load_library("stem"))
+
+
+@functools.cache
 def stem_plan(c0: int, c1: int) -> dict:
-    """The kernel's block layout for these widths, as ``csrc/stem.cu:stem_plan``
-    chooses it: conv1 tile rows and columns, the slice of conv1's output
-    channels staged at a time, positions per thread, and shared memory in bytes."""
+    """The kernel's block layout for these widths, as ``csrc/stem.cu:kPlans``
+    holds it: conv1 tile rows and columns, conv1 output channels per
+    warpgroup, warpgroups per 64 pixels, stages of the weight ring, shared
+    memory in bytes (-1 where no plan takes the widths) and the scratch
+    bank's size in floats."""
     lib = _lib()
-    plan = (ctypes.c_int * 4)()
+    plan = (ctypes.c_int * 5)()
     lib.stem_plan_of(c0, c1, plan)
-    return {"tile": (plan[0], plan[1]), "c1_slice": plan[2], "positions": plan[3],
-            "smem_bytes": lib.stem_smem_floats(c0, c1) * 4}
+    return {"tile": (plan[0], plan[1]), "c1_per_warpgroup": plan[2], "warpgroups_per_64_pixels": plan[3],
+            "stages": plan[4], "smem_bytes": lib.stem_smem_bytes(c0, c1), "bank_floats": lib.stem_bank_floats(c0, c1)}
+
+
+# w1's base tensor -> ((address, version counter, c0, c1), bank): dropped with the tensor
+_banks = WeakIdKeyDictionary()
+
+
+def stem_bank(w1: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
+    """The scratch bank the kernel reads w1 from (w1 in :func:`stem_weight_layout`,
+    on the card): written by ``stem_bank_kernel`` at the first call, then kept
+    beside w1's base tensor while w1's address and version counter stay the
+    same, as ``nn/moe/dispatch.py:expert_bank`` keeps the expert banks.
+    ``.to()``, ``load_state_dict`` and other in-place writes rebuild it; a write
+    through ``.data`` is not seen. An inference tensor has no version counter:
+    its bank is written at every call."""
+    owner = w1 if w1._base is None else w1._base
+    key = None if w1.is_inference() else (w1.data_ptr(), w1._version, c0, c1)
+    cached = _banks.get(owner)
+    if key is None or cached is None or cached[0] != key:
+        bank = torch.empty(stem_plan(c0, c1)["bank_floats"], dtype=torch.float32, device=w1.device)
+        check(_lib().ymt_stem_bank(w1.data_ptr(), bank.data_ptr(), c0, c1, stream_ptr(w1.device)),
+              "stem weight-bank kernel")
+        fused_stem.bank_launches += 1
+        cached = _banks[owner] = (key, bank)
+    return cached[1]
 
 
 def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
@@ -99,17 +137,19 @@ def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Te
     for name, t in (("w0", w0.permute(2, 3, 1, 0)), ("w1", w1.permute(2, 3, 1, 0)), ("b0", b0), ("b1", b1)):
         if not t.is_contiguous():
             raise ValueError(f"fused_stem: {name} is not in the kernel's layout (see stem_weight_layout)")
-    if stem_plan(c0, c1)["smem_bytes"] > SMEM_LIMIT_BYTES:  # no YAML the port holds gives such widths
-        raise NotImplementedError(f"fused_stem: widths c0={c0}, c1={c1} exceed one block's shared memory")
+    plan = stem_plan(c0, c1)
+    if not 0 < plan["smem_bytes"] <= SMEM_LIMIT_BYTES:  # no YAML the port holds gives such widths
+        raise NotImplementedError(f"fused_stem: no block layout of the kernel takes widths c0={c0}, c1={c1}")
     out = torch.empty((B, H // 4, W // 4, c1), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    lib = _lib()
-    fn = lib.ymt_stem_u8 if x.dtype == torch.uint8 else lib.ymt_stem_f32
-    check(fn(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(),
+    bank = stem_bank(w1, c0, c1)
+    fn = _lib().ymt_stem_u8 if x.dtype == torch.uint8 else _lib().ymt_stem_f32
+    check(fn(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), bank.data_ptr(), b1.data_ptr(), out.data_ptr(),
              B, H, W, c0, c1, stream_ptr(x.device)), "stem kernel")
     fused_stem.launches += 1
     return out
 
 
 fused_stem.launches = 0
+fused_stem.bank_launches = 0
