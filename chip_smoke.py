@@ -4,13 +4,14 @@
 
 Builds the port's six hand-written CUDA kernels from the checkout
 (csrc/stem.cu, nms.cu, esmoe.cu, cw_nms.cu, moe.cu, c3k2.cu, and the self-check
-of the split-TF32 header that stem.cu, esmoe.cu and moe.cu share, one nvcc
-each, in parallel), holds each against its plain PyTorch version on the card, and
+of the split-TF32 header that stem.cu, esmoe.cu, moe.cu and c3k2.cu share, one
+nvcc each, in parallel), holds each against its plain PyTorch version on the card, and
 drives yolo_master_tpu_torch's paths at the full width of yolo-master-n and
 yolo-master-v0_1-n with seeded random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
-  2. build the six kernels; the split-TF32 header's self-check against fp64
+  2. build the six kernels (c3k2.cu's registers, spills and wgmma
+     instructions, from cuobjdump); the split-TF32 header's self-check against fp64
   3. stem kernel vs F.conv2d x2 + SiLU (the cuDNN pair; uint8 640x640 input)
      at the stem widths of scales n (B=1, 2, 16), s, m/l and x (B=16)
   4. NMS kernel vs the plain greedy loop (exact keep sets, ties included;
@@ -33,7 +34,8 @@ yolo-master-v0_1-n with seeded random weights. Phases:
      device time at bs 16 (torch.profiler)
  10. the C3k2 kernel through its entry point on the live model's folded
      layers 2 and 5 and their inputs from the bs-1 and bs-16 frames (and an
-     n=2 block at layer 2's width), vs its plain version and the C3k2 module
+     n=2 block at layer 2's width), vs its plain version and the C3k2 module;
+     its weight bank's build time (plain PyTorch, once per weight set)
  11. the same predict path with fused_esmoe_fuse: 4 ES_MOE launches per
      forward, decode against the unswapped model, device time per image
  12. YOLO("yolo-master-v0_1-n").fuse().predict(...) at batch 1 and 16 (sparse
@@ -50,13 +52,13 @@ Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
 as "stem_bank"); the gathered matmul's and C3k2's path is their own entry point,
 as in the JAX package, where no model path reaches them. fp32 throughout: TF32
-is off for PyTorch's convs and matmuls, and the three kernels that use the
-tensor cores (stem.cu, esmoe.cu, moe.cu) compute a three-term split-TF32
-product that holds fp32 accuracy, at the same tolerances as before. Any
+is off for PyTorch's convs and matmuls, and the four kernels that use the
+tensor cores (stem.cu, esmoe.cu, moe.cu, c3k2.cu) compute a three-term
+split-TF32 product that holds fp32 accuracy, at the same tolerances as before. Any
 failing check raises and the script exits non-zero. The second-to-last stdout
 line is a JSON object of per-kernel results (bound_ms: the largest of the
 bytes moved over 3.35 TB/s, the matrix-product operations of stem.cu's two
-convs, esmoe.cu and moe.cu, counted once, over 495 TFLOP/s, the H100 SXM's TF32
+convs, esmoe.cu, moe.cu and c3k2.cu's convs, counted once, over 495 TFLOP/s, the H100 SXM's TF32
 tensor-core peak, and every other operation over 67 TFLOP/s, its fp32
 CUDA-core peak; bound_peak names the one that sets it); the last is
 {"ok": true, "device": {...}}.
@@ -68,6 +70,7 @@ import copy
 import importlib
 import json
 import platform
+import re
 import statistics
 import subprocess
 import sys
@@ -199,6 +202,36 @@ def phase_build():
         secs = {name: ex.submit(timed, lib) for name, lib in libs.items()}
         secs = {name: f.result() for name, f in secs.items()}
     log(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; wall {time.perf_counter() - t0:.1f} s")
+    return c3k2_sass_check()
+
+
+def c3k2_sass_check() -> dict:
+    """What the built c3k2 library holds for each instantiation of c3k2_kernel
+    (cuobjdump): registers and stack (spills) per thread, and its wgmma
+    instructions (HGMMA in SASS), which must be there: the convs run on the
+    tensor cores."""
+    from pathlib import Path
+
+    from yolo_master_tpu_torch.ops import _build
+
+    lib = str(_build._library_path("c3k2", ()))
+    tool = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True, timeout=120, check=True).stdout
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=120, check=True).stdout
+    hgmma = {block.split(None, 1)[0]: block.count("HGMMA") for block in sass.split("Function : ")[1:]}
+    lines, found = res.splitlines(), {}
+    for k, line in enumerate(lines):
+        name = line.strip().removeprefix("Function ").rstrip(":")
+        if "c3k2_kernel" in name:
+            usage = dict(re.findall(r"(REG|STACK):(\d+)", lines[k + 1]))
+            # c3k2_kernel<2> (two blocks an SM, registers capped at 128) or <1>
+            blocks_per_sm = 2 if "ILi2E" in name else 1
+            found[blocks_per_sm] = {"registers": int(usage["REG"]), "stack_bytes": int(usage["STACK"]),
+                                    "hgmma_instructions": hgmma.get(name, 0)}
+            log(f"[build] c3k2_kernel<{blocks_per_sm}>: {found[blocks_per_sm]}")
+    require(set(found) == {1, 2} and all(f["hgmma_instructions"] > 0 for f in found.values()),
+            f"c3k2_kernel's two instantiations, each with wgmma (HGMMA) instructions: {found}")
+    return {f"{b}_blocks_per_sm": f for b, f in sorted(found.items())}
 
 
 def phase_split_tf32(dev):
@@ -535,11 +568,14 @@ def phase_sparse_esmoe(dev):
             f"dense eval {dense_ms:.4f} ms")
 
 
-def c3k2_flops(px: int, c1: int, c: int, cb: int, c2: int, n: int) -> float:
-    """2 flops per multiply-add (cv1, two 3x3 convs per bottleneck, cv2 over the
-    concat); bias + SiLU, 5 operations, per output of each; the shortcut add."""
+def c3k2_ops(px: int, c1: int, c: int, cb: int, c2: int, n: int):
+    """(fp32 operations, matrix-product operations) of a C3k2 block over px pixels:
+    its convs' multiply-adds (cv1, two 3x3 convs per bottleneck, cv2 over the
+    concat), 2 flops each, run as matrix products on the tensor cores; bias +
+    SiLU, 5 operations per output of each conv, and the shortcut add on the
+    CUDA cores."""
     macs = c1 * 2 * c + n * 2 * 9 * c * cb + (2 + n) * c * c2
-    return px * (2 * macs + 5 * (2 * c + n * (cb + c) + c2) + n * c)
+    return px * (5 * (2 * c + n * (cb + c) + c2) + n * c), px * 2 * macs
 
 
 def c3k2_block(c1: int, c2: int, n: int, dev, seed: int = 0):
@@ -570,7 +606,7 @@ def phase_c3k2(dev, model, imgs):
     n=2 block at layer 2's width."""
     import torch
 
-    from yolo_master_tpu_torch.ops.c3k2 import fused_c3k2, fused_c3k2_plain, prepare_c3k2_weights
+    from yolo_master_tpu_torch.ops.c3k2 import build_c3k2_bank, fused_c3k2, fused_c3k2_plain, prepare_c3k2_weights
 
     layers = model.model.model
     captured, inputs = {}, {}
@@ -588,13 +624,20 @@ def phase_c3k2(dev, model, imgs):
     cases = {(bs, i, 1): x for (bs, i), x in inputs.items()}
     cases[(16, 2, 2)] = inputs[(16, 2)]
     weights = {key: prepare_c3k2_weights(block) for key, block in blocks.items()}
+    for (i, n), w in weights.items():
+        bank_ms = cuda_ms(lambda: build_c3k2_bank(w, blocks[(i, n)].c, n), reps=5)
+        log(f"[c3k2] layer {i} n={n}: weight bank ({build_c3k2_bank(w, blocks[(i, n)].c, n).numel()} floats, "
+            f"plain PyTorch, once per weight set) {bank_ms:.4f} ms")
 
     reset_launches()
+    builds = fused_c3k2.bank_builds
     outs = {key: fused_c3k2(x, weights[key[1:]], blocks[key[1:]].c, key[2]) for key, x in cases.items()}
     torch.cuda.synchronize()
-    launches = read_launches()["c3k2"]
-    log(f"[c3k2] entry point on layers {C3K2_LAYERS} (bs 1, 16) and an n=2 block: {launches} launches")
+    launches, builds = read_launches()["c3k2"], fused_c3k2.bank_builds - builds
+    log(f"[c3k2] entry point on layers {C3K2_LAYERS} (bs 1, 16) and an n=2 block: {launches} launches, "
+        f"{builds} weight banks built")
     require(launches == len(cases), "the C3k2 path did not launch its kernel once per call")
+    require(builds == len(weights), "the C3k2 path did not build each weight set's bank once")
     result = {}
     for (bs, i, n), x in cases.items():
         block, w, out = blocks[(i, n)], weights[(i, n)], outs[(bs, i, n)]
@@ -609,18 +652,19 @@ def phase_c3k2(dev, model, imgs):
         mod_err = (out - mod).abs()
         require(bool((mod_err <= 1e-4 + 1e-4 * mod.abs()).all()), f"c3k2 kernel vs module: {mod_err.max().item()}")
         with torch.no_grad():
-            ms = cuda_ms(lambda: fused_c3k2(x, w, block.c, n))
+            ms = cuda_ms(lambda: fused_c3k2(x, w, block.c, n), inner=10)  # the bank is kept: the kernel alone
             plain_ms = cuda_ms(lambda: fused_c3k2_plain(x, w, block.c, n))
             module_ms = cuda_ms(lambda: block(xc))
         b, h, wd, c1 = x.shape
         cb, c2 = w["m0_b1"].shape[0], w["cv2_b"].shape[0]
         live = [t for k, t in w.items() if not k.endswith("_sel")]
-        bound_ms, bound_by, _ = bound(nbytes(x, out, *live), c3k2_flops(b * h * wd, c1, block.c, cb, c2, n))
+        # bytes: x, out and the weights once (the kernel's split bank is its own copy of them)
+        bound_ms, bound_by, peak = bound(nbytes(x, out, *live), *c3k2_ops(b * h * wd, c1, block.c, cb, c2, n))
         log(f"[c3k2] layer {i} n={n} B={bs} [{bs},{h},{wd},{c1}] -> {c2}: max abs err {err.max().item():.3e} "
             f"(vs module {mod_err.max().item():.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"C3k2 module {module_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"C3k2 module {module_ms:.4f} ms, bound {bound_ms:.4f} ms ({peak})")
         result[(bs, i, n)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, module_ms=module_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by)
+                                  bound_ms=bound_ms, bound_by=bound_by, bound_peak=peak)
     return result, launches
 
 
@@ -1051,7 +1095,7 @@ def main():
     import torch
 
     dev = torch.device("cuda", 0)
-    phase_build()
+    c3k2_sass = phase_build()
     phase_split_tf32(dev)
     stem_res = phase_stem(dev)
     nms_res = phase_nms(dev)
@@ -1087,8 +1131,9 @@ def main():
     # C3k2: layers 2 and 5 of one bs-16 forward, summed
     c16 = [c3k2_res[(16, i, 1)] for i in C3K2_LAYERS]
     c_sum = {k: sum(r[k] for r in c16) for k in ("ms", "plain_ms", "module_ms", "bound_ms")}
-    c_sum.update(max_abs_err=max(r["max_abs_err"] for r in c16), bound_by="operations")
-    require(all(r["bound_by"] == "operations" for r in c16), "C3k2 bound_by")
+    c_top = max(c16, key=lambda r: r["bound_ms"])  # the sum is named after its largest term
+    c_sum.update(max_abs_err=max(r["max_abs_err"] for r in c16), bound_by=c_top["bound_by"],
+                 bound_peak=c_top["bound_peak"])
     gm = gm_res[(16, MOE_BANKS[0][0])]
     kernels = [
         kernel_entry("fused_stem", "stem.cu", "pallas_stem.py:177", main_launches["stem"], stem_res[("n", 16)],
@@ -1109,7 +1154,11 @@ def main():
                      library_tf32_ms=gm["library_tf32_ms"], bound_peak=gm["bound_peak"]),
         kernel_entry("fused_c3k2", "c3k2.cu", "pallas_c3k2.py:152", c3k2_launches, c_sum,
                      "B=16, yolo-master-n layers 2 [16,160,160,32]->64 and 5 [16,80,80,64]->128 summed "
-                     "(also replaces pallas_c3k2_cf, pallas_c3k2.py:239)", module_ms=c_sum["module_ms"]),
+                     "(also replaces pallas_c3k2_cf, pallas_c3k2.py:239)", module_ms=c_sum["module_ms"],
+                     bound_peak=c_sum["bound_peak"], n2_block={k: c3k2_res[(16, 2, 2)][k] for k in
+                                                                ("ms", "plain_ms", "module_ms", "bound_ms")},
+                     b1={k: sum(c3k2_res[(1, i, 1)][k] for i in C3K2_LAYERS) for k in ("ms", "plain_ms", "module_ms")},
+                     resources=c3k2_sass),
     ]
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

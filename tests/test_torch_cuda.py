@@ -14,7 +14,7 @@ import torch
 from yolo_master_tpu_torch.nn.layers import C3k2
 from yolo_master_tpu_torch.nn.moe import ES_MOE, FusedESMOE
 from yolo_master_tpu_torch.ops._tf32 import split_product_check
-from yolo_master_tpu_torch.ops.c3k2 import fused_c3k2, fused_c3k2_plain, prepare_c3k2_weights
+from yolo_master_tpu_torch.ops.c3k2 import c3k2_bank, fused_c3k2, fused_c3k2_plain, prepare_c3k2_weights
 from yolo_master_tpu_torch.ops.cuda_nms import (batched_cw_nms, batched_cw_nms_plain, batched_greedy_nms,
                                                 batched_greedy_nms_plain, greedy_nms)
 from yolo_master_tpu_torch.ops.esmoe import fused_esmoe, fused_esmoe_plain, pack_esmoe_params
@@ -461,11 +461,16 @@ def _c3k2_block(c1, c2, n, device, seed=0):
 
 
 @pytest.mark.parametrize("b,hw,c1,c2,n", [(2, (16, 20), 32, 64, 1), (1, (37, 45), 32, 64, 2), (2, (160, 160), 32, 64, 1),
-                                          (2, (80, 80), 64, 128, 1), (1, (5, 3), 32, 64, 2)])
+                                          (2, (80, 80), 64, 128, 1), (1, (5, 3), 32, 64, 2), (2, (27, 35), 64, 128, 2),
+                                          (1, (29, 38), 32, 64, 3), (2, (24, 40), 32, 64, 4), (1, (21, 18), 40, 192, 1)])
 def test_c3k2_kernel_matches_plain_and_module(dev, b, hw, c1, c2, n):
-    """Ragged tiles, images smaller than a tile, n = 1 and 2 (halos of 2 and 4
-    pixels). Tolerance 1e-4 + 1e-4*|ref| against the plain version and the
-    module (cuDNN, TF32 off): fp32 sums in another order."""
+    """Ragged tiles, images smaller than a tile, n = 1 to 4 (halos of 2 to 8
+    pixels; n = 2 at layer 5's widths, 64 -> 128, which are also scale s's
+    layer 2; n = 4 at layer 2's, most of a block's shared memory), and 40 -> 192
+    (c = 48, cb = 24: maps with an odd number of 8-channel groups, stages of
+    3 and 6 weight slabs). Tolerance 1e-4 + 1e-4*|ref| against the plain
+    version and the module (cuDNN, TF32 off): fp32 sums in another order, the
+    kernel's products split-TF32."""
     block = _c3k2_block(c1, c2, n, dev)
     w = prepare_c3k2_weights(block)
     x = torch.randn(b, *hw, c1, generator=torch.Generator().manual_seed(1)).to(dev)
@@ -493,3 +498,49 @@ def test_c3k2_kernel_counts_launches_and_rejects_bad_input(dev):
     with pytest.raises(NotImplementedError):
         fused_c3k2(x, w, block.c, 5)
     assert fused_c3k2.launches == before + 1
+
+
+def test_c3k2_kernel_refuses_widths_it_does_not_take(dev):
+    """Widths that are not multiples of 8 (C3k2(32, 48): c = 12, cb = 6) and
+    blocks whose maps do not fit one block's shared memory (scale s's layer 5,
+    128 -> 256) raise NotImplementedError and launch nothing."""
+    before = fused_c3k2.launches
+    for c1, c2, match in ((32, 48, "multiples of 8"), (128, 256, "shared memory")):
+        block = _c3k2_block(c1, c2, 1, dev)
+        with pytest.raises(NotImplementedError, match=match):
+            fused_c3k2(torch.zeros(1, 16, 16, c1, device=dev), prepare_c3k2_weights(block), block.c, 1)
+    assert fused_c3k2.launches == before
+
+
+def test_c3k2_bank_is_kept_until_the_weights_change(dev):
+    """The weight bank is built at a weight set's first call and kept after it;
+    an in-place write to a weight matrix and a new tensor in the dict rebuild it,
+    and the output follows the new weights; inference tensors' bank is built at
+    every call."""
+    block = _c3k2_block(32, 64, 1, dev, seed=4)
+    w = prepare_c3k2_weights(block)
+    x = torch.randn(2, 24, 40, 32, generator=torch.Generator().manual_seed(5)).to(dev)
+
+    def check(expect_builds):
+        before, builds_before = fused_c3k2.launches, fused_c3k2.bank_builds
+        out, ref = fused_c3k2(x, w, block.c, 1), fused_c3k2_plain(x, w, block.c, 1)
+        torch.cuda.synchronize()
+        assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), (out - ref).abs().max().item()
+        assert fused_c3k2.launches == before + 1
+        assert fused_c3k2.bank_builds == builds_before + expect_builds
+
+    check(1)
+    check(0)
+    w["m0_w1"].mul_(-0.5)
+    check(1)
+    check(0)
+    w["cv2_y"] = w["cv2_y"].flip(1).contiguous()
+    check(1)
+    assert c3k2_bank(w, block.c, 1) is c3k2_bank(w, block.c, 1)
+    with torch.inference_mode():
+        wi = {k: v.clone() for k, v in w.items()}
+        for _ in range(2):
+            builds_before = fused_c3k2.bank_builds
+            out, ref = fused_c3k2(x, wi, block.c, 1), fused_c3k2_plain(x, wi, block.c, 1)
+            assert fused_c3k2.bank_builds == builds_before + 1
+            assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())

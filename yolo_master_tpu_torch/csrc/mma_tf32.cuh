@@ -1,5 +1,5 @@
 // Split-TF32 matrix products on Hopper's tensor cores, shared by moe.cu,
-// esmoe.cu and stem.cu.
+// esmoe.cu, stem.cu and c3k2.cu.
 //
 // A TF32 operand keeps 10 mantissa bits, so one tensor-core pass holds about
 // three decimal digits. The kernels keep fp32 accuracy by splitting every
@@ -18,9 +18,9 @@
 // a tile starts at a multiple of 1024 bytes. The depth-8 steps of a 32-wide tile
 // are reached by advancing the descriptor's address by 32 bytes.
 //
-// Here: the split, the swizzled offset, the shared-memory matrix descriptor,
+// Here: the split (and a cheaper form of it for finite values), the swizzled offset, the shared-memory matrix descriptor,
 // wgmma in the two forms the kernels use (A and B from shared memory, N = 64;
-// A from registers, N = 16 to 128) with its fence / commit / wait, a 16-byte
+// A from registers, N = 8 to 128) with its fence / commit / wait, a 16-byte
 // cp.async with zero fill, and the kernel that writes a weight bank
 // transposed and split to scratch.
 
@@ -45,6 +45,17 @@ __device__ __forceinline__ uint32_t round_tf32(float x) {
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = round_tf32(x);
   lo = round_tf32(x - __uint_as_float(hi));
+}
+
+// The split by integer arithmetic on the bits, for finite x: adding half a TF32 step to the bit
+// pattern and clearing the 13 dropped bits rounds the magnitude to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 does (which ptxas expands to about four instructions with an infinity test), in
+// two. Bit for bit the split above for every finite x (ops/_tf32.py:round_tf32 is the same rounding).
+__device__ __forceinline__ uint32_t round_tf32_finite(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+__device__ __forceinline__ void split_finite(float x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32_finite(x);
+  lo = round_tf32_finite(x - __uint_as_float(hi));
 }
 
 // Offset in floats of element (row, col) of a swizzled [rows][32] tile.
@@ -138,8 +149,21 @@ __device__ __forceinline__ void wgmma_m64n128k8_rs(float (&d)[64], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// The register form at the narrower widths the stem kernel uses (N = 16, 32,
-// 64, 96): A and d laid out as in wgmma_m64n128k8_rs, j < N / 8.
+// The register form at the narrower widths the stem and C3k2 kernels use (N = 8,
+// 16, 32, 64, 96): A and d laid out as in wgmma_m64n128k8_rs, j < N / 8.
+__device__ __forceinline__ void wgmma_m64n8k8_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_m64n16k8_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -197,15 +221,16 @@ __device__ __forceinline__ void wgmma_m64n96k8_rs(float (&d)[48], const uint32_t
 
 #undef TF32_ACC8
 
-// The register form by width N (16, 32, 64, 96 or 128).
+// The register form by width N (8, 16, 32, 64, 96 or 128).
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b) {
-  if constexpr (N == 16) wgmma_m64n16k8_rs(d, a, desc_b);
+  if constexpr (N == 8) wgmma_m64n8k8_rs(d, a, desc_b);
+  else if constexpr (N == 16) wgmma_m64n16k8_rs(d, a, desc_b);
   else if constexpr (N == 32) wgmma_m64n32k8_rs(d, a, desc_b);
   else if constexpr (N == 64) wgmma_m64n64k8_rs(d, a, desc_b);
   else if constexpr (N == 96) wgmma_m64n96k8_rs(d, a, desc_b);
   else {
-    static_assert(N == 128, "wgmma_rs: N must be 16, 32, 64, 96 or 128");
+    static_assert(N == 128, "wgmma_rs: N must be 8, 16, 32, 64, 96 or 128");
     wgmma_m64n128k8_rs(d, a, desc_b);
   }
 }

@@ -11,6 +11,16 @@ into the JAX package's weight dict (same names, shapes and layout);
 on a CUDA tensor and :func:`fused_c3k2_plain` on a CPU tensor. One kernel
 stands for both ``pallas_c3k2`` and ``pallas_c3k2_cf``: they differ only in
 the TPU's lane layout. Tensors are NHWC, as in the JAX package.
+
+The kernel runs each of the block's convs (cv1, the bottlenecks' 3x3 convs,
+cv2 over the concat) as an implicit GEMM on the tensor cores, a split-TF32
+``wgmma`` product at fp32 accuracy in 16-deep chains joined in fp32. It reads
+the weights from a bank that :func:`c3k2_bank` builds in plain PyTorch once per
+weight set and keeps (counted in ``fused_c3k2.bank_builds``): each stage's
+[K, N] matrix (:func:`c3k2_stage_weights`) transposed K-major, each 8 K-rows in
+the order of ``BANK_K_ORDER``, split hi/lo and zero-padded to 32-deep tiles, in
+slabs of :func:`slab_width` output channels (:func:`c3k2_stage_bank`). C1, c,
+cb and C2 must be multiples of 8.
 """
 
 from __future__ import annotations
@@ -23,8 +33,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from torch.utils.weak import WeakIdKeyDictionary
+
 from ..nn.layers import Bottleneck, fold_bn
 from ._build import SMEM_LIMIT_BYTES, check, load_library, stream_ptr
+from ._tf32 import split_tf32
+
+TILE_K = 32  # K rows per bank tile: one 128-byte swizzle row of floats (csrc/mma_tf32.cuh:kTileK)
+# Bank column q of each group of 8 holds K row 8g + BANK_K_ORDER[q]: a thread's fragment columns kq
+# and kq + 4 then hold channels 2kq and 2kq + 1, which one 8-byte load brings.
+BANK_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def _folded(conv) -> tuple:
@@ -116,25 +134,86 @@ def fused_c3k2_plain(x: torch.Tensor, weights: Dict[str, torch.Tensor], c: int, 
     return F.silu(acc + w["cv2_b"])
 
 
+def slab_width(n: int) -> int:
+    """Output channels per bank slab for a stage of ``n`` (a multiple of 8), as ``csrc/c3k2.cu:slab_width``."""
+    return 32 if n % 32 == 0 else 16 if n % 16 == 0 else 8
+
+
+def c3k2_stage_weights(weights: Dict[str, torch.Tensor], c: int, n: int) -> list:
+    """Each conv stage's weights as one [K, N] matrix, in the kernel's order: cv1's y_b
+    (``cv1_w[:, c:]``) and y_a (``cv1_w[:, :c]``), per bottleneck its 3x3 convs with K
+    tap-major (the live rows of ``m{i}_w1``, then ``m{i}_w2``), and cv2 over the
+    concat [y_a, y_b, h_1 .. h_n] (``cv2_y`` and the live rows of each ``cv2_m{i}``)."""
+    w = weights
+    mats = [w["cv1_w"][:, c:], w["cv1_w"][:, :c]]
+    for i in range(n):
+        lo = c if i == 0 else 0
+        w1 = w[f"m{i}_w1"][:, lo:lo + c]
+        mats += [w1.reshape(9 * c, w1.shape[2]), w[f"m{i}_w2"].reshape(-1, c)]
+    mats.append(torch.cat([w["cv2_y"]] + [w[f"cv2_m{i}"][:c] for i in range(n)]))
+    return mats
+
+
+def c3k2_stage_bank(w: torch.Tensor) -> torch.Tensor:
+    """One stage's [K, N] weights -> its bank ``[N / slab_width, ceil(K / 32), 2 (hi, lo), slab_width, 32]``:
+    transposed K-major, K rows in ``BANK_K_ORDER`` within each 8, zeros past K, split hi/lo (each
+    32-deep k-tile holds hi's rows, then lo's)."""
+    k, o = w.shape
+    nw, kp = slab_width(o), -(-k // TILE_K) * TILE_K
+    order = torch.tensor(BANK_K_ORDER, device=w.device)
+    rows = (torch.arange(0, kp, 8, device=w.device)[:, None] + order).reshape(-1)
+    padded = torch.zeros(kp, o, dtype=torch.float32, device=w.device)
+    padded[:k] = w
+    t = padded[rows].T.reshape(o // nw, nw, kp // TILE_K, TILE_K).permute(0, 2, 1, 3)
+    return torch.stack(split_tf32(t.contiguous()), 2).contiguous()
+
+
+def build_c3k2_bank(weights: Dict[str, torch.Tensor], c: int, n: int) -> torch.Tensor:
+    """The kernel's weight bank, flat: every stage's :func:`c3k2_stage_bank` in order."""
+    return torch.cat([c3k2_stage_bank(w).reshape(-1) for w in c3k2_stage_weights(weights, c, n)])
+
+
+# cv1_w's base tensor -> (key, bank): dropped with the tensor
+_banks = WeakIdKeyDictionary()
+_BANK_NAMES = ("cv1_w", "m{i}_w1", "m{i}_w2", "cv2_y", "cv2_m{i}")
+
+
+@torch.no_grad()
+def c3k2_bank(weights: Dict[str, torch.Tensor], c: int, n: int) -> torch.Tensor:
+    """:func:`build_c3k2_bank`, built at the first call and then kept beside
+    ``cv1_w``'s base tensor while every weight matrix's address and version
+    counter stay the same, as ``ops/stem.py:stem_bank`` keeps the stem's.
+    An in-place write or a new tensor in the dict rebuilds it; a write through
+    ``.data`` is not seen. Inference tensors have no version counter: their
+    bank is built at every call."""
+    mats = [weights[name.format(i=i)] for name in _BANK_NAMES for i in range(n if "{i}" in name else 1)]
+    owner = mats[0] if mats[0]._base is None else mats[0]._base
+    key = None if any(t.is_inference() for t in mats) else (tuple((t.data_ptr(), t._version) for t in mats), c, n)
+    cached = _banks.get(owner)
+    if key is None or cached is None or cached[0] != key:
+        cached = _banks[owner] = (key, build_c3k2_bank(weights, c, n))
+        fused_c3k2.bank_builds += 1
+    return cached[1]
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library("c3k2")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ymt_c3k2.argtypes = [ptr, ptr, ctypes.POINTER(ptr)] + [i32] * 8 + [ptr]
+    lib.ymt_c3k2.argtypes = [ptr, ptr, ptr, ctypes.POINTER(ptr)] + [i32] * 8 + [ptr]
     lib.ymt_c3k2.restype = i32
-    lib.c3k2_smem_bytes.argtypes = [i32] * 4
+    lib.c3k2_smem_bytes.argtypes = [i32] * 5
     lib.c3k2_smem_bytes.restype = i32
+    lib.c3k2_bank_floats.argtypes = [i32] * 5
+    lib.c3k2_bank_floats.restype = ctypes.c_longlong
     lib.c3k2_max_bottlenecks.argtypes = []
     lib.c3k2_max_bottlenecks.restype = i32
     return lib
 
 
-def _kernel_weights(weights, c: int, n: int) -> list:
-    """The dict's tensors in the kernel's order (``csrc/c3k2.cu:ymt_c3k2``)."""
-    names = ["cv1_w", "cv1_b"]
-    for i in range(n):
-        names += [f"m{i}_w1", f"m{i}_b1", f"m{i}_w2", f"m{i}_b2"]
-    names += ["cv2_y"] + [f"cv2_m{i}" for i in range(n)] + ["cv2_b"]
+def _biases(weights, n: int) -> list:
+    """The biases in the kernel's order (``csrc/c3k2.cu:ymt_c3k2``)."""
+    names = ["cv1_b"] + [f"m{i}_b{j}" for i in range(n) for j in (1, 2)] + ["cv2_b"]
     return [weights[k] for k in names]
 
 
@@ -147,11 +226,13 @@ def _check_args(x, weights, c, n):
     lib = _lib()
     if not 1 <= n <= lib.c3k2_max_bottlenecks():
         raise NotImplementedError(f"fused_c3k2: the kernel takes 1..{lib.c3k2_max_bottlenecks()} bottlenecks, got {n}")
-    if c1 % 4 or c % 4 or cb % 4 or c2 % 4:
-        raise NotImplementedError(f"fused_c3k2: the kernel needs C1, c, cb and C2 to be multiples of 4, "
-                                  f"got {c1}, {c}, {cb}, {c2}")
-    if lib.c3k2_smem_bytes(c1, c, cb, n) > SMEM_LIMIT_BYTES:
-        raise NotImplementedError(f"fused_c3k2: C1={c1}, c={c}, n={n} do not fit one block's shared memory")
+    if c1 % 8 or c % 8 or cb % 8 or c2 % 8:
+        raise NotImplementedError(f"fused_c3k2: the kernel needs C1, c, cb and C2 to be multiples of 8 (the depth "
+                                  f"of a tensor-core step), got {c1}, {c}, {cb}, {c2}")
+    if lib.c3k2_smem_bytes(c1, c, cb, c2, n) > SMEM_LIMIT_BYTES:
+        raise NotImplementedError(f"fused_c3k2: C1={c1}, c={c}, cb={cb}, C2={c2}, n={n} need "
+                                  f"{lib.c3k2_smem_bytes(c1, c, cb, c2, n)} bytes of shared memory, more than one "
+                                  f"block's {SMEM_LIMIT_BYTES}")
     shapes = {"cv1_w": (c1, 2 * c), "cv1_b": (2 * c,), "cv2_y": (2 * c, c2), "cv2_b": (c2,)}
     for i in range(n):
         shapes.update({f"m{i}_w1": (9, 2 * c, cb), f"m{i}_b1": (cb,), f"m{i}_w2": (9, cb, c), f"m{i}_b2": (c,),
@@ -175,7 +256,8 @@ def fused_c3k2(x: torch.Tensor, weights: Dict[str, torch.Tensor], c: int, n: int
     """x [B,H,W,C1] NHWC, ``weights`` from :func:`prepare_c3k2_weights`, hidden
     width ``c`` and ``n`` bottlenecks -> [B,H,W,C2] float32 NHWC.
 
-    A CPU tensor takes :func:`fused_c3k2_plain`; a CUDA tensor launches the kernel.
+    A CPU tensor takes :func:`fused_c3k2_plain`; a CUDA tensor launches the kernel
+    (after :func:`c3k2_bank` at a weight set's first call).
     """
     if x.device.type == "cpu":
         return fused_c3k2_plain(x, weights, c, n)
@@ -187,11 +269,16 @@ def fused_c3k2(x: torch.Tensor, weights: Dict[str, torch.Tensor], c: int, n: int
     out = torch.empty((b, h, w, c2), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    ptrs = (ctypes.c_void_p * (4 + 5 * n))(*[t.data_ptr() for t in _kernel_weights(weights, c, n)])
-    check(_lib().ymt_c3k2(x.data_ptr(), out.data_ptr(), ptrs, b, h, w, c1, c, cb, c2, n, stream_ptr(x.device)),
-          "c3k2 kernel")
+    bank = c3k2_bank(weights, c, n)
+    if bank.numel() != _lib().c3k2_bank_floats(c1, c, cb, c2, n):  # the two sides' layouts disagree
+        raise RuntimeError(f"fused_c3k2: the bank holds {bank.numel()} floats, the kernel reads "
+                           f"{_lib().c3k2_bank_floats(c1, c, cb, c2, n)}")
+    ptrs = (ctypes.c_void_p * (2 + 2 * n))(*[t.data_ptr() for t in _biases(weights, n)])
+    check(_lib().ymt_c3k2(x.data_ptr(), out.data_ptr(), bank.data_ptr(), ptrs, b, h, w, c1, c, cb, c2, n,
+                          stream_ptr(x.device)), "c3k2 kernel")
     fused_c3k2.launches += 1
     return out
 
 
 fused_c3k2.launches = 0
+fused_c3k2.bank_builds = 0
