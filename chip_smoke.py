@@ -44,17 +44,31 @@ yolo-master-v0_1-n with seeded random weights. Phases:
      vs kept), device time per image in both evals beside yolo-master-n's
  13. SparseSAHIPredictor on a 2160x3840 frame: tiles skipped, the CW-NMS
      kernel's merge equal to its plain version on the same candidates
- 14. device time by kernel of the predict path, with fused_esmoe_fuse, and
-     of the v0_1 path in sparse and dense eval at batch 16 (torch.profiler)
- 15. no module of jax or of the JAX package was imported
+ 14. the bf16 forms of the stem kernel (uint8 -> bf16 at every scale's widths,
+     bf16 -> bf16 at n) and of the ES_MOE kernel (bf16 in and out, the four
+     placements, B=1 and 16) vs their plain versions (fp32 rounded once to
+     bf16: within 1 bf16 ulp of |ref| plus the fp32 gate, at most 1% of the
+     outputs a rounding apart), beside the cuDNN bf16 pair and
+     the bf16 ES_MOE.forward
+ 15. the three bf16 predict paths, predict(..., compute_dtype=torch.bfloat16)
+     of yolo-master-n, of it with fused_esmoe_fuse and of yolo-master-v0_1-n,
+     at batch 1 and 16: launch counts, max_det detections per image, device
+     ms/img beside the fp32 path's in turns; the card's bf16 raw head outputs
+     against the port's CPU fp32 (rel-RMS within 1.5x that of the port's CPU
+     bf16) and decoded on the CPU (keep sets equal to the card's own)
+ 16. device time by kernel of the predict path, with fused_esmoe_fuse, and
+     of the v0_1 path in sparse and dense eval at batch 16, each fp32 path also
+     in bf16 (torch.profiler)
+ 17. no module of jax or of the JAX package was imported
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
 as "stem_bank"); the gathered matmul's and C3k2's path is their own entry point,
-as in the JAX package, where no model path reaches them. fp32 throughout: TF32
-is off for PyTorch's convs and matmuls, and the four kernels that use the
-tensor cores (stem.cu, esmoe.cu, moe.cu, c3k2.cu) compute a three-term
-split-TF32 product that holds fp32 accuracy, at the same tolerances as before. Any
+as in the JAX package, where no model path reaches them. fp32 outside the bf16
+phases: TF32 is off for PyTorch's convs and matmuls, and the four kernels that
+use the tensor cores (stem.cu, esmoe.cu, moe.cu, c3k2.cu) compute a three-term
+split-TF32 product that holds fp32 accuracy, at the same tolerances as before;
+their bf16 forms compute the same in fp32 with bf16 loads and stores. Any
 failing check raises and the script exits non-zero. The second-to-last stdout
 line is a JSON object of per-kernel results (bound_ms: the largest of the
 bytes moved over 3.35 TB/s, the matrix-product operations of stem.cu's two
@@ -94,6 +108,7 @@ KW = dict(imgsz=IMGSZ, conf=0.0, iou=0.45, max_det=300)
 NMS_PHASES = ("sort_candidates_kernel", "iou_mask_kernel", "scan_kernel")
 PORT_KERNEL_NAMES = ("stem_kernel", "stem_bank_kernel", *NMS_PHASES, "fused_esmoe_kernel", "split_bank_kernel",
                      "gathered_expert_matmul_kernel")
+BF16_FRAMES = 4  # frames of the bf16 paths' GPU-vs-CPU checks
 
 
 def log(msg: str) -> None:
@@ -147,6 +162,29 @@ def bound(nbytes: float, flops: float, tensor_flops: float = 0.0):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bf16_ulp(t):
+    """One bf16 unit in the last place of each element of t (8 significant bits)."""
+    import torch
+
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), torch.frexp(t.float().abs()).exponent - 8)
+
+
+def bf16_rounding_apart(out, ref) -> bool:
+    """A kernel's bf16 output against its plain version's, both one rounding of an
+    fp32 result that the fp32 gate holds within 1e-4 + 1e-4*|ref|: each pair within
+    1 bf16 ulp of |ref| plus that gate, and at most 1% of the outputs apart (a
+    wrong rounding mode would move about half)."""
+    err = (out.float() - ref.float()).abs()
+    within = bool((err <= bf16_ulp(ref) + 1e-4 + 1e-4 * ref.float().abs()).all())
+    return within and (err > 0).float().mean().item() <= 1e-2
+
+
+def rel_rms(a, ref) -> float:
+    """sqrt(mean((a - ref)^2) / mean(ref^2)) of two float tensors."""
+    a, ref = a.double(), ref.double()
+    return ((a - ref).pow(2).mean() / ref.pow(2).mean()).sqrt().item()
 
 
 def _wrappers() -> dict:
@@ -308,6 +346,61 @@ def phase_stem(dev):
     return result
 
 
+def phase_stem_bf16(dev):
+    """The stem kernel's bf16 forms against their plain version (fp32 convs, the
+    output rounded once to bf16; bf16_rounding_apart): uint8 ->
+    bf16 (the bf16 predict path) at the widths of scales n (B=1, 2, 16), s, m/l
+    and x (B=16), and bf16 -> bf16 (a bf16 image, /255 not folded) at n, B=16;
+    beside the cuDNN bf16 pair (the image cast to bf16, two bf16 F.conv2d + SiLU)."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_weight_layout
+
+    bf16 = torch.bfloat16
+    result = {}
+    for scale, (c0, c1) in STEM_WIDTHS.items():
+        g = torch.Generator().manual_seed(0)  # phase_stem's weights and images
+        w0 = stem_weight_layout(((torch.rand(c0, 3, 3, 3, generator=g) - 0.5) * 0.6 / 255.0).to(dev))
+        b0 = (torch.rand(c0, generator=g) - 0.5).to(dev)
+        w1 = stem_weight_layout(((torch.rand(c1, c0, 3, 3, generator=g) - 0.5) * 1.2 / c0 ** 0.5).to(dev))
+        b1 = (torch.rand(c1, generator=g) - 0.5).to(dev)
+        for b in ((2, 1, 16) if scale == "n" else (16,)):
+            img = torch.randint(0, 256, (b, 640, 640, 3), generator=g, dtype=torch.uint8).to(dev)
+            forms = [("uint8", img, w0)]
+            if scale == "n" and b == 16:
+                forms.append(("bf16", (img.float() / 255.0).to(bf16), stem_weight_layout(w0 * 255.0)))
+            for form, x, w0x in forms:
+                out = fused_stem(x, w0x, b0, w1, b1, out_dtype=bf16)
+                ref = fused_stem_plain(x, w0x, b0, w1, b1, out_dtype=bf16)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs()
+                require(out.dtype == bf16 and out.shape == (b, 160, 160, c1) and bool(torch.isfinite(out).all()),
+                        "bf16 stem output dtype/shape/finite")
+                require(bf16_rounding_apart(out, ref),
+                        f"bf16 stem kernel disagrees at c0/c1 {c0}/{c1} ({form} in): max abs err {err.max().item()}")
+                flips = int((err > 0).sum())
+                wb = [t.to(bf16) for t in (w0x, b0, w1, b1)]
+
+                def cudnn_pair(x=x, wb=wb):
+                    y = F.silu(F.conv2d(x.permute(0, 3, 1, 2).to(bf16), wb[0], wb[1], stride=2, padding=1))
+                    return F.silu(F.conv2d(y, wb[2], wb[3], stride=2, padding=1))
+
+                ms = cuda_ms(lambda: fused_stem(x, w0x, b0, w1, b1, out_dtype=bf16))
+                plain_ms = cuda_ms(lambda: fused_stem_plain(x, w0x, b0, w1, b1, out_dtype=bf16))
+                pair_ms = cuda_ms(cudnn_pair)
+                n0, n1 = b * 320 * 320 * c0, b * 160 * 160 * c1
+                bound_ms, bound_by, peak = bound(nbytes(x, w0x, b0, w1, b1, out), (n0 + n1) * 5,
+                                                 n0 * 2 * 27 + n1 * 2 * 9 * c0)
+                log(f"[stem-bf16] scale {scale} B={b} 640x640 {form} -> bf16 [{b},160,160,{c1}]: max abs err "
+                    f"{err.max().item():.3e} ({flips} of {err.numel()} outputs a rounding apart), kernel {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, cuDNN bf16 pair {pair_ms:.4f} ms, bound {bound_ms:.4f} ms ({peak})")
+                result[(scale, b, form)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                                                cudnn_bf16_pair_ms=pair_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                                bound_peak=peak)
+    return result
+
+
 def nms_inputs(b: int, n: int, dev, seed: int = 0, shuffle: bool = False):
     """Class-offset boxes and scores: exact ties in every row, row 1 all invalid,
     row 2 with 5 valid candidates (exhausts long before max_det); with
@@ -425,6 +518,55 @@ def phase_esmoe(dev):
             log(f"[esmoe] layer {layer} B={b} [{b},{hw},{hw},{c}]: max abs err {err.max().item():.3e} "
                 f"(vs unfused block {module_err:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"ES_MOE.forward {module_ms:.4f} ms, bound {bound_ms:.4f} ms ({peak})")
+            result[(b, layer)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, module_ms=module_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by, bound_peak=peak)
+    return result
+
+
+def phase_esmoe_bf16(dev):
+    """The ES_MOE kernel's bf16 form (bf16 x in and out, fp32 weights) against its
+    plain version (fp32, rounded once: bf16_rounding_apart) at the
+    four placements' shapes, B=1 and 16, beside the ES_MOE.forward of the
+    block's bf16 copy (its ops round to bf16 one by one, the kernel once at the
+    end: within 8 * 2^-8 * max |module|; 2.2-4.0 of it on an H100)."""
+    import torch
+
+    from yolo_master_tpu_torch.ops.esmoe import fused_esmoe, fused_esmoe_plain, pack_esmoe_params
+    from yolo_master_tpu_torch.utils.fuse import compute_dtype_copy
+
+    bf16 = torch.bfloat16
+    result = {}
+    for b in (1, 16):
+        for layer, hw, c in ESMOE_PLACEMENTS:
+            fp32_block = esmoe_block(c, dev, seed=layer)
+            block = compute_dtype_copy(fp32_block, bf16)
+            g = torch.Generator().manual_seed(layer)
+            x = torch.randn(b, c, hw, hw, generator=g).to(dev).contiguous(memory_format=torch.channels_last).to(bf16)
+            xh = x.permute(0, 2, 3, 1)
+            with torch.no_grad():
+                w = block.routing(x)[0].float()
+                banks = pack_esmoe_params(fp32_block)  # fp32 banks, as FusedESMOE keeps them in a bf16 copy
+                out = fused_esmoe(xh, w, *banks)
+                ref = fused_esmoe_plain(xh, w, *banks)
+                module = block(x).permute(0, 2, 3, 1)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs()
+            require(out.dtype == bf16 and out.shape == (b, hw, hw, c) and bool(torch.isfinite(out).all()),
+                    "bf16 esmoe output dtype/shape/finite")
+            require(bf16_rounding_apart(out, ref), f"bf16 esmoe kernel disagrees: max abs err {err.max().item()}")
+            module_err = (out.float() - module.float()).abs().max().item()
+            module_max = module.float().abs().max().item()
+            require(module_err <= 8 * 2.0 ** -8 * module_max,
+                    f"bf16 esmoe kernel vs the bf16 block: {module_err} of max {module_max}")
+            with torch.no_grad():
+                ms = cuda_ms(lambda: fused_esmoe(xh, w, *banks), inner=5)
+                plain_ms = cuda_ms(lambda: fused_esmoe_plain(xh, w, *banks))
+                module_ms = cuda_ms(lambda: block(x))
+            bound_ms, bound_by, peak = bound(nbytes(xh, w, *banks[:5], out), *esmoe_flops(b, hw, hw, c, c, banks[5]))
+            log(f"[esmoe-bf16] layer {layer} B={b} [{b},{hw},{hw},{c}] bf16: max abs err {err.max().item():.3e} "
+                f"({int((err > 0).sum())} of {err.numel()} outputs a rounding apart; vs the bf16 block "
+                f"{module_err:.3e} of max {module_max:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bf16 ES_MOE.forward {module_ms:.4f} ms, bound {bound_ms:.4f} ms ({peak})")
             result[(b, layer)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms, module_ms=module_ms,
                                       bound_ms=bound_ms, bound_by=bound_by, bound_peak=peak)
     return result
@@ -1030,6 +1172,90 @@ def phase_sahi(dev, moe):
     return launches
 
 
+def phase_bf16_paths(dev, facades, imgs):
+    """The three bf16 predict paths through the facade,
+    predict(..., compute_dtype=torch.bfloat16), at batch 1 and 16 (launch counts
+    set to 0 before, read after); device ms/img beside each fp32 path's
+    predictor in turns (fp32, bf16, bf16, fp32); the card's bf16 raw head
+    outputs against the port's CPU fp32 (rel-RMS, box and class logits apart,
+    within 1.5x that of the port's CPU bf16: two bf16 programs on calibrated
+    random weights differ by error statistics, not element by element); and
+    those bf16 head outputs decoded and NMS'd on the CPU: the card's keep sets,
+    classes equal, boxes within 2e-3 px, scores within 1e-6."""
+    import torch
+
+    from yolo_master_tpu_torch.ops.nms import non_max_suppression
+    from yolo_master_tpu_torch.utils.fuse import compute_dtype_copy
+
+    bf16 = torch.bfloat16
+    out = {}
+    for name, facade in facades.items():
+        fp32_pred = facade._predictor
+        require(fp32_pred.compute_dtype == torch.float32, f"{name}: the fp32 path's predictor")
+        esmoe_per_forward = sum(type(m).__name__ == "FusedESMOE" for m in facade.model.model)
+        reset_launches()
+        r1 = facade.predict(imgs[0], batch=1, compute_dtype=bf16, **KW)
+        r16 = facade.predict(imgs, batch=16, compute_dtype=bf16, **KW)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        pred = facade._predictor
+        log(f"[bf16] {name}: predict bs1 + bs16 launches: {launches}")
+        # each predictor (bs 1, bs 16) makes its own bf16 copy, whose stem writes its weight bank once
+        require(launches["stem"] == 2 and launches["stem_bank"] == 2 and launches["nms"] == 2
+                and launches["esmoe"] == 2 * esmoe_per_forward,
+                f"{name}: the bf16 path did not launch the stem, NMS (and ES_MOE) kernels")
+        require(pred.compute_dtype == bf16 and pred.model is not facade.model
+                and all(t.dtype == torch.float32 for t in facade.model.parameters()),
+                f"{name}: the bf16 predictor runs a copy and the facade's model stays fp32")
+        require(len(r1) == 1 and len(r16) == 16, f"{name}: bf16 result counts")
+        check_detections(r1 + r16)
+
+        e2e = {}
+        for bs in (1, 16):
+            xb, _ = pred.preprocess(imgs[:bs])
+            runs = {"fp32": [], "bf16": []}
+            for dt in ("fp32", "bf16", "bf16", "fp32"):
+                run = (fp32_pred if dt == "fp32" else pred).run
+                runs[dt].append(cuda_ms(lambda: run(xb), reps=10, warmup=2) / bs)
+            e2e[bs] = {k: statistics.median(v) for k, v in runs.items()}
+            log(f"[e2e] {name} bs={bs}: device ms/img (uint8 on card -> detections), fp32 "
+                f"{[round(t, 4) for t in runs['fp32']]}, bf16 {[round(t, 4) for t in runs['bf16']]}")
+
+        x, _ = pred.preprocess(imgs[:BF16_FRAMES])
+        cpu32 = copy.deepcopy(facade.model).to("cpu")
+        cpu16 = compute_dtype_copy(cpu32, bf16)
+        with torch.inference_mode():
+            g16 = pred.model(x)
+            c32, c16 = cpu32(x.cpu()), cpu16(x.cpu())
+        stats = {}
+        for key in ("boxes", "scores"):
+            require(g16[key].dtype == c16[key].dtype == bf16, f"{name}: bf16 head outputs")
+            gpu, own = rel_rms(g16[key].float().cpu(), c32[key]), rel_rms(c16[key].float(), c32[key])
+            stats[key] = (gpu, own)
+            require(bool(torch.isfinite(g16[key]).all()) and 0 < own and gpu <= 1.5 * own,
+                    f"{name}: GPU bf16 {key} rel-RMS {gpu} from CPU fp32, more than 1.5x the CPU bf16's {own}")
+        nms_kw = dict(nc=facade.model.nc, conf_thres=pred.conf, iou_thres=pred.iou, max_det=pred.max_det,
+                      max_nms=pred.max_nms, scores_are_logits=True)
+        with torch.inference_mode():
+            det_gpu = non_max_suppression(pred.model.head.decode_topk(g16, k=pred.max_nms), **nms_kw)
+            on_cpu = {k: v.cpu() if torch.is_tensor(v) else v for k, v in g16.items()}
+            det_cpu = non_max_suppression(cpu16.head.decode_topk(on_cpu, k=pred.max_nms), **nms_kw)
+        det_gpu = {k: v.cpu() for k, v in det_gpu.items()}
+        box_err = (det_gpu["boxes"] - det_cpu["boxes"]).abs().max().item()
+        score_err = (det_gpu["scores"] - det_cpu["scores"]).abs().max().item()
+        require(torch.equal(det_gpu["valid"], det_cpu["valid"]) and torch.equal(det_gpu["classes"], det_cpu["classes"])
+                and box_err <= 2e-3 and score_err <= 1e-6,
+                f"{name}: the card's bf16 head outputs decoded on the CPU give other keep sets "
+                f"(box {box_err}, score {score_err})")
+        log(f"[bf16] {name}: {BF16_FRAMES} frames, rel-RMS from the CPU fp32 head outputs: box logits GPU bf16 "
+            f"{stats['boxes'][0]:.4e} (CPU bf16 {stats['boxes'][1]:.4e}), class logits GPU bf16 "
+            f"{stats['scores'][0]:.4e} (CPU bf16 {stats['scores'][1]:.4e}); the card's bf16 head outputs decoded on "
+            f"the CPU: keep sets equal ({int(det_gpu['valid'].sum())} kept), box max err {box_err:.3e} px, "
+            f"score max err {score_err:.3e}")
+        out[name] = dict(launches=launches, e2e=e2e, run=pred.run, rel_rms=stats)
+    return out
+
+
 def profile_kernels(run, xb, iters: int = 5):
     """(wall ms per iteration, {kernel name: device us per iteration}, kernels per iteration)
     of ``run(xb)`` under torch.profiler, after one untimed call."""
@@ -1095,32 +1321,53 @@ def main():
     import torch
 
     dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+
+    def done(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
+
     c3k2_sass = phase_build()
+    done("build")
     phase_split_tf32(dev)
     stem_res = phase_stem(dev)
+    stem16_res = phase_stem_bf16(dev)
+    done("stem")
     nms_res = phase_nms(dev)
     esmoe_res = phase_esmoe(dev)
+    esmoe16_res = phase_esmoe_bf16(dev)
     cw_res = phase_cw_nms(dev)
     gm_res, gm_launches = phase_moe(dev)
     phase_sparse_esmoe(dev)
+    done("kernel checks")
     model, state, imgs, main_launches = phase_main_path(dev)
     phase_scale_m(dev, imgs)
+    done("main path and scale m")
     c3k2_res, c3k2_launches = phase_c3k2(dev, model, imgs)
     moe, moe_launches, _ = phase_fused_esmoe_path(dev, model, state, imgs)
     v01, _, _ = phase_v0_1_path(dev, model, imgs)
     sahi_launches = phase_sahi(dev, moe)
+    done("fp32 paths")
     x16, _ = model._predictor.preprocess(imgs)
+    v01_fp32 = v01._predictor
+    fp32_runs = {"predict path": model._predictor.run, "with fused_esmoe_fuse": moe._predictor.run,
+                 "yolo-master-v0_1-n predict path": v01_fp32.run}
+    bf16_res = phase_bf16_paths(dev, {"yolo-master-n": model, "with fused_esmoe_fuse": moe, "yolo-master-v0_1-n": v01},
+                                imgs)
+    done("bf16 paths")
+
     def v01_dense(xb):
         v01.model.sparse_inference = False
         try:
-            return v01._predictor.run(xb)
+            return v01_fp32.run(xb)
         finally:
             v01.model.sparse_inference = True
 
-    phase_profile({"predict path": model._predictor.run, "with fused_esmoe_fuse": moe._predictor.run,
-                   "yolo-master-v0_1-n predict path": v01._predictor.run, "yolo-master-v0_1-n, dense eval": v01_dense},
-                  x16)
+    phase_profile({**fp32_runs, "yolo-master-v0_1-n, dense eval": v01_dense,
+                   "predict path, bf16": bf16_res["yolo-master-n"]["run"],
+                   "with fused_esmoe_fuse, bf16": bf16_res["with fused_esmoe_fuse"]["run"],
+                   "yolo-master-v0_1-n predict path, bf16": bf16_res["yolo-master-v0_1-n"]["run"]}, x16)
     phase_imports()
+    done("profile")
 
     # ES_MOE: the four placements of one bs-16 forward, summed
     es16 = [esmoe_res[(16, layer)] for layer, _, _ in ESMOE_PLACEMENTS]
@@ -1134,6 +1381,12 @@ def main():
     c_top = max(c16, key=lambda r: r["bound_ms"])  # the sum is named after its largest term
     c_sum.update(max_abs_err=max(r["max_abs_err"] for r in c16), bound_by=c_top["bound_by"],
                  bound_peak=c_top["bound_peak"])
+    es16_bf16 = [esmoe16_res[(16, layer)] for layer, _, _ in ESMOE_PLACEMENTS]
+    es_bf16 = {k: sum(r[k] for r in es16_bf16) for k in ("ms", "plain_ms", "module_ms", "bound_ms")}
+    es_bf16_top = max(es16_bf16, key=lambda r: r["bound_ms"])
+    es_bf16.update(max_abs_err=max(r["max_abs_err"] for r in es16_bf16), bound_by=es_bf16_top["bound_by"],
+                   bound_peak=es_bf16_top["bound_peak"])
+    stem_bf16 = stem16_res[("n", 16, "uint8")]
     gm = gm_res[(16, MOE_BANKS[0][0])]
     kernels = [
         kernel_entry("fused_stem", "stem.cu", "pallas_stem.py:177", main_launches["stem"], stem_res[("n", 16)],
@@ -1159,7 +1412,22 @@ def main():
                                                                 ("ms", "plain_ms", "module_ms", "bound_ms")},
                      b1={k: sum(c3k2_res[(1, i, 1)][k] for i in C3K2_LAYERS) for k in ("ms", "plain_ms", "module_ms")},
                      resources=c3k2_sass),
+        kernel_entry("fused_stem_bf16", "stem.cu", "pallas_stem.py:177", bf16_res["yolo-master-n"]["launches"]["stem"],
+                     stem_bf16, "uint8 [16,640,640,3] -> bf16 [16,160,160,32] (the bf16 predict path's form)",
+                     bound_peak=stem_bf16["bound_peak"], cudnn_bf16_pair_ms=stem_bf16["cudnn_bf16_pair_ms"],
+                     bank_launches=bf16_res["yolo-master-n"]["launches"]["stem_bank"],
+                     bf16_input={k: stem16_res[("n", 16, "bf16")][k] for k in
+                                 ("ms", "plain_ms", "cudnn_bf16_pair_ms", "bound_ms", "max_abs_err")},
+                     widths={scale: {k: stem16_res[(scale, 16, "uint8")][k] for k in
+                                     ("ms", "plain_ms", "cudnn_bf16_pair_ms", "bound_ms", "bound_peak", "max_abs_err")}
+                             for scale in STEM_WIDTHS}),
+        kernel_entry("fused_esmoe_bf16", "esmoe.cu", "pallas_esmoe.py:81",
+                     bf16_res["with fused_esmoe_fuse"]["launches"]["esmoe"], es_bf16,
+                     "bf16 in and out, B=16, the four placements summed", module_ms=es_bf16["module_ms"],
+                     bound_peak=es_bf16["bound_peak"]),
     ]
+    log("[e2e] device ms/img, fp32 and bf16 paths in turns: " + json.dumps(
+        {name: {f"bs{bs}": r["e2e"][bs] for bs in (1, 16)} for name, r in bf16_res.items()}))
     print(gpu_name_and_power(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

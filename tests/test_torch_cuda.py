@@ -95,6 +95,45 @@ def test_stem_kernel_at_every_scale_width(dev, c0, c1, shape):
         assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), (out - ref).abs().max().item()
 
 
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place of each element of t (8 significant bits)."""
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), torch.frexp(t.float().abs()).exponent - 8)
+
+
+def assert_bf16_rounding_apart(out: torch.Tensor, ref: torch.Tensor) -> None:
+    """A kernel's bf16 output against its plain version's: both round an fp32 result
+    once, and the two fp32 results agree within the fp32 forms' gate,
+    1e-4 + 1e-4*|ref|. So each pair of outputs lies within 1 bf16 ulp of |ref| plus
+    that gate (near 0 the gate is many bf16 ulps: 2 of 78.6M outputs at the x width
+    differed by 1.2e-6 at |ref| ~4e-6, within the fp32 gate), and a rounding
+    boundary between them is rare: at most 1% of the outputs differ (a wrong
+    rounding mode would move about half)."""
+    assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= bf16_ulp(ref) + 1e-4 + 1e-4 * ref.float().abs()).all()), err.max().item()
+    assert (err > 0).float().mean().item() <= 1e-2
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 128), (1, 36, 44), (2, 640, 640)])
+@pytest.mark.parametrize("c0,c1", [(16, 32), (32, 64), (64, 128), (96, 192)], ids=["n", "s", "m_l", "x"])
+def test_stem_kernel_bf16_matches_plain(dev, c0, c1, shape):
+    """The bf16 path's forms, uint8 -> bf16 (the predict path) and bf16 -> bf16
+    (a bf16 image, /255 not folded), at the stem widths of every scale, ragged
+    tiles included. Both versions compute in fp32 and round once to bf16
+    (assert_bf16_rounding_apart)."""
+    rng = np.random.default_rng(c1)
+    w0, b0, w1, b1 = _stem_weights(rng, c0, c1, dev)
+    img = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(dev)
+    for x, w in ((img, stem_weight_layout(w0 / 255.0)), ((img.float() / 255.0).bfloat16(), w0)):
+        out = fused_stem(x, w, b0, w1, b1, out_dtype=torch.bfloat16)
+        ref = fused_stem_plain(x, w, b0, w1, b1, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert out.shape == (shape[0], shape[1] // 4, shape[2] // 4, c1)
+        assert_bf16_rounding_apart(out, ref)
+    with pytest.raises(TypeError):  # float32 -> bf16 is no form of the kernel
+        fused_stem(img.float() / 255.0, w0, b0, w1, b1, out_dtype=torch.bfloat16)
+
+
 def test_stem_plan_keeps_scale_n_and_fits_every_width(dev):
     """Scale n's plan: an 8x16 tile, one warpgroup per 64 pixels with all 32 of
     c1, a three-stage weight ring; every YAML width fits one block, and n, s
@@ -311,6 +350,34 @@ def test_esmoe_kernel_tile_tails(dev, b, hw, cin, cout, ks):
     assert out.shape == ref.shape == (b, *hw, cout)
     assert bool(torch.isfinite(out).all())
     assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), (out - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("b,hw,c", [(2, (160, 160), 64), (2, (80, 80), 128), (2, (40, 40), 128), (2, (20, 20), 256),
+                                    (1, (21, 37), 36)])
+def test_esmoe_kernel_bf16_matches_plain(dev, b, hw, c):
+    """bf16 x in and bf16 out, fp32 weights, at yolo-master-n's four placements
+    (and a ragged tile with C off the 32-channel chunk). Both versions compute
+    in fp32 and round once (assert_bf16_rounding_apart). The module's bf16 form
+    (FusedESMOE in a bf16 copy) launches the same kernel."""
+    from yolo_master_tpu_torch.utils.fuse import compute_dtype_copy
+
+    block = _esmoe_block(c, c, dev, seed=c)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(b, *hw, c, generator=g).to(dev).bfloat16()
+    w = torch.softmax(torch.randn(b, 3, generator=g), -1).to(dev)
+    banks = pack_esmoe_params(block)
+    out = fused_esmoe(x, w, *banks)
+    ref = fused_esmoe_plain(x, w, *banks)
+    torch.cuda.synchronize()
+    assert out.shape == (b, *hw, c)
+    assert_bf16_rounding_apart(out, ref)
+    fused = compute_dtype_copy(FusedESMOE(block), torch.bfloat16)
+    before = fused_esmoe.launches
+    with torch.no_grad():
+        y = fused(x.permute(0, 3, 1, 2))
+    torch.cuda.synchronize()
+    assert fused_esmoe.launches == before + 1 and y.dtype == torch.bfloat16
+    assert all(t.dtype == torch.float32 for t in fused.parameters())
 
 
 def test_fused_esmoe_module_counts_launches_and_rejects_bad_input(dev):

@@ -10,8 +10,10 @@
 //   z_e[p,o] = sum_c d_e[p,c] * pw[e,c,o] + pb[e,o]          (expert BN folded)
 //   y[p,o]   = sum_e w[b,e] * SiLU(z_e[p,o])
 //   out[p,o] = SiLU(gamma[o] * y[p,o] + beta[o])              (norm BN folded)
-// x is NHWC float32, out NHWC float32; w [B,E] comes from the routing MLP,
-// which stays in PyTorch.
+// x and out are NHWC, both float32 (the fp32 path) or both bfloat16 (the
+// bf16 path); the weights are float32 in both and the block computes in fp32,
+// as the TPU kernel widens x and its weights. w [B,E] (float32) comes from the
+// routing MLP, which stays in PyTorch.
 //
 // What bounds it on the H100: the depthwise stage's fp32 work on the CUDA
 // cores, then bytes. At yolo-master-n's four placements (C = O = 64/128/128/256
@@ -26,8 +28,10 @@
 // (image, 8x16-pixel tile, 64-output-channel slice) and walks the experts,
 // and for each expert the input channels in chunks of 32:
 //   1. the chunk's tile plus expert e's halo of (k_e-1)/2 pixels arrives in
-//      shared memory by 16-byte cp.async, zero-filled outside the image (the
-//      SAME padding) and past C; so do the expert's k_e x k_e taps for the
+//      shared memory by cp.async of 4 channels (16 bytes of float32, 8 of
+//      bfloat16, which stays bfloat16 there and is widened where the taps
+//      read it), zero-filled outside the image (the SAME padding) and past C;
+//      so do the expert's k_e x k_e taps for the
 //      chunk and the [64 outputs][32 channels] chunk of pw_e, the latter from
 //      a scratch bank that a small first kernel wrote transposed (TF32 wgmma
 //      reads both operands K-major) and split in TF32 halves. All three are
@@ -42,7 +46,8 @@
 //      to z_e on the CUDA cores: the tensor cores round every accumulation
 //      toward zero, and a short chain keeps that bias under fp32's own noise.
 // After the last chunk of expert e, z_e + pb gets SiLU and is mixed into the
-// fragment y with w[b,e]; the output norm and SiLU are applied on the store.
+// fragment y with w[b,e]; the output norm and SiLU are applied on the store
+// (rounded to nearest for a bfloat16 output).
 // Nothing but x (once per expert, mostly from L2), the weights and the output
 // touch device memory. Two blocks share an SM (128 registers, 110 KB of
 // shared memory at k <= 7), so one block's depthwise stage can run on the CUDA
@@ -71,6 +76,19 @@ struct KernelSizes {
   int k[kMaxExperts];
 };
 
+// 8-byte asynchronous copy to shared memory; zeros when !valid (src is not read).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n) : "memory");
+}
+
+// Four channels of x into the halo tile, in x's own type.
+__device__ __forceinline__ void copy_x4(float* dst, const float* src, bool valid) { tf32::cp_async16(dst, src, valid); }
+__device__ __forceinline__ void copy_x4(__nv_bfloat16* dst, const __nv_bfloat16* src, bool valid) {
+  cp_async8(dst, src, valid);
+}
+
 // SiLU by the fast exponential and division (each within a few ulp): the block
 // takes 128 of them per thread, as many instructions as its depthwise taps.
 __device__ __forceinline__ float silu(float z) { return __fdividef(z, 1.0f + __expf(-z)); }
@@ -80,8 +98,8 @@ __device__ __forceinline__ float silu(float z) { return __fdividef(z, 1.0f + __e
 // pixels per row; ws the expert's taps for the chunk, [K * K][32 channels]
 // (zeros past C). The 16 sums are written split into the swizzled tiles a_hi
 // and a_lo.
-template <int K>
-__device__ __forceinline__ void depthwise_row(const float* xs, const float* ws, int row, int c, float* a_hi,
+template <int K, typename T>
+__device__ __forceinline__ void depthwise_row(const T* xs, const float* ws, int row, int c, float* a_hi,
                                               float* a_lo) {
   constexpr int pitch = kTileW + K - 1;
   float acc[kTileW];
@@ -90,9 +108,9 @@ __device__ __forceinline__ void depthwise_row(const float* xs, const float* ws, 
 #pragma unroll
   for (int dr = 0; dr < K; ++dr) {
     float v[kTileW + K - 1];
-    const float* src = xs + (row + dr) * pitch * kCC + c;
+    const T* src = xs + (row + dr) * pitch * kCC + c;
 #pragma unroll
-    for (int j = 0; j < kTileW + K - 1; ++j) v[j] = src[j * kCC];
+    for (int j = 0; j < kTileW + K - 1; ++j) v[j] = tf32::to_float(src[j * kCC]);
 #pragma unroll
     for (int dc = 0; dc < K; ++dc) {
       const float wt = ws[(dr * K + dc) * kCC + c];
@@ -110,24 +128,27 @@ __device__ __forceinline__ void depthwise_row(const float* xs, const float* ws, 
   }
 }
 
+// T: x's and out's type, float or __nv_bfloat16.
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-fused_esmoe_kernel(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ dw,
+fused_esmoe_kernel(const T* __restrict__ x, const float* __restrict__ w, const float* __restrict__ dw,
                    const float* __restrict__ pw_bank, const float* __restrict__ pb, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, float* __restrict__ out, int H, int W, int C, int O, int E,
+                   const float* __restrict__ beta, T* __restrict__ out, int H, int W, int C, int O, int E,
                    int kmax, KernelSizes ks, int tiles_x, int cpad, int opad) {
   extern __shared__ unsigned char smem_raw[];
   float* a_hi = tf32::align_tile(smem_raw);  // [kPix][kCC]
   float* a_lo = a_hi + kATileFloats;         // [kPix][kCC]
   float* bs = a_lo + kATileFloats;           // [2 buffers][hi, lo][kOT][kCC]
   float* ws = bs + 4 * kBTileFloats;         // [k * k taps][kCC], k <= kmax
-  float* xs = ws + kmax * kmax * kCC;        // [kTileH + 2 he][kTileW + 2 he][kCC], he <= (kmax - 1) / 2
+  T* xs = reinterpret_cast<T*>(ws + kmax * kmax * kCC);  // [kTileH + 2 he][kTileW + 2 he][kCC] of T,
+                                                         // he <= (kmax - 1) / 2
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
   const int o0 = blockIdx.y * kOT;
   const int ty0 = (blockIdx.x / tiles_x) * kTileH;
   const int tx0 = (blockIdx.x % tiles_x) * kTileW;
-  const float* xb = x + static_cast<size_t>(b) * H * W * C;
+  const T* xb = x + static_cast<size_t>(b) * H * W * C;
   const int hmax = (kmax - 1) / 2;
 
   const int group = tid >> 7, group_tid = tid & 127;  // pointwise: the warpgroup's 64 pixels
@@ -137,8 +158,8 @@ fused_esmoe_kernel(const float* __restrict__ x, const float* __restrict__ w, con
   const int nk = cpad / kCC;
 
   // The loads of a step (one expert, 32 input channels): its halo tile, its taps
-  // and its pw chunk. Each thread copies one 16-byte chunk (4 channels) of every
-  // 32nd pixel, tap and pw row; the cursor walks the steps in the order of the
+  // and its pw chunk. Each thread copies one chunk of 4 channels of every 32nd
+  // pixel, tap and pw row; the cursor walks the steps in the order of the
   // products, one step ahead.
   const int ld_row = tid >> 3, ld_c4 = 4 * (tid & 7);
   const int ld_b_dst = tf32::swizzled_chunk(ld_row, tid & 7);  // rows 32 apart share row % 8
@@ -152,7 +173,7 @@ fused_esmoe_kernel(const float* __restrict__ x, const float* __restrict__ w, con
     for (int pix = ld_row; pix < npix; pix += 32) {
       const int gy = ty0 - he + r, gx = tx0 - he + cc;
       const bool valid = c_in && gy >= 0 && gy < H && gx >= 0 && gx < W;
-      tf32::cp_async16(xs + pix * kCC + ld_c4, valid ? xb + (static_cast<size_t>(gy) * W + gx) * C + gc : xb, valid);
+      copy_x4(xs + pix * kCC + ld_c4, valid ? xb + (static_cast<size_t>(gy) * W + gx) * C + gc : xb, valid);
       cc += 32 - cols;  // 32 pixels on: one row down, and a second one past the row's end
       r += 1;
       if (cc >= cols) {
@@ -262,14 +283,13 @@ fused_esmoe_kernel(const float* __restrict__ x, const float* __restrict__ w, con
     const int p = 64 * group + tf32::acc_row(group_tid, 2 * half);
     const int py = ty0 + p / kTileW, px = tx0 + p % kTileW;
     if (py >= H || px >= W) continue;
-    float* dst = out + ((static_cast<size_t>(b) * H + py) * W + px) * O;
+    T* dst = out + ((static_cast<size_t>(b) * H + py) * W + px) * O;
 #pragma unroll
     for (int j = 0; j < kOT / 8; ++j) {
       const int o = o0 + 8 * j + 2 * kq;
       if (o >= O) continue;
-      *reinterpret_cast<float2*>(dst + o) =
-          make_float2(silu(fmaf(__ldg(gamma + o), y[4 * j + 2 * half], __ldg(beta + o))),
-                      silu(fmaf(__ldg(gamma + o + 1), y[4 * j + 2 * half + 1], __ldg(beta + o + 1))));
+      tf32::store_pair(dst + o, silu(fmaf(__ldg(gamma + o), y[4 * j + 2 * half], __ldg(beta + o))),
+                       silu(fmaf(__ldg(gamma + o + 1), y[4 * j + 2 * half + 1], __ldg(beta + o + 1))));
     }
   }
 }
@@ -279,6 +299,43 @@ int smem_bytes(int kmax) {
   return static_cast<int>(sizeof(float)) *
              (kOperandFloats + kmax * kmax * kCC + (kTileH + 2 * hmax) * (kTileW + 2 * hmax) * kCC) +
          1024;
+}
+
+// x [B,H,W,C], out [B,H,W,O] of T; w [B,E], dw [E,kmax,kmax,C], pw [E,C,O], pb [E,O], gamma [O],
+// beta [O] float32; all contiguous, x, pw and out 16-byte aligned, C and O multiples of 4, ks[e]
+// odd in 3..15, E <= 8 (checked by the caller). pw_bank: scratch of
+// E * 2 * esmoe_bank_opad(O) * esmoe_bank_cpad(C) floats.
+template <typename T>
+int launch(const void* x, const void* w, const void* dw, const void* pw, const void* pb, const void* gamma,
+           const void* beta, void* pw_bank, void* out, int B, int H, int W, int C, int O, int E, const int* ks,
+           void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  KernelSizes sizes{};
+  int kmax = 1;
+  for (int e = 0; e < E; ++e) {
+    sizes.k[e] = ks[e];
+    kmax = ks[e] > kmax ? ks[e] : kmax;
+  }
+  const int cpad = (C + kCC - 1) / kCC * kCC, opad = (O + kOT - 1) / kOT * kOT;
+  tf32::split_bank_kernel<<<dim3(cpad / 32, opad / 32, E), dim3(32, 8), 0, s>>>(
+      static_cast<const float*>(pw), nullptr, nullptr, static_cast<float*>(pw_bank), C, O, E, 1, cpad, opad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = smem_bytes(kmax);
+  auto kernel = fused_esmoe_kernel<T>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // all of the SM's L1 as shared memory, so that two blocks fit where their tiles allow
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_x = (W + kTileW - 1) / kTileW;
+  const int tiles_y = (H + kTileH - 1) / kTileH;
+  const dim3 grid(tiles_x * tiles_y, opad / kOT, B);
+  kernel<<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w), static_cast<const float*>(dw),
+      static_cast<const float*>(pw_bank), static_cast<const float*>(pb), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<T*>(out), H, W, C, O, E, kmax, sizes, tiles_x, cpad, opad);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -296,41 +353,18 @@ int esmoe_max_kernel() { return kMaxKernel; }
 int esmoe_bank_cpad(int C) { return (C + kCC - 1) / kCC * kCC; }
 int esmoe_bank_opad(int O) { return (O + kOT - 1) / kOT * kOT; }
 
-// x [B,H,W,C], w [B,E], dw [E,kmax,kmax,C], pw [E,C,O], pb [E,O], gamma [O],
-// beta [O] -> out [B,H,W,O]; all float32, contiguous, x, pw and out
-// 16-byte aligned, C and O multiples of 4, ks[e] odd in 3..15, E <= 8
-// (checked by the caller). pw_bank: scratch of
-// E * 2 * esmoe_bank_opad(O) * esmoe_bank_cpad(C) floats.
+// float32 x and out (launch's comment gives the arguments).
 int ymt_fused_esmoe(const void* x, const void* w, const void* dw, const void* pw, const void* pb,
                     const void* gamma, const void* beta, void* pw_bank, void* out, int B, int H, int W, int C, int O,
                     int E, const int* ks, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  KernelSizes sizes{};
-  int kmax = 1;
-  for (int e = 0; e < E; ++e) {
-    sizes.k[e] = ks[e];
-    kmax = ks[e] > kmax ? ks[e] : kmax;
-  }
-  const int cpad = esmoe_bank_cpad(C), opad = esmoe_bank_opad(O);
-  tf32::split_bank_kernel<<<dim3(cpad / 32, opad / 32, E), dim3(32, 8), 0, s>>>(
-      static_cast<const float*>(pw), nullptr, nullptr, static_cast<float*>(pw_bank), C, O, E, 1, cpad, opad);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = smem_bytes(kmax);
-  err = cudaFuncSetAttribute(fused_esmoe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // all of the SM's L1 as shared memory, so that two blocks fit where their tiles allow
-  err = cudaFuncSetAttribute(fused_esmoe_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_x = (W + kTileW - 1) / kTileW;
-  const int tiles_y = (H + kTileH - 1) / kTileH;
-  const dim3 grid(tiles_x * tiles_y, opad / kOT, B);
-  fused_esmoe_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(dw),
-      static_cast<const float*>(pw_bank), static_cast<const float*>(pb), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<float*>(out), H, W, C, O, E, kmax, sizes, tiles_x, cpad, opad);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(x, w, dw, pw, pb, gamma, beta, pw_bank, out, B, H, W, C, O, E, ks, stream);
+}
+
+// bfloat16 x and out.
+int ymt_fused_esmoe_bf16(const void* x, const void* w, const void* dw, const void* pw, const void* pb,
+                         const void* gamma, const void* beta, void* pw_bank, void* out, int B, int H, int W, int C,
+                         int O, int E, const int* ks, void* stream) {
+  return launch<__nv_bfloat16>(x, w, dw, pw, pb, gamma, beta, pw_bank, out, B, H, W, C, O, E, ks, stream);
 }
 
 }  // extern "C"

@@ -21,11 +21,13 @@
 // Here: the split (and a cheaper form of it for finite values), the swizzled offset, the shared-memory matrix descriptor,
 // wgmma in the two forms the kernels use (A and B from shared memory, N = 64;
 // A from registers, N = 8 to 128) with its fence / commit / wait, a 16-byte
-// cp.async with zero fill, and the kernel that writes a weight bank
-// transposed and split to scratch.
+// cp.async with zero fill, the kernel that writes a weight bank transposed
+// and split to scratch, and the loads and stores of a kernel's I/O type
+// (uint8, float or bfloat16, widened to and rounded from fp32).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -284,6 +286,19 @@ split_bank_kernel(const float* __restrict__ w, const int* __restrict__ idx, cons
     dst[0] = __uint_as_float(hi);
     dst[static_cast<size_t>(opad) * cpad] = __uint_as_float(lo);
   }
+}
+
+// An input element as fp32 (exact for each type).
+__device__ __forceinline__ float to_float(uint8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Two adjacent outputs in the output's type; bfloat16 rounded to nearest even, as PyTorch's cast.
+__device__ __forceinline__ void store_pair(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
 }  // namespace tf32

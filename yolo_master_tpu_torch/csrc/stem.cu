@@ -1,7 +1,10 @@
 // Fused detector stem: conv0 (3->c0, k3 s2 p1) + bias + SiLU, then
 // conv1 (c0->c1, k3 s2 p1) + bias + SiLU, in one pass over the letterboxed
 // uint8 NHWC image. BatchNorm and the /255 input scale are folded into the
-// weights by the caller (yolo_master_tpu_torch/utils/fuse.py).
+// weights by the caller (yolo_master_tpu_torch/utils/fuse.py). The kernel
+// computes in fp32 and is built for four (input, output) types: uint8 ->
+// float32 and float32 -> float32 (the fp32 path), uint8 -> bfloat16 and
+// bfloat16 -> bfloat16 (the bf16 path); the weights are float32 in all four.
 //
 // Replaces: yolo_master_tpu/ops/pallas_stem.py:fused_stem (the TPU kernel
 // _make_stem_kernel, which reads a space-to-depth(4) blob because the TPU
@@ -18,8 +21,10 @@
 //   32/64    2.8 + 15.1 GFLOP 0.036 ms 0.39 GFLOP 0.006 ms  125 MB 0.037 ms   0.037 ms
 //   64/128   5.7 + 60.4 GFLOP 0.133 ms 0.79 GFLOP 0.012 ms  230 MB 0.069 ms   0.133 ms
 //   96/192   8.5 + 135.9 GFLOP 0.292 ms 1.18 GFLOP 0.018 ms 335 MB 0.100 ms   0.292 ms
-// The split-TF32 products below run three tensor-core passes (conv0 two on
-// uint8 input), so the tensor time is about three times its column. Unfused,
+// With a bfloat16 output the bytes at 16/32 are 19.7 MB in and 26.2 MB out,
+// 45.9 MB, 0.014 ms. The split-TF32 products below run three tensor-core
+// passes (conv0 two on uint8 or bfloat16 input), so the tensor time is about
+// three times its column. Unfused,
 // the fp32 conv0 map ([B,320,320,c0], 6.6-39 MB per image) would also be
 // written and read back.
 //
@@ -32,9 +37,10 @@
 //      the tile (the one-row/one-column halo conv1 needs included) in 64-row
 //      tiles, N = the chunk's 16 channels, K = 3x3 taps x 3 channels, 27
 //      padded to 32. A is the stride-2 gather of the input tile, loaded by
-//      each thread into its wgmma fragment (RS form); uint8 pixels are exact
-//      in TF32, so A needs no split and two passes against w0's halves keep
-//      fp32 accuracy (float input: three). Bias and SiLU on the CUDA cores;
+//      each thread into its wgmma fragment (RS form); uint8 pixels and
+//      bfloat16 values (8 significant bits against TF32's 11) are exact in
+//      TF32, so A needs no split and two passes against w0's halves keep
+//      fp32 accuracy (float32 input: three). Bias and SiLU on the CUDA cores;
 //      positions outside [0,H/2)x[0,W/2) are stored as 0: they are conv1's
 //      zero padding, not SiLU(b0). The result goes to a conv0 tile in shared
 //      memory, 20 floats per position;
@@ -52,8 +58,9 @@
 // The tensor cores round every accumulation toward zero, so each tap's
 // 16-deep product starts from zero, small terms first, and joins the sum by an
 // fp32 add on the CUDA cores (as esmoe.cu's 32-channel chunks do). After the
-// last chunk, bias and SiLU (full-precision expf) are applied on the store;
-// only conv1's output goes to device memory.
+// last chunk, bias and SiLU (full-precision expf) are applied on the store,
+// rounded to nearest for a bfloat16 output; only conv1's output goes to
+// device memory.
 //
 // The block's layout is a function of c1 (kPlans, below, which the wrapper and
 // the launch both read): at c1 <= 64 an 8x16 tile, one warpgroup per 64 pixels
@@ -63,6 +70,8 @@
 // other's products; at 192 one block (about 240 registers).
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "mma_tf32.cuh"
 
@@ -123,8 +132,6 @@ __device__ __forceinline__ float silu(float v) {
   return v / (1.0f + expf(-v));
 }
 
-__device__ __forceinline__ float to_float(uint8_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_float(float v) { return v; }
 
 // w1 [9 * c0, c1] (HWIO: row (kh * 3 + kw) * c0 + ic) -> bank [chunks][hi, lo][np][32]: chunk
 // kc = cc * 5 + j holds conv0 channels [16 cc, 16 cc + 16) at taps 2j (columns 0-15) and 2j + 1
@@ -147,12 +154,13 @@ stem_bank_kernel(const float* __restrict__ w1, float* __restrict__ bank, int c0,
   dst[static_cast<size_t>(np) * tf32::kTileK] = __uint_as_float(lo);
 }
 
-// x [B,H,W,3]; w0 [3,3,3,c0] (kh,kw,cin,c0); bank from stem_bank_kernel; b0 [c0], b1 [c1];
-// out [B,H/4,W/4,c1]. c0 and c1 multiples of 8, c1 <= NW * NG.
-template <typename T, int TH, int NW, int NG, int STAGES, int MINB>
+// x [B,H,W,3] of T (uint8, float or bfloat16); w0 [3,3,3,c0] (kh,kw,cin,c0); bank from
+// stem_bank_kernel; b0 [c0], b1 [c1]; out [B,H/4,W/4,c1] of OutT (float or bfloat16). c0 and c1
+// multiples of 8, c1 <= NW * NG.
+template <typename T, typename OutT, int TH, int NW, int NG, int STAGES, int MINB>
 __global__ void __launch_bounds__(128 * (TH / 4) * NG, MINB)
 stem_kernel(const T* __restrict__ x, const float* __restrict__ w0, const float* __restrict__ b0,
-            const float* __restrict__ bank, const float* __restrict__ b1, float* __restrict__ out, int H, int W,
+            const float* __restrict__ bank, const float* __restrict__ b1, OutT* __restrict__ out, int H, int W,
             int c0, int c1) {
   constexpr int kThreads = 128 * (TH / 4) * NG;
   constexpr int kWarpgroups = kThreads / 128;
@@ -163,7 +171,7 @@ stem_kernel(const T* __restrict__ x, const float* __restrict__ w0, const float* 
   constexpr int kInH = 4 * TH + 3, kInW = 4 * kTW + 3;        // input tile
   constexpr int kInFloats = kInH * kInW * kCin;
   constexpr int kStageFloats = 2 * kN * tf32::kTileK;         // one B chunk: hi and lo, [kN][32] each
-  constexpr bool kExactA = sizeof(T) == 1;                    // uint8 pixels are exact in TF32
+  constexpr bool kExactA = !std::is_same_v<T, float>;         // uint8 and bfloat16 values are exact in TF32
   extern __shared__ unsigned char smem_raw[];
   const int c0p = (c0 + kCC - 1) / kCC * kCC;
   float* ring = tf32::align_tile(smem_raw);                   // [STAGES][hi, lo][kN][32], swizzled
@@ -216,7 +224,7 @@ stem_kernel(const T* __restrict__ x, const float* __restrict__ w0, const float* 
       const int gy = iy0 + row, gx = ix0 + col;
       v[it] = 0.0f;
       if (i < kInFloats && gy >= 0 && gy < H && gx >= 0 && gx < W)
-        v[it] = to_float(xb[(static_cast<size_t>(gy) * W + gx) * kCin + c]);
+        v[it] = tf32::to_float(xb[(static_cast<size_t>(gy) * W + gx) * kCin + c]);
     }
 #pragma unroll
     for (int it = 0; it < kIters; ++it)
@@ -398,22 +406,22 @@ stem_kernel(const T* __restrict__ x, const float* __restrict__ w0, const float* 
   for (int half = 0; half < 2; ++half) {
     const int ox = ox0 + tx + 8 * half;
     if (ox >= W4) continue;
-    float* dst = out + ((static_cast<size_t>(b) * H4 + oy) * W4 + ox) * c1;
+    OutT* dst = out + ((static_cast<size_t>(b) * H4 + oy) * W4 + ox) * c1;
 #pragma unroll
     for (int i = 0; i < NW / 8; ++i) {
       const int n = ng * NW + 8 * i + 2 * kq;
       if (n >= c1) continue;
-      *reinterpret_cast<float2*>(dst + n) = make_float2(silu(acc[4 * i + 2 * half] + s_b1[n]),
-                                                        silu(acc[4 * i + 2 * half + 1] + s_b1[n + 1]));
+      tf32::store_pair(dst + n, silu(acc[4 * i + 2 * half] + s_b1[n]),
+                       silu(acc[4 * i + 2 * half + 1] + s_b1[n + 1]));
     }
   }
 }
 
-template <typename T, int P>
+template <typename T, typename OutT, int P>
 int launch_plan(const void* x, const void* w0, const void* b0, const void* bank, const void* b1, void* out, int B,
                 int H, int W, int c0, int c1, cudaStream_t stream) {
   constexpr StemPlan p = kPlans[P];
-  auto kernel = stem_kernel<T, p.th, p.nw, p.ng, p.stages, p.blocks_per_sm>;
+  auto kernel = stem_kernel<T, OutT, p.th, p.nw, p.ng, p.stages, p.blocks_per_sm>;
   const int smem = static_cast<int>(plan_smem_bytes(c0, p));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -423,19 +431,19 @@ int launch_plan(const void* x, const void* w0, const void* b0, const void* bank,
   const dim3 grid((W / 4 + kTW - 1) / kTW, (H / 4 + p.th - 1) / p.th, B);
   kernel<<<grid, 128 * (p.th / 4) * p.ng, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w0), static_cast<const float*>(b0),
-      static_cast<const float*>(bank), static_cast<const float*>(b1), static_cast<float*>(out), H, W, c0, c1);
+      static_cast<const float*>(bank), static_cast<const float*>(b1), static_cast<OutT*>(out), H, W, c0, c1);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename OutT>
 int launch(const void* x, const void* w0, const void* b0, const void* bank, const void* b1, void* out, int B, int H,
            int W, int c0, int c1, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (plan_index(c1)) {
-    case 0: return launch_plan<T, 0>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, s);
-    case 1: return launch_plan<T, 1>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, s);
-    case 2: return launch_plan<T, 2>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, s);
-    case 3: return launch_plan<T, 3>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, s);
+    case 0: return launch_plan<T, OutT, 0>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, s);
+    case 1: return launch_plan<T, OutT, 1>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, s);
+    case 2: return launch_plan<T, OutT, 2>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, s);
+    case 3: return launch_plan<T, OutT, 3>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -480,14 +488,28 @@ int ymt_stem_bank(const void* w1, void* bank, int c0, int c1, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// uint8 -> float32
 int ymt_stem_u8(const void* x, const void* w0, const void* b0, const void* bank, const void* b1, void* out, int B,
                 int H, int W, int c0, int c1, void* stream) {
-  return launch<uint8_t>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, stream);
+  return launch<uint8_t, float>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, stream);
 }
 
+// float32 -> float32
 int ymt_stem_f32(const void* x, const void* w0, const void* b0, const void* bank, const void* b1, void* out, int B,
                  int H, int W, int c0, int c1, void* stream) {
-  return launch<float>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, stream);
+  return launch<float, float>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, stream);
+}
+
+// uint8 -> bfloat16
+int ymt_stem_u8_bf16(const void* x, const void* w0, const void* b0, const void* bank, const void* b1, void* out,
+                     int B, int H, int W, int c0, int c1, void* stream) {
+  return launch<uint8_t, __nv_bfloat16>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, stream);
+}
+
+// bfloat16 -> bfloat16
+int ymt_stem_bf16(const void* x, const void* w0, const void* b0, const void* bank, const void* b1, void* out, int B,
+                  int H, int W, int c0, int c1, void* stream) {
+  return launch<__nv_bfloat16, __nv_bfloat16>(x, w0, b0, bank, b1, out, B, H, W, c0, c1, stream);
 }
 
 }  // extern "C"

@@ -5,6 +5,11 @@ whose layer 0 takes uint8 (``YOLO.fuse()``), else float /255. Device: forward
 -> ``Detect.decode_topk`` -> batched NMS, with no host round trip between
 them. Host: boxes back to the original image -> ``engine/results.py:Results``.
 
+``compute_dtype=torch.bfloat16`` runs the forward on a bf16 copy of the model
+that the predictor makes once (``utils/fuse.py:compute_dtype_copy``): uint8
+input goes to the fused stem as it is, float input is cast to bf16, and the
+decode, NMS and detections stay fp32, as in the JAX package.
+
 PyTorch runs eagerly, so there is no per-batch-size compile and no padding of
 ragged batches to a power of two.
 """
@@ -20,7 +25,10 @@ import torch
 
 from ..data.letterbox import letterbox
 from ..ops.nms import non_max_suppression
+from ..utils.fuse import compute_dtype_copy
 from .results import Results
+
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def load_image(path: str) -> np.ndarray:
@@ -45,8 +53,12 @@ def expand_source(source) -> List[tuple]:
 class DetectionPredictor:
     def __init__(self, model, names: Optional[Dict[int, str]] = None, imgsz=640, conf: float = 0.25,
                  iou: float = 0.45, max_det: int = 300, max_nms: int = 2048, agnostic_nms: bool = False,
-                 classes: Optional[Sequence[int]] = None, batch: int = 1):
-        self.model = model
+                 classes: Optional[Sequence[int]] = None, compute_dtype: torch.dtype = torch.float32,
+                 batch: int = 1):
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+        self.compute_dtype = compute_dtype
+        self.model = model if compute_dtype == torch.float32 else compute_dtype_copy(model, compute_dtype)
         self.device = next(model.parameters()).device
         self.names = names or {i: str(i) for i in range(model.nc)}
         self.imgsz = imgsz if isinstance(imgsz, (tuple, list)) else (imgsz, imgsz)
@@ -79,7 +91,7 @@ class DetectionPredictor:
     # -- host pipeline ---------------------------------------------------------
     def preprocess(self, images: List[np.ndarray]):
         """Letterbox + BGR->RGB, stacked NHWC: uint8 when the model folds /255 into
-        layer 0, else float32 /255. Returns (batch tensor on device, metadata)."""
+        layer 0, else float32 /255 in the compute dtype. Returns (batch tensor on device, metadata)."""
         u8 = getattr(self.model, "uint8_input", False)
         processed, meta = [], []
         for im in images:
@@ -87,8 +99,8 @@ class DetectionPredictor:
             rgb = np.ascontiguousarray(lb[..., ::-1])
             processed.append(rgb if u8 else rgb.astype(np.float32) / 255.0)
             meta.append((im.shape[:2], ratio, pad))
-        x = torch.from_numpy(np.stack(processed))
-        return x.to(self.device, non_blocking=True), meta
+        x = torch.from_numpy(np.stack(processed)).to(self.device, non_blocking=True)
+        return (x.to(self.compute_dtype) if x.is_floating_point() else x), meta
 
     def __call__(self, source) -> List[Results]:
         items = expand_source(source)

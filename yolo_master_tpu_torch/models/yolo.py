@@ -39,6 +39,7 @@ class YOLO:
         """Load an ultralytics-named state_dict (unfused model; strict)."""
         self.model.load_state_dict(state_dict, strict=True)
         self._to_device()
+        self._predictor = None  # a predictor's bf16 copy holds the old weights
         return self
 
     def load_jax_params(self, params_np) -> "YOLO":
@@ -59,9 +60,11 @@ class YOLO:
     def predict(self, source, **kwargs):
         """Detect objects in a BGR HWC uint8 image, an image path, or a list of them.
 
-        Keyword arguments: imgsz, conf, iou, max_det, max_nms, agnostic_nms, classes, batch.
+        Keyword arguments: imgsz, conf, iou, max_det, max_nms, agnostic_nms, classes, batch,
+        compute_dtype (``torch.float32``, the default, or ``torch.bfloat16``: the
+        predictor then runs a bf16 copy of the model, and this model stays fp32).
         """
-        keys = {"imgsz", "conf", "iou", "max_det", "max_nms", "agnostic_nms", "classes", "batch"}
+        keys = {"imgsz", "conf", "iou", "max_det", "max_nms", "agnostic_nms", "classes", "batch", "compute_dtype"}
         unknown = set(kwargs) - keys
         if unknown:
             raise TypeError(f"unknown predict arguments: {sorted(unknown)}")

@@ -9,6 +9,12 @@ state_dict (``cv1.conv.weight``, ``cv1.bn.running_mean``, ``m.0.cv2...``), so
 JAX parameter tree one to one.
 
 BatchNorm uses eps 1e-3 and momentum 0.03, as the JAX package does.
+
+In a low-precision copy of a model (``utils/fuse.py:compute_dtype_copy``,
+bf16) each module follows the JAX package's per-op casts: convs in the
+activation dtype, eval BatchNorm folded in fp32 and applied as one
+multiply-add in the activation dtype, GroupNorm and average pooling in fp32,
+attention logits in the activation dtype with the softmax in fp32.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ class Conv(nn.Module):
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act is True else nn.Identity()
 
     def forward(self, x):
@@ -58,6 +64,26 @@ class Conv(nn.Module):
         fused.bias.copy_(b)
         self.conv = fused
         self.bn = nn.Identity()
+
+
+def bn_scale_shift(mean, var, weight, bias, eps: float):
+    """Eval BatchNorm as (scale, shift) with y = x * scale + shift, in the statistics' dtype."""
+    scale = weight * torch.rsqrt(var + eps)
+    return scale, bias - mean * scale
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d``; in eval, on an input of lower precision than its
+    statistics (bf16 against fp32), the JAX package's form
+    (``yolo_master_tpu/nn/layers.py:BatchNorm``): the statistics fold in fp32
+    into a scale and a shift, both rounded to the input's dtype, and one
+    multiply-add in that dtype."""
+
+    def forward(self, x):
+        if self.training or x.dtype == self.running_var.dtype:
+            return super().forward(x)
+        scale, shift = bn_scale_shift(self.running_mean, self.running_var, self.weight, self.bias, self.eps)
+        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
 def fold_bn(weight: torch.Tensor, bias, bn: nn.BatchNorm2d):
@@ -225,10 +251,14 @@ def get_safe_groups(channels: int, groups: int = 8) -> int:
 
 
 class GroupNorm(nn.GroupNorm):
-    """GroupNorm with a safe group count and eps 1e-5 (the MoE experts' norm)."""
+    """GroupNorm with a safe group count and eps 1e-5 (the MoE experts' norm),
+    computed in its affine's dtype (fp32 in a bf16 copy) and returned in the input's."""
 
     def __init__(self, c: int, groups: int = 8, eps: float = 1e-5):
         super().__init__(get_safe_groups(c, groups), c, eps=eps)
+
+    def forward(self, x):
+        return F.group_norm(x.to(self.weight.dtype), self.num_groups, self.weight, self.bias, self.eps).to(x.dtype)
 
 
 class PlainConv(nn.Conv2d):
@@ -275,7 +305,9 @@ class FusedStem(nn.Module):
     ``utils/fuse.py:fused_stem_fuse`` from BN-folded convs. The OIHW weights
     are stored once in the kernel's HWIO memory order, as ``[9*c_in, c_out]``
     matrices: a 2-D parameter is left alone by the model's channels_last
-    conversion, and :meth:`weights` views it as OIHW without a copy.
+    conversion, and :meth:`weights` views it as OIHW without a copy. The
+    weights stay fp32 in a bf16 copy of the model; ``out_dtype`` (set by
+    ``utils/fuse.py:compute_dtype_copy``) is then the output's dtype.
     """
 
     def __init__(self, w0, b0, w1, b1):
@@ -285,6 +317,7 @@ class FusedStem(nn.Module):
         self.w0 = nn.Parameter(stem_weight_layout(w0).permute(2, 3, 1, 0).flatten(0, 2), requires_grad=False)
         self.w1 = nn.Parameter(stem_weight_layout(w1).permute(2, 3, 1, 0).flatten(0, 2), requires_grad=False)
         self.b0, self.b1 = nn.Parameter(b0, requires_grad=False), nn.Parameter(b1, requires_grad=False)
+        self.out_dtype = None  # None: the kernel's default (float32 for uint8 input)
 
     def weights(self):
         """(w0, b0, w1, b1) as :func:`~..ops.stem.fused_stem` takes them: OIHW views of HWIO memory."""
@@ -294,7 +327,7 @@ class FusedStem(nn.Module):
     def forward(self, x_nhwc):
         from ..ops.stem import fused_stem
 
-        return fused_stem(x_nhwc.contiguous(), *self.weights()).permute(0, 3, 1, 2)
+        return fused_stem(x_nhwc.contiguous(), *self.weights(), out_dtype=self.out_dtype).permute(0, 3, 1, 2)
 
 
 class Passthrough(nn.Module):

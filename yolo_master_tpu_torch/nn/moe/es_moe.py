@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 
 from ...ops.esmoe import fused_esmoe, pack_esmoe_params
-from ..layers import BN_EPS, BN_MOMENTUM
+from ..layers import BN_EPS, BN_MOMENTUM, BatchNorm2d
 from .dispatch import expert_bank, gather_dispatch, top_k_from_weights
 from .experts import EfficientExpertGroup
 from .routers import DynamicRoutingLayer
@@ -61,7 +61,7 @@ class ES_MOE(nn.Module):  # noqa: N801 - the graph YAMLs' module name
         self.experts = nn.ModuleList(
             EfficientExpertGroup(in_channels, out_channels, k)
             for k in expert_kernel_sizes(num_experts, max_kernel_size))
-        self.norm = nn.Sequential(nn.BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM), nn.SiLU())
+        self.norm = nn.Sequential(BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM), nn.SiLU())
 
     def _sparse_block(self) -> bool:
         return self.use_sparse_inference and self.top_k is not None and self.top_k < self.num_experts
@@ -102,7 +102,9 @@ class FusedESMOE(nn.Module):
     State: ``routing.*`` as in :class:`ES_MOE`, and ``banks.{dw,pw,pb,gamma,beta}``
     as in the JAX package's fused tree, except that ``dw`` [E, kmax, kmax, C]
     is kept as [E, kmax*kmax, C]: a 4-D parameter would be reordered by the
-    facade's channels_last ``.to()``. Eval only.
+    facade's channels_last ``.to()``. Eval only. The banks stay fp32 in a bf16
+    copy of the model, as the JAX kernel widens its weights; x and the output
+    are in the activation dtype.
     """
 
     def __init__(self, block: ES_MOE):
@@ -117,10 +119,10 @@ class FusedESMOE(nn.Module):
                             ("beta", beta))})
 
     def forward(self, x):
-        w, _ = self.routing(x)  # [B, E]
+        w, _ = self.routing(x)  # [B, E], in x's dtype (JAX: w.astype(x.dtype), widened for the kernel)
         dw = self.banks["dw"]
         kmax = max(self.ks)
-        out = fused_esmoe(x.permute(0, 2, 3, 1).contiguous(), w,
+        out = fused_esmoe(x.permute(0, 2, 3, 1).contiguous(), w.float(),
                           dw.view(dw.shape[0], kmax, kmax, dw.shape[2]), self.banks["pw"], self.banks["pb"],
                           self.banks["gamma"], self.banks["beta"], self.ks)
         return out.permute(0, 3, 1, 2)

@@ -6,7 +6,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import BN_EPS, BN_MOMENTUM, fold_bn
+from ..layers import BN_EPS, BN_MOMENTUM, BatchNorm2d, bn_scale_shift, fold_bn
 
 
 class DepthwiseSeparableConv(nn.Module):
@@ -17,7 +17,7 @@ class DepthwiseSeparableConv(nn.Module):
         super().__init__()
         self.depthwise = nn.Conv2d(c1, c1, k, s, (k - 1) // 2, groups=c1, bias=False)
         self.pointwise = nn.Conv2d(c1, c2, 1, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU()
 
     def forward(self, x):
@@ -37,10 +37,13 @@ class DepthwiseSeparableConv(nn.Module):
         if "pointwise.bias" in sel:  # BN folded by fuse()
             y = y + sel["pointwise.bias"].flatten(0, 1)[..., None]
         else:
-            mean, var = sel["bn.running_mean"], sel["bn.running_var"]
-            scale, shift = sel["bn.weight"], sel["bn.bias"]
-            y = ((y - mean.flatten(0, 1)[..., None]) / torch.sqrt(var.flatten(0, 1)[..., None] + self.bn.eps)
-                 * scale.flatten(0, 1)[..., None] + shift.flatten(0, 1)[..., None])
+            mean, var, scale, shift = (sel[f"bn.{n}"].flatten(0, 1)[..., None]
+                                       for n in ("running_mean", "running_var", "weight", "bias"))
+            if y.dtype == var.dtype:
+                y = (y - mean) / torch.sqrt(var + self.bn.eps) * scale + shift
+            else:  # a bf16 copy: folded in fp32, one multiply-add in y's dtype (BatchNorm2d)
+                scale, shift = bn_scale_shift(mean, var, scale, shift, self.bn.eps)
+                y = y * scale.to(y.dtype) + shift.to(y.dtype)
         return F.silu(y).reshape(b, kk, -1, *hw)
 
     @torch.no_grad()

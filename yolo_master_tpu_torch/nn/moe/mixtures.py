@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..layers import BN_EPS, BN_MOMENTUM, GroupNorm, PlainConv, avg_pool
+from ..layers import BN_EPS, BN_MOMENTUM, BatchNorm2d, GroupNorm, PlainConv, avg_pool
 from .dispatch import expert_bank, gather_dispatch, top_k_from_weights
 from .routers import LOGIT_CLAMP
 
@@ -46,10 +46,10 @@ class SimpleExpert(nn.Module):
         b, _, h, w = x.shape
         kk = sel["conv.0.weight"].shape[1]
 
-        def norm(y, gn, weight, bias):  # GroupNorm of each (b, k) map, then its own affine
+        def norm(y, gn, weight, bias):  # GroupNorm of each (b, k) map, then its own affine, in the affine's dtype
             ch = y.shape[2]
-            y = F.group_norm(y.reshape(b * kk, ch, h * w), gn.num_groups, eps=gn.eps).reshape(b, kk, ch, h * w)
-            return y * weight[..., None] + bias[..., None]
+            y = F.group_norm(y.to(weight.dtype).reshape(b * kk, ch, h * w), gn.num_groups, eps=gn.eps)
+            return (y.reshape(b, kk, ch, h * w) * weight[..., None] + bias[..., None]).to(x.dtype)
 
         y = torch.matmul(sel["conv.0.weight"].flatten(3), x.reshape(b, 1, x.shape[1], h * w))  # [B, K, hid, HW]
         y = F.silu(norm(y, self.conv[1], sel["conv.1.weight"], sel["conv.1.bias"]))
@@ -62,9 +62,9 @@ class _SpatialRouterNet(nn.Sequential):
     """conv k x k -> BN -> SiLU -> conv 1x1 -> BN (the torch Sequential's indices)."""
 
     def __init__(self, c1, reduced, num_experts, first_k=3):
-        super().__init__(PlainConv(c1, reduced, first_k), nn.BatchNorm2d(reduced, eps=BN_EPS, momentum=BN_MOMENTUM),
+        super().__init__(PlainConv(c1, reduced, first_k), BatchNorm2d(reduced, eps=BN_EPS, momentum=BN_MOMENTUM),
                          nn.SiLU(), PlainConv(reduced, num_experts, 1),
-                         nn.BatchNorm2d(num_experts, eps=BN_EPS, momentum=BN_MOMENTUM))
+                         BatchNorm2d(num_experts, eps=BN_EPS, momentum=BN_MOMENTUM))
 
 
 def process_logits(logits: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -124,7 +124,7 @@ class OptimizedMOEImproved(nn.Module):
         self.experts = nn.ModuleList(SimpleExpert(in_channels, out_channels, expand_ratio=expert_expand_ratio)
                                      for _ in range(num_experts))
         self.shared_expert = nn.Sequential(PlainConv(in_channels, out_channels, 1),
-                                           nn.BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM), nn.SiLU())
+                                           BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM), nn.SiLU())
 
     def forward(self, x):
         w = process_logits(self.routing.logits(x), self.top_k)

@@ -144,7 +144,8 @@ class DetectionModel(nn.Module):
 
     :meth:`forward` takes an NHWC image batch, float (0..1) or uint8 (0..255
     with /255 folded into the first layer by ``utils/fuse.py``), and returns
-    the head's dict; :meth:`forward_predict` returns decoded [B, A, 4+nc].
+    the head's dict; :meth:`forward_predict` returns decoded [B, A, 4+nc],
+    in fp32 whatever the model's compute dtype.
     """
 
     def __init__(self, cfg="yolo-master-n", ch: int = 3, nc: Optional[int] = None, scale: Optional[str] = None,
@@ -198,8 +199,8 @@ class DetectionModel(nn.Module):
     def _forward_graph(self, x_nhwc: torch.Tensor, stop_before_head: bool = False):
         if isinstance(self.model[0], FusedStem):
             x = x_nhwc
-        else:
-            x = x_nhwc if x_nhwc.is_floating_point() else x_nhwc.float()
+        else:  # uint8 (/255 folded into layer 0) or float, in layer 0's weights' dtype
+            x = x_nhwc.to(next(self.model[0].parameters()).dtype)
             x = x.permute(0, 3, 1, 2)  # channels_last NCHW view
         saved = {}
         for m in self.model:

@@ -11,7 +11,9 @@ CUDA cores, the pointwise product as a split-TF32 product on the tensor cores,
 fp32 accuracy) on a CUDA tensor and :func:`fused_esmoe_plain` on a CPU tensor.
 Tensors are NHWC, as in the JAX package: the port's channels_last NCHW feature
 maps are NHWC in memory, so ``x.permute(0, 2, 3, 1)`` hands the kernel its
-layout without a copy.
+layout without a copy. x and the output are float32 or, on the bf16 path,
+bfloat16; the routing weights and the banks are float32 in both, and the
+block computes in fp32, as the TPU kernel does (``pallas_esmoe.py:116-122``).
 """
 
 from __future__ import annotations
@@ -56,8 +58,9 @@ def pack_esmoe_params(block):
 
 
 def fused_esmoe_plain(x, w, dw, pw, pb, gamma, beta, ks) -> torch.Tensor:
-    """The plain PyTorch version: x [B,H,W,C], w [B,E] -> [B,H,W,O], each expert
-    using only its own k_e x k_e taps of the centre-padded bank."""
+    """The plain PyTorch version: x [B,H,W,C], w [B,E] -> [B,H,W,O] in x's dtype,
+    computed in fp32 and rounded once at the end, each expert using only its own
+    k_e x k_e taps of the centre-padded bank."""
     kmax, c = dw.shape[1], dw.shape[3]
     xc = x.permute(0, 3, 1, 2).float()
     mix = None
@@ -68,15 +71,16 @@ def fused_esmoe_plain(x, w, dw, pw, pb, gamma, beta, ks) -> torch.Tensor:
         z = F.silu(d @ pw[e] + pb[e])
         term = z * w[:, e, None, None, None]
         mix = term if mix is None else mix + term
-    return F.silu(mix * gamma + beta)
+    return F.silu(mix * gamma + beta).to(x.dtype)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library("esmoe")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ymt_fused_esmoe.argtypes = [ptr] * 9 + [i32] * 6 + [ctypes.POINTER(i32), ptr]
-    lib.ymt_fused_esmoe.restype = i32
+    for fn in (lib.ymt_fused_esmoe, lib.ymt_fused_esmoe_bf16):
+        fn.argtypes = [ptr] * 9 + [i32] * 6 + [ctypes.POINTER(i32), ptr]
+        fn.restype = i32
     for fn in (lib.esmoe_smem_bytes, lib.esmoe_max_experts, lib.esmoe_max_kernel, lib.esmoe_bank_cpad,
                lib.esmoe_bank_opad):
         fn.restype = i32
@@ -118,8 +122,10 @@ def _check_args(x, w, dw, pw, pb, gamma, beta, ks):
                            ("pb", pb, (e, o)), ("gamma", gamma, (o,)), ("beta", beta, (o,))):
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_esmoe: {name} must be {shape}, got {tuple(t.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_esmoe: x must be float32 or bfloat16, got {x.dtype}")
     for name, t in (("x", x), ("w", w), ("dw", dw), ("pw", pw), ("pb", pb), ("gamma", gamma), ("beta", beta)):
-        if t.dtype != torch.float32:
+        if name != "x" and t.dtype != torch.float32:
             raise TypeError(f"fused_esmoe: {name} must be float32, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"fused_esmoe: {name} is on {t.device}, x on {x.device}")
@@ -133,8 +139,8 @@ def _check_args(x, w, dw, pw, pb, gamma, beta, ks):
 
 def fused_esmoe(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor, pw: torch.Tensor, pb: torch.Tensor,
                 gamma: torch.Tensor, beta: torch.Tensor, ks) -> torch.Tensor:
-    """x [B,H,W,C] NHWC, w [B,E] routing weights, banks from :func:`pack_esmoe_params`
-    -> [B,H,W,O] float32 NHWC.
+    """x [B,H,W,C] NHWC float32 or bfloat16, w [B,E] float32 routing weights, float32
+    banks from :func:`pack_esmoe_params` -> [B,H,W,O] NHWC in x's dtype.
 
     A CPU tensor takes :func:`fused_esmoe_plain`; a CUDA tensor launches the kernel.
     """
@@ -146,15 +152,16 @@ def fused_esmoe(x: torch.Tensor, w: torch.Tensor, dw: torch.Tensor, pw: torch.Te
     _check_args(x, w, dw, pw, pb, gamma, beta, ks)
     b, h, wd, c = x.shape
     e, o = pw.shape[0], pw.shape[2]
-    out = torch.empty((b, h, wd, o), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, h, wd, o), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     ks_arr = (ctypes.c_int * e)(*ks)
     # scratch for the pointwise weights, transposed and split in TF32 halves: [E, hi/lo, O, C] padded
     pw_bank = torch.empty((e, 2, *_bank_shape(c, o)), dtype=torch.float32, device=x.device)
-    check(_lib().ymt_fused_esmoe(x.data_ptr(), w.data_ptr(), dw.data_ptr(), pw.data_ptr(), pb.data_ptr(),
-                                 gamma.data_ptr(), beta.data_ptr(), pw_bank.data_ptr(), out.data_ptr(), b, h, wd, c,
-                                 o, e, ks_arr, stream_ptr(x.device)), "esmoe kernel")
+    fn = _lib().ymt_fused_esmoe if x.dtype == torch.float32 else _lib().ymt_fused_esmoe_bf16
+    check(fn(x.data_ptr(), w.data_ptr(), dw.data_ptr(), pw.data_ptr(), pb.data_ptr(), gamma.data_ptr(),
+             beta.data_ptr(), pw_bank.data_ptr(), out.data_ptr(), b, h, wd, c, o, e, ks_arr, stream_ptr(x.device)),
+          "esmoe kernel")
     fused_esmoe.launches += 1
     return out
 

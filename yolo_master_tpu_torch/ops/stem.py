@@ -2,14 +2,16 @@
 
 Counterpart of ``yolo_master_tpu/ops/pallas_stem.py:fused_stem``. The TPU
 kernel reads a space-to-depth(4) blob; the CUDA kernel (``csrc/stem.cu``) reads
-the letterboxed image as it is, NHWC, uint8 (the main path) or float32.
+the letterboxed image as it is, NHWC, uint8 (the main path), float32 or
+bfloat16. It computes in fp32 and writes float32, or bfloat16 for the bf16
+path (uint8 or bfloat16 in), as the TPU kernel writes the input's dtype.
 
 Weights are OIHW with BatchNorm folded into the biases, and for uint8 input
-the /255 folded into ``w0`` (``utils/fuse.py:fused_stem_fuse``). The kernel
-reads them in HWIO memory order: :func:`stem_weight_layout` makes that copy
-once, as an OIHW view, and the wrapper only checks it. The output is float32
-NHWC ``[B, H/4, W/4, c1]``, whose ``permute(0, 3, 1, 2)`` is the channels_last
-NCHW tensor the trunk consumes.
+the /255 folded into ``w0`` (``utils/fuse.py:fused_stem_fuse``), float32 in
+either dtype. The kernel reads them in HWIO memory order:
+:func:`stem_weight_layout` makes that copy once, as an OIHW view, and the
+wrapper only checks it. The output is NHWC ``[B, H/4, W/4, c1]``, whose
+``permute(0, 3, 1, 2)`` is the channels_last NCHW tensor the trunk consumes.
 
 The kernel runs both convs as implicit GEMMs on the tensor cores (split-TF32
 ``wgmma`` products at fp32 accuracy), with bias, SiLU and conv1's zero border
@@ -32,12 +34,18 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ._build import SMEM_LIMIT_BYTES, check, load_library, stream_ptr
 
 
-def fused_stem_plain(x: torch.Tensor, w0, b0, w1, b1) -> torch.Tensor:
-    """The plain PyTorch version: two ``F.conv2d`` with bias + SiLU, in the weights' dtype."""
+def _out_dtype(x: torch.Tensor, w0: torch.Tensor, out_dtype) -> torch.dtype:
+    """The output's dtype: ``out_dtype`` if given, else bfloat16 for bfloat16 x and w0's dtype for any other x."""
+    return out_dtype or (x.dtype if x.dtype == torch.bfloat16 else w0.dtype)
+
+
+def fused_stem_plain(x: torch.Tensor, w0, b0, w1, b1, out_dtype=None) -> torch.Tensor:
+    """The plain PyTorch version: two ``F.conv2d`` with bias + SiLU, in the weights' dtype,
+    rounded once to the output's dtype at the end (as the kernel stores it)."""
     xf = x.permute(0, 3, 1, 2).to(w0.dtype)
     y = F.silu(F.conv2d(xf, w0, b0, stride=2, padding=1))
     y = F.silu(F.conv2d(y, w1, b1, stride=2, padding=1))
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).to(_out_dtype(x, w0, out_dtype))
 
 
 def stem_weight_layout(w: torch.Tensor) -> torch.Tensor:
@@ -49,7 +57,8 @@ def stem_weight_layout(w: torch.Tensor) -> torch.Tensor:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument and result types of a built ``stem.cu``'s entry points."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.ymt_stem_u8, lib.ymt_stem_f32):
+    for name in ENTRY_POINTS.values():
+        fn = getattr(lib, name)
         fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         fn.restype = i32
     lib.ymt_stem_bank.argtypes = [ptr, ptr, i32, i32, ptr]
@@ -60,6 +69,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.stem_plan_of.argtypes = [i32, i32, ptr]
     lib.stem_plan_of.restype = None
     return lib
+
+
+# (input dtype, output dtype) -> stem.cu's entry point
+ENTRY_POINTS = {(torch.uint8, torch.float32): "ymt_stem_u8", (torch.float32, torch.float32): "ymt_stem_f32",
+                (torch.uint8, torch.bfloat16): "ymt_stem_u8_bf16", (torch.bfloat16, torch.bfloat16): "ymt_stem_bf16"}
 
 
 @functools.cache
@@ -105,22 +119,28 @@ def stem_bank(w1: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
     return cached[1]
 
 
-def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
-               b1: torch.Tensor) -> torch.Tensor:
-    """x [B, H, W, 3] uint8 or float32 NHWC (H, W multiples of 4); w0 [c0, 3, 3, 3],
-    b0 [c0], w1 [c1, c0, 3, 3], b1 [c1] float32 -> float32 [B, H/4, W/4, c1].
-    On the card w0 and w1 must be in :func:`stem_weight_layout`.
+def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               out_dtype=None) -> torch.Tensor:
+    """x [B, H, W, 3] uint8, float32 or bfloat16 NHWC (H, W multiples of 4);
+    w0 [c0, 3, 3, 3], b0 [c0], w1 [c1, c0, 3, 3], b1 [c1] float32 ->
+    [B, H/4, W/4, c1] in ``out_dtype`` (default: bfloat16 for bfloat16 x, else
+    float32). The kernel takes uint8 -> float32 or bfloat16, float32 ->
+    float32 and bfloat16 -> bfloat16. On the card w0 and w1 must be in
+    :func:`stem_weight_layout`.
 
     A CPU tensor takes :func:`fused_stem_plain`; a CUDA tensor launches the kernel.
     """
     if x.device.type == "cpu":
-        return fused_stem_plain(x, w0, b0, w1, b1)
+        return fused_stem_plain(x, w0, b0, w1, b1, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fused_stem: unsupported device {x.device}")
     if x.dim() != 4 or x.shape[3] != 3:
         raise ValueError(f"fused_stem: x must be [B, H, W, 3], got {tuple(x.shape)}")
-    if x.dtype not in (torch.uint8, torch.float32):
-        raise TypeError(f"fused_stem: x must be uint8 or float32, got {x.dtype}")
+    out_dtype = _out_dtype(x, w0, out_dtype)
+    entry = ENTRY_POINTS.get((x.dtype, out_dtype))
+    if entry is None:
+        raise TypeError(f"fused_stem: the kernel takes {x.dtype} -> {out_dtype} in none of its forms "
+                        f"{[f'{a} -> {b}' for a, b in ENTRY_POINTS]}")
     if not x.is_contiguous():
         raise ValueError("fused_stem: x must be a contiguous NHWC tensor")
     B, H, W, _ = x.shape
@@ -140,13 +160,12 @@ def fused_stem(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Te
     plan = stem_plan(c0, c1)
     if not 0 < plan["smem_bytes"] <= SMEM_LIMIT_BYTES:  # no YAML the port holds gives such widths
         raise NotImplementedError(f"fused_stem: no block layout of the kernel takes widths c0={c0}, c1={c1}")
-    out = torch.empty((B, H // 4, W // 4, c1), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, H // 4, W // 4, c1), dtype=out_dtype, device=x.device)
     if B == 0:
         return out
     bank = stem_bank(w1, c0, c1)
-    fn = _lib().ymt_stem_u8 if x.dtype == torch.uint8 else _lib().ymt_stem_f32
-    check(fn(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), bank.data_ptr(), b1.data_ptr(), out.data_ptr(),
-             B, H, W, c0, c1, stream_ptr(x.device)), "stem kernel")
+    check(getattr(_lib(), entry)(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), bank.data_ptr(), b1.data_ptr(),
+                                 out.data_ptr(), B, H, W, c0, c1, stream_ptr(x.device)), "stem kernel")
     fused_stem.launches += 1
     return out
 

@@ -7,16 +7,27 @@ place: BN folds into the preceding conv, the /255 input scale folds into layer
 letterboxed uint8 image. The TPU's space-to-depth blob and lane padding have
 no counterpart: the CUDA stem reads the NHWC image directly. Opt-in, as in the
 JAX package: :func:`fused_esmoe_fuse` swaps the dense ES_MOE blocks for the
-fused ES_MOE kernel.
+fused ES_MOE kernel. :func:`compute_dtype_copy` makes the bf16 copy that a
+predictor runs in (the JAX package casts per op instead).
 """
 
 from __future__ import annotations
 
+import copy
+
 import torch
+import torch.nn as nn
 
 from ..nn.layers import Conv, FusedStem, Passthrough
 from ..nn.moe.es_moe import ES_MOE, FusedESMOE
 from ..nn.moe.experts import DepthwiseSeparableConv
+from ..nn.moe.routers import DynamicRoutingLayer
+
+# modules whose parameters and buffers stay fp32 in a low-precision copy: the
+# BatchNorm statistics (folded in fp32 when applied), the GroupNorm affines and
+# the ES_MOE router (JAX reduces and projects them in fp32), and the kernel
+# modules, whose kernels widen their weights to fp32 as the TPU kernels do
+KEEP_FP32 = (nn.BatchNorm2d, nn.GroupNorm, DynamicRoutingLayer, FusedStem, FusedESMOE)
 
 
 def fuse_bn(model) -> None:
@@ -76,3 +87,24 @@ def fused_esmoe_fuse(model, layers=None) -> None:
         fused = FusedESMOE(m)
         fused.i, fused.f = m.i, m.f
         model.model[pos] = fused
+
+
+@torch.no_grad()
+def compute_dtype_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """A copy of ``model`` that runs in ``dtype`` (bf16), as the JAX package's
+    ``predict(compute_dtype=...)`` does with fp32 parameters and per-op casts.
+
+    Every floating parameter and buffer becomes ``dtype`` (the JAX package's
+    ``w.astype(x.dtype)`` of each conv, done once), except those under the
+    :data:`KEEP_FP32` modules; a :class:`FusedStem` gives its output in
+    ``dtype``. ``model`` itself is left as it is.
+    """
+    out = copy.deepcopy(model)
+    kept = {id(t) for m in out.modules() if isinstance(m, KEEP_FP32) for t in (*m.parameters(), *m.buffers())}
+    for m in out.modules():
+        for t in (*m.parameters(recurse=False), *m.buffers(recurse=False)):
+            if t.is_floating_point() and id(t) not in kept:
+                t.data = t.data.to(dtype)
+        if isinstance(m, FusedStem):
+            m.out_dtype = dtype
+    return out
