@@ -2,16 +2,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's six hand-written CUDA kernels from the checkout
-(csrc/stem.cu, nms.cu, esmoe.cu, cw_nms.cu, moe.cu, c3k2.cu, and the self-check
-of the split-TF32 header that stem.cu, esmoe.cu, moe.cu and c3k2.cu share, one
-nvcc each, in parallel), holds each against its plain PyTorch version on the card, and
+Builds the port's six hand-written CUDA kernel sources from the checkout
+(csrc/stem.cu, nms.cu, esmoe.cu, cw_nms.cu, moe.cu, c3k2.cu, and the self-checks
+of the split-TF32 header that stem.cu, esmoe.cu, moe.cu and c3k2.cu share and of
+the split-bf16 header of stem.cu's bf16 forms, one nvcc each, in parallel),
+holds each kernel against its plain PyTorch version on the card, and
 drives yolo_master_tpu_torch's paths at the full width of yolo-master-n and
 yolo-master-v0_1-n with seeded random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
-  2. build the six kernels (c3k2.cu's registers, spills and wgmma
-     instructions, from cuobjdump); the split-TF32 header's self-check against fp64
+  2. build the six kernel sources (c3k2.cu's and stem.cu's bf16 kernel's
+     registers, spills and wgmma instructions, from cuobjdump); the split-TF32
+     and split-bf16 headers' self-checks against fp64, and how the tensor cores
+     round a bf16 accumulation
   3. stem kernel vs F.conv2d x2 + SiLU (the cuDNN pair; uint8 640x640 input)
      at the stem widths of scales n (B=1, 2, 16), s, m/l and x (B=16)
   4. NMS kernel vs the plain greedy loop (exact keep sets, ties included;
@@ -31,7 +34,7 @@ yolo-master-v0_1-n with seeded random weights. Phases:
      kernel vs plain NMS on the GPU's candidates; then the same path at scale
      m, YOLO("yolo-master-m").fuse().predict(...) (the stem at 64/128):
      launch counts, detections, GPU vs CPU decode, the stem's share of the
-     device time at bs 16 (torch.profiler)
+     device time at bs 16 (torch.profiler); phase 15 runs it in bf16
  10. the C3k2 kernel through its entry point on the live model's folded
      layers 2 and 5 and their inputs from the bs-1 and bs-16 frames (and an
      n=2 block at layer 2's width), vs its plain version and the C3k2 module;
@@ -44,21 +47,22 @@ yolo-master-v0_1-n with seeded random weights. Phases:
      vs kept), device time per image in both evals beside yolo-master-n's
  13. SparseSAHIPredictor on a 2160x3840 frame: tiles skipped, the CW-NMS
      kernel's merge equal to its plain version on the same candidates
- 14. the bf16 forms of the stem kernel (uint8 -> bf16 at every scale's widths,
-     bf16 -> bf16 at n) and of the ES_MOE kernel (bf16 in and out, the four
-     placements, B=1 and 16) vs their plain versions (fp32 rounded once to
-     bf16: within 1 bf16 ulp of |ref| plus the fp32 gate, at most 1% of the
-     outputs a rounding apart), beside the cuDNN bf16 pair and
+ 14. the bf16 forms of the stem kernel (split-bf16 wgmma; uint8 -> bf16 and
+     bf16 -> bf16 at every scale's widths) and of the ES_MOE kernel (bf16 in and
+     out, the four placements, B=1 and 16) vs their plain versions (fp32 rounded
+     once to bf16: within 1 bf16 ulp of |ref| plus the fp32 gate, at most 1% of
+     the outputs a rounding apart), beside the cuDNN bf16 pair and
      the bf16 ES_MOE.forward
- 15. the three bf16 predict paths, predict(..., compute_dtype=torch.bfloat16)
-     of yolo-master-n, of it with fused_esmoe_fuse and of yolo-master-v0_1-n,
-     at batch 1 and 16: launch counts, max_det detections per image, device
+ 15. the four bf16 predict paths, predict(..., compute_dtype=torch.bfloat16)
+     of yolo-master-n, of it with fused_esmoe_fuse, of yolo-master-v0_1-n and
+     of yolo-master-m, at batch 1 and 16: launch counts (one bf16 copy, so one
+     stem bank, a path), max_det detections per image, device
      ms/img beside the fp32 path's in turns; the card's bf16 raw head outputs
      against the port's CPU fp32 (rel-RMS within 1.5x that of the port's CPU
      bf16) and decoded on the CPU (keep sets equal to the card's own)
- 16. device time by kernel of the predict path, with fused_esmoe_fuse, and
-     of the v0_1 path in sparse and dense eval at batch 16, each fp32 path also
-     in bf16 (torch.profiler)
+ 16. device time by kernel of the predict path, with fused_esmoe_fuse, of the
+     v0_1 path in sparse and dense eval and of the scale-m path at batch 16,
+     each fp32 path also in bf16, and the stem's share of each (torch.profiler)
  17. no module of jax or of the JAX package was imported
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -68,12 +72,14 @@ as in the JAX package, where no model path reaches them. fp32 outside the bf16
 phases: TF32 is off for PyTorch's convs and matmuls, and the four kernels that
 use the tensor cores (stem.cu, esmoe.cu, moe.cu, c3k2.cu) compute a three-term
 split-TF32 product that holds fp32 accuracy, at the same tolerances as before;
-their bf16 forms compute the same in fp32 with bf16 loads and stores. Any
+the stem's bf16 forms split in bf16 (three passes) and ES_MOE's bf16 form
+computes in fp32 with bf16 loads and stores. Any
 failing check raises and the script exits non-zero. The second-to-last stdout
 line is a JSON object of per-kernel results (bound_ms: the largest of the
 bytes moved over 3.35 TB/s, the matrix-product operations of stem.cu's two
 convs, esmoe.cu, moe.cu and c3k2.cu's convs, counted once, over 495 TFLOP/s, the H100 SXM's TF32
-tensor-core peak, and every other operation over 67 TFLOP/s, its fp32
+tensor-core peak (989 TFLOP/s, its bf16 peak, for the stem's bf16 forms), and
+every other operation over 67 TFLOP/s, its fp32
 CUDA-core peak; bound_peak names the one that sets it); the last is
 {"ok": true, "device": {...}}.
 """
@@ -97,6 +103,7 @@ SAHI_HW = (2160, 3840)  # a 4K frame for the sparse SAHI path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # the four dense ES_MOE placements of yolo-master-n at 640: (layer, H=W, C=O)
 ESMOE_PLACEMENTS = ((3, 160, 64), (6, 80, 128), (9, 40, 128), (12, 20, 256))
 # the first 1x1 of yolo-master-v0_1-n's SimpleExpert banks at 640: (layer, H=W, C, hidden O, experts E)
@@ -106,8 +113,8 @@ C3K2_LAYERS = (2, 5)  # yolo-master-n's C3k2 blocks with Bottleneck inner blocks
 KW = dict(imgsz=IMGSZ, conf=0.0, iou=0.45, max_det=300)
 # the port's CUDA kernels as the profiler names them (substrings of the mangled names)
 NMS_PHASES = ("sort_candidates_kernel", "iou_mask_kernel", "scan_kernel")
-PORT_KERNEL_NAMES = ("stem_kernel", "stem_bank_kernel", *NMS_PHASES, "fused_esmoe_kernel", "split_bank_kernel",
-                     "gathered_expert_matmul_kernel")
+PORT_KERNEL_NAMES = ("stem_kernel", "stem_bf16_kernel", "stem_bank_kernel", "stem_bank_bf16_kernel", *NMS_PHASES,
+                     "fused_esmoe_kernel", "split_bank_kernel", "gathered_expert_matmul_kernel")
 BF16_FRAMES = 4  # frames of the bf16 paths' GPU-vs-CPU checks
 
 
@@ -147,15 +154,19 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def bound(nbytes: float, flops: float, tensor_flops: float = 0.0):
+def bound(nbytes: float, flops: float, tensor_flops: float = 0.0, tensor_peak: str = "tf32"):
     """(bound_ms, bound_by, peak): the least time for moving ``nbytes`` once, doing
     ``flops`` fp32 operations on the CUDA cores and ``tensor_flops`` matrix-product
-    operations on the TF32 tensor cores (counted once: a kernel's split in three
-    passes is its way to fp32 accuracy, not work the function needs). The bound
-    is the largest of the three; ``peak`` names it."""
+    operations on the tensor cores at the TF32 peak, or the bf16 peak where
+    ``tensor_peak`` is "bf16" (the operands are bf16: the stem's bf16 forms, as
+    cuDNN's bf16 pair); counted once: a kernel's split in two or three passes is
+    its way to the accuracy it keeps, not work the function needs. The bound is
+    the largest of the three; ``peak`` names it."""
+    rate, name = {"tf32": (TF32_FLOPS_PER_S, "495 TFLOP/s (TF32)"), "bf16": (BF16_FLOPS_PER_S, "989 TFLOP/s (bf16)")}[
+        tensor_peak]
     times = {"bytes at 3.35 TB/s": nbytes / HBM_BYTES_PER_S * 1e3,
              "fp32 operations at 67 TFLOP/s": flops / FP32_FLOPS_PER_S * 1e3,
-             "matrix-product operations at 495 TFLOP/s (TF32)": tensor_flops / TF32_FLOPS_PER_S * 1e3}
+             f"matrix-product operations at {name}": tensor_flops / rate * 1e3}
     peak = max(times, key=times.get)
     return times[peak], "bytes" if peak.startswith("bytes") else "operations", peak
 
@@ -164,21 +175,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bf16_ulp(t):
-    """One bf16 unit in the last place of each element of t (8 significant bits)."""
-    import torch
-
-    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), torch.frexp(t.float().abs()).exponent - 8)
-
-
 def bf16_rounding_apart(out, ref) -> bool:
     """A kernel's bf16 output against its plain version's, both one rounding of an
     fp32 result that the fp32 gate holds within 1e-4 + 1e-4*|ref|: each pair within
     1 bf16 ulp of |ref| plus that gate, and at most 1% of the outputs apart (a
-    wrong rounding mode would move about half)."""
-    err = (out.float() - ref.float()).abs()
-    within = bool((err <= bf16_ulp(ref) + 1e-4 + 1e-4 * ref.float().abs()).all())
-    return within and (err > 0).float().mean().item() <= 1e-2
+    wrong rounding mode would move about half; ops/_bf16.py:bf16_rounding_apart)."""
+    from yolo_master_tpu_torch.ops._bf16 import bf16_rounding_apart as apart
+
+    within, share = apart(out, ref)
+    return within and share <= 1e-2
 
 
 def rel_rms(a, ref) -> float:
@@ -226,7 +231,7 @@ def phase_environment():
 
 def phase_build():
     """One nvcc per kernel source, all started together."""
-    from yolo_master_tpu_torch.ops import _tf32, c3k2, cuda_nms, esmoe, moe, stem
+    from yolo_master_tpu_torch.ops import _bf16, _tf32, c3k2, cuda_nms, esmoe, moe, stem
 
     def timed(lib):
         t0 = time.perf_counter()
@@ -235,12 +240,46 @@ def phase_build():
 
     t0 = time.perf_counter()
     libs = {"stem.cu": stem._lib, "nms.cu": cuda_nms._lib, "esmoe.cu": esmoe._lib, "cw_nms.cu": cuda_nms._cw_lib,
-            "moe.cu": moe._lib, "c3k2.cu": c3k2._lib, "mma_tf32_check.cu": _tf32._lib}
+            "moe.cu": moe._lib, "c3k2.cu": c3k2._lib, "mma_tf32_check.cu": _tf32._lib,
+            "mma_bf16_check.cu": _bf16._lib}
     with ThreadPoolExecutor(len(libs)) as ex:
         secs = {name: ex.submit(timed, lib) for name, lib in libs.items()}
         secs = {name: f.result() for name, f in secs.items()}
     log(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; wall {time.perf_counter() - t0:.1f} s")
-    return c3k2_sass_check()
+    return {"c3k2": c3k2_sass_check(), "stem_bf16": stem_bf16_sass_check()}
+
+
+def sass_resources(source: str):
+    """(cuobjdump -res-usage lines, {mangled function: its SASS}) of a built library."""
+    from pathlib import Path
+
+    from yolo_master_tpu_torch.ops import _build
+
+    lib = str(_build._library_path(source, ()))
+    tool = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True, timeout=120, check=True).stdout
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=120, check=True).stdout
+    return res.splitlines(), {block.split(None, 1)[0]: block for block in sass.split("Function : ")[1:]}
+
+
+def stem_bf16_sass_check() -> dict:
+    """Registers and stack of each instantiation of stem.cu's stem_bf16_kernel
+    (cuobjdump), and its bf16 wgmma instructions (HGMMA ... .BF16 in SASS), which
+    must be there: both convs' products run on the bf16 tensor cores."""
+    lines, sass = sass_resources("stem")
+    found = {}
+    for k, line in enumerate(lines):
+        name = line.strip().removeprefix("Function ").rstrip(":")
+        if "stem_bf16_kernel" in name:
+            usage = dict(re.findall(r"(REG|STACK):(\d+)", lines[k + 1]))
+            hgmma = [ln for ln in sass.get(name, "").splitlines() if "HGMMA" in ln]
+            found[name] = {"registers": int(usage["REG"]), "stack_bytes": int(usage["STACK"]),
+                           "hgmma_instructions": len(hgmma), "bf16_hgmma": sum(".BF16" in ln for ln in hgmma)}
+            log(f"[build] {name}: {found[name]}")
+    require(len(found) == 8 and all(f["bf16_hgmma"] > 0 and f["bf16_hgmma"] == f["hgmma_instructions"]
+                                    for f in found.values()),
+            f"stem_bf16_kernel's eight instantiations, each with bf16 wgmma (HGMMA .BF16) instructions only: {found}")
+    return found
 
 
 def c3k2_sass_check() -> dict:
@@ -248,16 +287,9 @@ def c3k2_sass_check() -> dict:
     (cuobjdump): registers and stack (spills) per thread, and its wgmma
     instructions (HGMMA in SASS), which must be there: the convs run on the
     tensor cores."""
-    from pathlib import Path
-
-    from yolo_master_tpu_torch.ops import _build
-
-    lib = str(_build._library_path("c3k2", ()))
-    tool = str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True, timeout=120, check=True).stdout
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=120, check=True).stdout
-    hgmma = {block.split(None, 1)[0]: block.count("HGMMA") for block in sass.split("Function : ")[1:]}
-    lines, found = res.splitlines(), {}
+    lines, sass = sass_resources("c3k2")
+    hgmma = {name: block.count("HGMMA") for name, block in sass.items()}
+    found = {}
     for k, line in enumerate(lines):
         name = line.strip().removeprefix("Function ").rstrip(":")
         if "c3k2_kernel" in name:
@@ -297,6 +329,53 @@ def phase_split_tf32(dev):
         log(f"[tf32] depth {depth}: max err / sum|a||b| vs fp64: " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
         require(rel["shared-memory form"] <= 2e-6 and rel["register form"] <= 2e-6,
                 f"the split-TF32 product is off fp64 by more than 2e-6 of sum|a||b|: {rel}")
+
+
+def phase_split_bf16(dev):
+    """csrc/mma_bf16.cuh on its own (mma_bf16_check.cu): one warpgroup's
+    [64, depth] x [depth, 128] product as the stem's bf16 forms compute it (bf16
+    hi/lo splits, three passes a depth-16 step, chains from zero joined in fp32)
+    against the fp64 product, within 6e-5 * sum_k |a||b| (three terms of about
+    2^-16 |a||b| each: lo*lo dropped, lo and hi rounded; and fp32's sums),
+    beside one bf16 pass; and how the tensor cores round an accumulation: c +
+    bf16(a) @ bf16(b) accumulated onto c in rows whose terms share one sign,
+    against the exact sum (toward zero: never above it in magnitude)."""
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch.ops._bf16 import matmul_bf16_plain, round_bf16, split_product_check_bf16
+
+    rng = np.random.default_rng(0)
+
+    def mixed(shape):  # float32 of magnitudes 1e-2 to 1e2
+        return (rng.standard_normal(shape) * 10.0 ** rng.integers(-2, 3, shape)).astype(np.float32)
+
+    a, b, c = mixed((64, 32)), mixed((128, 32)), mixed((64, 128))
+    on = lambda t: torch.from_numpy(t).to(dev)  # noqa: E731
+    for depth in (32, 20):
+        d_split, _ = split_product_check_bf16(on(a), on(b), on(c), depth)
+        torch.cuda.synchronize()
+        a64, b64 = a[:, :depth].astype(np.float64), b[:, :depth].astype(np.float64)
+        ref, scale = a64 @ b64.T, np.abs(a64) @ np.abs(b64).T
+        one_pass = matmul_bf16_plain(torch.from_numpy(a[:, :depth]), torch.from_numpy(b[:, :depth]).T).numpy()
+        rel = {name: float((np.abs(got.astype(np.float64) - ref) / scale).max())
+               for name, got in (("split bf16 (three passes)", d_split.cpu().numpy()), ("one bf16 pass", one_pass))}
+        log(f"[bf16] depth {depth}: max err / sum|a||b| vs fp64: " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+        require(rel["split bf16 (three passes)"] <= 6e-5,
+                f"the split-bf16 product is off fp64 by more than 6e-5 of sum|a||b|: {rel}")
+    # the rounding of an accumulation: row r's terms all take the sign of row r
+    sign = np.where(np.arange(64) % 2 == 0, 1.0, -1.0).astype(np.float32)[:, None]
+    a_s = np.abs(round_bf16(torch.from_numpy(a)).numpy()) * sign
+    b_s = np.abs(round_bf16(torch.from_numpy(b)).numpy())
+    c_s = np.abs(c) * sign
+    _, d_acc = split_product_check_bf16(on(a_s), on(b_s), on(c_s), 32)
+    exact = c_s.astype(np.float64) + a_s.astype(np.float64) @ b_s.astype(np.float64).T
+    got = d_acc.cpu().numpy().astype(np.float64)
+    below, above = int((np.abs(got) < np.abs(exact)).sum()), int((np.abs(got) > np.abs(exact)).sum())
+    log(f"[bf16] accumulation onto c by the tensor cores, {got.size} outputs: {below} below the exact sum in "
+        f"magnitude, {above} above, {got.size - below - above} equal ("
+        + ("rounded toward zero" if above == 0 and below > 0 else "not toward zero") + ")")
+    return {"below": below, "above": above}
 
 
 def phase_stem(dev):
@@ -347,15 +426,16 @@ def phase_stem(dev):
 
 
 def phase_stem_bf16(dev):
-    """The stem kernel's bf16 forms against their plain version (fp32 convs, the
-    output rounded once to bf16; bf16_rounding_apart): uint8 ->
-    bf16 (the bf16 predict path) at the widths of scales n (B=1, 2, 16), s, m/l
-    and x (B=16), and bf16 -> bf16 (a bf16 image, /255 not folded) at n, B=16;
-    beside the cuDNN bf16 pair (the image cast to bf16, two bf16 F.conv2d + SiLU)."""
+    """The stem kernel's bf16 forms (stem_bf16_kernel: split-bf16 wgmma) against
+    their plain version (fp32 convs, the output rounded once to bf16;
+    bf16_rounding_apart): uint8 -> bf16 (the bf16 predict path) and bf16 -> bf16
+    (a bf16 image, /255 not folded) at the widths of every scale, B=16, and
+    uint8 -> bf16 at n also at B=1 and 2; beside the cuDNN bf16 pair (the image
+    cast to bf16, two bf16 F.conv2d + SiLU) and the bound at the bf16 peak."""
     import torch
     import torch.nn.functional as F
 
-    from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_weight_layout
+    from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_plan, stem_weight_layout
 
     bf16 = torch.bfloat16
     result = {}
@@ -365,10 +445,11 @@ def phase_stem_bf16(dev):
         b0 = (torch.rand(c0, generator=g) - 0.5).to(dev)
         w1 = stem_weight_layout(((torch.rand(c1, c0, 3, 3, generator=g) - 0.5) * 1.2 / c0 ** 0.5).to(dev))
         b1 = (torch.rand(c1, generator=g) - 0.5).to(dev)
+        plan = stem_plan(c0, c1, bf16)
         for b in ((2, 1, 16) if scale == "n" else (16,)):
             img = torch.randint(0, 256, (b, 640, 640, 3), generator=g, dtype=torch.uint8).to(dev)
             forms = [("uint8", img, w0)]
-            if scale == "n" and b == 16:
+            if b == 16:
                 forms.append(("bf16", (img.float() / 255.0).to(bf16), stem_weight_layout(w0 * 255.0)))
             for form, x, w0x in forms:
                 out = fused_stem(x, w0x, b0, w1, b1, out_dtype=bf16)
@@ -391,13 +472,13 @@ def phase_stem_bf16(dev):
                 pair_ms = cuda_ms(cudnn_pair)
                 n0, n1 = b * 320 * 320 * c0, b * 160 * 160 * c1
                 bound_ms, bound_by, peak = bound(nbytes(x, w0x, b0, w1, b1, out), (n0 + n1) * 5,
-                                                 n0 * 2 * 27 + n1 * 2 * 9 * c0)
-                log(f"[stem-bf16] scale {scale} B={b} 640x640 {form} -> bf16 [{b},160,160,{c1}]: max abs err "
-                    f"{err.max().item():.3e} ({flips} of {err.numel()} outputs a rounding apart), kernel {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, cuDNN bf16 pair {pair_ms:.4f} ms, bound {bound_ms:.4f} ms ({peak})")
+                                                 n0 * 2 * 27 + n1 * 2 * 9 * c0, tensor_peak="bf16")
+                log(f"[stem-bf16] scale {scale} B={b} 640x640 {form} -> bf16 [{b},160,160,{c1}] (plan {plan}): max abs "
+                    f"err {err.max().item():.3e} ({flips} of {err.numel()} outputs a rounding apart), kernel {ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms, cuDNN bf16 pair {pair_ms:.4f} ms, bound {bound_ms:.4f} ms ({peak})")
                 result[(scale, b, form)] = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
                                                 cudnn_bf16_pair_ms=pair_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                                bound_peak=peak)
+                                                bound_peak=peak, rounding_apart=flips / err.numel())
     return result
 
 
@@ -958,7 +1039,7 @@ def phase_scale_m(dev, imgs):
         f"(stem_kernel {ours['stem_kernel']:.4f}, stem_bank_kernel {ours['stem_bank_kernel']:.4f}): "
         f"{100 * stem_ms / busy_ms:.1f}% of the device time")
     require(stem_ms > 0, "the scale-m profile shows no stem kernel")
-    return launches
+    return model, launches
 
 
 def phase_fused_esmoe_path(dev, model, state, imgs):
@@ -1173,8 +1254,9 @@ def phase_sahi(dev, moe):
 
 
 def phase_bf16_paths(dev, facades, imgs):
-    """The three bf16 predict paths through the facade,
-    predict(..., compute_dtype=torch.bfloat16), at batch 1 and 16 (launch counts
+    """The bf16 predict paths through the facade (yolo-master-n, with fused ES_MOE,
+    v0_1-n and yolo-master-m), predict(..., compute_dtype=torch.bfloat16), at
+    batch 1 and 16 (launch counts
     set to 0 before, read after); device ms/img beside each fp32 path's
     predictor in turns (fp32, bf16, bf16, fp32); the card's bf16 raw head
     outputs against the port's CPU fp32 (rel-RMS, box and class logits apart,
@@ -1185,7 +1267,7 @@ def phase_bf16_paths(dev, facades, imgs):
     import torch
 
     from yolo_master_tpu_torch.ops.nms import non_max_suppression
-    from yolo_master_tpu_torch.utils.fuse import compute_dtype_copy
+    from yolo_master_tpu_torch.utils.fuse import compute_dtype_copy, current_dtype_copy
 
     bf16 = torch.bfloat16
     out = {}
@@ -1200,8 +1282,9 @@ def phase_bf16_paths(dev, facades, imgs):
         launches = read_launches()
         pred = facade._predictor
         log(f"[bf16] {name}: predict bs1 + bs16 launches: {launches}")
-        # each predictor (bs 1, bs 16) makes its own bf16 copy, whose stem writes its weight bank once
-        require(launches["stem"] == 2 and launches["stem_bank"] == 2 and launches["nms"] == 2
+        # the bs-1 and bs-16 predictors share the model's one bf16 copy (utils/fuse.py:current_dtype_copy),
+        # whose stem writes its bf16 weight bank once
+        require(launches["stem"] == 2 and launches["stem_bank"] == 1 and launches["nms"] == 2
                 and launches["esmoe"] == 2 * esmoe_per_forward,
                 f"{name}: the bf16 path did not launch the stem, NMS (and ES_MOE) kernels")
         require(pred.compute_dtype == bf16 and pred.model is not facade.model
@@ -1209,6 +1292,13 @@ def phase_bf16_paths(dev, facades, imgs):
                 f"{name}: the bf16 predictor runs a copy and the facade's model stays fp32")
         require(len(r1) == 1 and len(r16) == 16, f"{name}: bf16 result counts")
         check_detections(r1 + r16)
+        # what each bf16 predict pays to find its copy current (utils/fuse.py:model_key), host clock
+        kept = pred.model
+        t0 = time.perf_counter()
+        for _ in range(200):
+            require(current_dtype_copy(facade.model, bf16) is kept, f"{name}: the bf16 copy was made anew")
+        check_ms = (time.perf_counter() - t0) / 200 * 1e3
+        log(f"[bf16] {name}: the copy kept, its check {check_ms:.4f} ms a predict (host clock)")
 
         e2e = {}
         for bs in (1, 16):
@@ -1252,7 +1342,7 @@ def phase_bf16_paths(dev, facades, imgs):
             f"{stats['scores'][0]:.4e} (CPU bf16 {stats['scores'][1]:.4e}); the card's bf16 head outputs decoded on "
             f"the CPU: keep sets equal ({int(det_gpu['valid'].sum())} kept), box max err {box_err:.3e} px, "
             f"score max err {score_err:.3e}")
-        out[name] = dict(launches=launches, e2e=e2e, run=pred.run, rel_rms=stats)
+        out[name] = dict(launches=launches, e2e=e2e, run=pred.run, rel_rms=stats, copy_check_ms=check_ms)
     return out
 
 
@@ -1275,9 +1365,13 @@ def profile_kernels(run, xb, iters: int = 5):
 
 
 def ports_kernels(dev_us: dict) -> dict:
-    """Device us of each of the port's kernels (PORT_KERNEL_NAMES; "stem_kernel" is not
-    a substring of "stem_bank_kernel")."""
-    return {part: sum(v for k, v in dev_us.items() if part in k) for part in PORT_KERNEL_NAMES}
+    """Device us of each of the port's kernels (PORT_KERNEL_NAMES; no name is a
+    substring of another's), the stem's two kernels and two bank kernels summed
+    under "stem_kernel" and "stem_bank_kernel"."""
+    ours = {part: sum(v for k, v in dev_us.items() if part in k) for part in PORT_KERNEL_NAMES}
+    ours["stem_kernel"] += ours.pop("stem_bf16_kernel")
+    ours["stem_bank_kernel"] += ours.pop("stem_bank_bf16_kernel")
+    return ours
 
 
 def device_time_by_kernel(run, xb):
@@ -1288,7 +1382,9 @@ def device_time_by_kernel(run, xb):
 
 def phase_profile(paths, xb):
     """Device time by kernel over 5 iterations of each path's device graph
-    (uint8 batch on the card -> detections), under torch.profiler."""
+    (uint8 batch on the card -> detections), under torch.profiler; returns each
+    path's busy time and the stem kernel's share of it."""
+    shares = {}
     for name, run in paths.items():
         wall_ms, dev_us, count = profile_kernels(run, xb)
         busy_ms = sum(dev_us.values()) / 1e3
@@ -1297,9 +1393,13 @@ def phase_profile(paths, xb):
             f"{busy_ms:.3f} ms/batch ({100 * busy_ms / wall_ms:.1f}%), {count:.0f} kernels/batch; top: "
             + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
         ours = ports_kernels(dev_us)
+        stem_ms = (ours["stem_kernel"] + ours["stem_bank_kernel"]) / 1e3
+        shares[name] = {"busy_ms": busy_ms, "stem_ms": stem_ms, "stem_share": stem_ms / busy_ms}
         log(f"[profile] {name}, B={xb.shape[0]}: the port's kernels, ms/batch: "
             + "; ".join(f"{k} {v / 1e3:.4f}" for k, v in ours.items() if v)
-            + f"; NMS (sort + mask + scan) {sum(ours[k] for k in NMS_PHASES) / 1e3:.4f}")
+            + f"; NMS (sort + mask + scan) {sum(ours[k] for k in NMS_PHASES) / 1e3:.4f}; the stem "
+            f"{100 * stem_ms / busy_ms:.2f}% of the busy time")
+    return shares
 
 
 def phase_imports():
@@ -1326,9 +1426,10 @@ def main():
     def done(phase):
         log(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
 
-    c3k2_sass = phase_build()
+    sass = phase_build()
     done("build")
     phase_split_tf32(dev)
+    bf16_rounding = phase_split_bf16(dev)
     stem_res = phase_stem(dev)
     stem16_res = phase_stem_bf16(dev)
     done("stem")
@@ -1340,7 +1441,7 @@ def main():
     phase_sparse_esmoe(dev)
     done("kernel checks")
     model, state, imgs, main_launches = phase_main_path(dev)
-    phase_scale_m(dev, imgs)
+    scale_m, _ = phase_scale_m(dev, imgs)
     done("main path and scale m")
     c3k2_res, c3k2_launches = phase_c3k2(dev, model, imgs)
     moe, moe_launches, _ = phase_fused_esmoe_path(dev, model, state, imgs)
@@ -1350,9 +1451,9 @@ def main():
     x16, _ = model._predictor.preprocess(imgs)
     v01_fp32 = v01._predictor
     fp32_runs = {"predict path": model._predictor.run, "with fused_esmoe_fuse": moe._predictor.run,
-                 "yolo-master-v0_1-n predict path": v01_fp32.run}
-    bf16_res = phase_bf16_paths(dev, {"yolo-master-n": model, "with fused_esmoe_fuse": moe, "yolo-master-v0_1-n": v01},
-                                imgs)
+                 "yolo-master-v0_1-n predict path": v01_fp32.run, "yolo-master-m predict path": scale_m._predictor.run}
+    bf16_res = phase_bf16_paths(dev, {"yolo-master-n": model, "with fused_esmoe_fuse": moe, "yolo-master-v0_1-n": v01,
+                                      "yolo-master-m": scale_m}, imgs)
     done("bf16 paths")
 
     def v01_dense(xb):
@@ -1362,10 +1463,12 @@ def main():
         finally:
             v01.model.sparse_inference = True
 
-    phase_profile({**fp32_runs, "yolo-master-v0_1-n, dense eval": v01_dense,
-                   "predict path, bf16": bf16_res["yolo-master-n"]["run"],
-                   "with fused_esmoe_fuse, bf16": bf16_res["with fused_esmoe_fuse"]["run"],
-                   "yolo-master-v0_1-n predict path, bf16": bf16_res["yolo-master-v0_1-n"]["run"]}, x16)
+    shares = phase_profile({**fp32_runs, "yolo-master-v0_1-n, dense eval": v01_dense,
+                            "predict path, bf16": bf16_res["yolo-master-n"]["run"],
+                            "with fused_esmoe_fuse, bf16": bf16_res["with fused_esmoe_fuse"]["run"],
+                            "yolo-master-v0_1-n predict path, bf16": bf16_res["yolo-master-v0_1-n"]["run"],
+                            "yolo-master-m predict path, bf16": bf16_res["yolo-master-m"]["run"]}, x16)
+    require(shares["yolo-master-m predict path, bf16"]["stem_ms"] > 0, "the scale-m bf16 profile shows no stem kernel")
     phase_imports()
     done("profile")
 
@@ -1411,16 +1514,20 @@ def main():
                      bound_peak=c_sum["bound_peak"], n2_block={k: c3k2_res[(16, 2, 2)][k] for k in
                                                                 ("ms", "plain_ms", "module_ms", "bound_ms")},
                      b1={k: sum(c3k2_res[(1, i, 1)][k] for i in C3K2_LAYERS) for k in ("ms", "plain_ms", "module_ms")},
-                     resources=c3k2_sass),
+                     resources=sass["c3k2"]),
         kernel_entry("fused_stem_bf16", "stem.cu", "pallas_stem.py:177", bf16_res["yolo-master-n"]["launches"]["stem"],
                      stem_bf16, "uint8 [16,640,640,3] -> bf16 [16,160,160,32] (the bf16 predict path's form)",
                      bound_peak=stem_bf16["bound_peak"], cudnn_bf16_pair_ms=stem_bf16["cudnn_bf16_pair_ms"],
                      bank_launches=bf16_res["yolo-master-n"]["launches"]["stem_bank"],
-                     bf16_input={k: stem16_res[("n", 16, "bf16")][k] for k in
-                                 ("ms", "plain_ms", "cudnn_bf16_pair_ms", "bound_ms", "max_abs_err")},
-                     widths={scale: {k: stem16_res[(scale, 16, "uint8")][k] for k in
-                                     ("ms", "plain_ms", "cudnn_bf16_pair_ms", "bound_ms", "bound_peak", "max_abs_err")}
-                             for scale in STEM_WIDTHS}),
+                     launches_scale_m=bf16_res["yolo-master-m"]["launches"]["stem"],
+                     accumulation_rounding=bf16_rounding,
+                     stem_share_scale_m_bs16=shares["yolo-master-m predict path, bf16"]["stem_share"],
+                     widths={scale: {f"{form}_in": {k: stem16_res[(scale, 16, form)][k] for k in
+                                                    ("ms", "plain_ms", "cudnn_bf16_pair_ms", "bound_ms", "bound_peak",
+                                                     "max_abs_err", "rounding_apart")}
+                                     for form in ("uint8", "bf16")}
+                             for scale in STEM_WIDTHS},
+                     resources={name.split("stem_bf16_kernel", 1)[1][:40]: r for name, r in sass["stem_bf16"].items()}),
         kernel_entry("fused_esmoe_bf16", "esmoe.cu", "pallas_esmoe.py:81",
                      bf16_res["with fused_esmoe_fuse"]["launches"]["esmoe"], es_bf16,
                      "bf16 in and out, B=16, the four placements summed", module_ms=es_bf16["module_ms"],

@@ -13,6 +13,7 @@ import torch
 
 from yolo_master_tpu_torch.nn.layers import C3k2
 from yolo_master_tpu_torch.nn.moe import ES_MOE, FusedESMOE
+from yolo_master_tpu_torch.ops._bf16 import bf16_rounding_apart, round_bf16, split_product_check_bf16
 from yolo_master_tpu_torch.ops._tf32 import split_product_check
 from yolo_master_tpu_torch.ops.c3k2 import c3k2_bank, fused_c3k2, fused_c3k2_plain, prepare_c3k2_weights
 from yolo_master_tpu_torch.ops.cuda_nms import (batched_cw_nms, batched_cw_nms_plain, batched_greedy_nms,
@@ -20,7 +21,7 @@ from yolo_master_tpu_torch.ops.cuda_nms import (batched_cw_nms, batched_cw_nms_p
 from yolo_master_tpu_torch.ops.esmoe import fused_esmoe, fused_esmoe_plain, pack_esmoe_params
 from yolo_master_tpu_torch.ops.moe import dense_expert_matmul, gathered_expert_matmul
 from yolo_master_tpu_torch.ops._build import SMEM_LIMIT_BYTES
-from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_plan, stem_weight_layout
+from yolo_master_tpu_torch.ops.stem import fused_stem, fused_stem_plain, stem_bank, stem_plan, stem_weight_layout
 from yolo_master_tpu_torch.utils.fuse import fuse_bn
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +55,50 @@ def test_split_tf32_product_matches_fp64(dev, depth):
     for got, cols in ((d_ss, 64), (d_rs, 128)):
         err = np.abs(got.cpu().numpy().astype(np.float64) - ref[:, :cols])
         assert (err <= 2e-6 * scale[:, :cols]).all(), (err / scale[:, :cols]).max()
+
+
+@pytest.mark.parametrize("depth", [32, 16, 20])
+def test_split_bf16_product_matches_fp64(dev, depth):
+    """csrc/mma_bf16.cuh on its own: one warpgroup's [64, depth] x [depth, 128]
+    product as the stem's bf16 forms compute it (bf16 hi/lo splits, three passes
+    a depth-16 step, chains from zero joined in fp32) against the fp64 product
+    of the same float32 inputs of mixed magnitude. Tolerance 6e-5 * sum_k |a||b|:
+    three terms of about 2^-16 |a||b| each (lo*lo dropped, lo and hi rounded)
+    and fp32's sums; one bf16 pass is off by about 4e-3 of that sum."""
+    rng = np.random.default_rng(depth)
+
+    def mixed(shape):  # float32 of magnitudes 1e-2 to 1e2
+        return (rng.standard_normal(shape) * 10.0 ** rng.integers(-2, 3, shape)).astype(np.float32)
+
+    a, b, c = mixed((64, 32)), mixed((128, 32)), mixed((64, 128))
+    d_split, _ = split_product_check_bf16(*(torch.from_numpy(t).to(dev) for t in (a, b, c)), depth)
+    torch.cuda.synchronize()
+    a64, b64 = a[:, :depth].astype(np.float64), b[:, :depth].astype(np.float64)
+    ref, scale = a64 @ b64.T, np.abs(a64) @ np.abs(b64).T
+    err = np.abs(d_split.cpu().numpy().astype(np.float64) - ref)
+    assert (err <= 6e-5 * scale).all(), (err / scale).max()
+
+
+def test_bf16_accumulation_rounds_toward_zero(dev):
+    """The tensor cores round an accumulation toward zero in bf16 wgmma, as in
+    TF32 (PERF.md): c + bf16(a) @ bf16(b), accumulated onto c, in rows whose terms
+    share one sign, is never above the exact sum in magnitude (rounding to
+    nearest would put about half of the inexact outputs above it). Why the stem's
+    bf16 forms start each tap's chain from zero and join the chains in fp32."""
+    rng = np.random.default_rng(7)
+
+    def mixed(shape):  # float32 of magnitudes 1e-2 to 1e2
+        return (rng.standard_normal(shape) * 10.0 ** rng.integers(-2, 3, shape)).astype(np.float32)
+
+    sign = np.where(np.arange(64) % 2 == 0, 1.0, -1.0).astype(np.float32)[:, None]
+    a = np.abs(round_bf16(torch.from_numpy(mixed((64, 32)))).numpy()) * sign
+    b = np.abs(round_bf16(torch.from_numpy(mixed((128, 32)))).numpy())
+    c = np.abs(mixed((64, 128))) * sign
+    _, d_acc = split_product_check_bf16(*(torch.from_numpy(t).to(dev) for t in (a, b, c)), 32)
+    exact = c.astype(np.float64) + a.astype(np.float64) @ b.astype(np.float64).T
+    got = d_acc.cpu().numpy().astype(np.float64)
+    assert (np.abs(got) <= np.abs(exact)).all()
+    assert (np.abs(got) < np.abs(exact)).sum() > got.size // 4  # most sums are inexact in fp32
 
 
 def _stem_weights(rng, c0, c1, device):
@@ -95,11 +140,6 @@ def test_stem_kernel_at_every_scale_width(dev, c0, c1, shape):
         assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), (out - ref).abs().max().item()
 
 
-def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
-    """One bf16 unit in the last place of each element of t (8 significant bits)."""
-    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), torch.frexp(t.float().abs()).exponent - 8)
-
-
 def assert_bf16_rounding_apart(out: torch.Tensor, ref: torch.Tensor) -> None:
     """A kernel's bf16 output against its plain version's: both round an fp32 result
     once, and the two fp32 results agree within the fp32 forms' gate,
@@ -107,20 +147,21 @@ def assert_bf16_rounding_apart(out: torch.Tensor, ref: torch.Tensor) -> None:
     that gate (near 0 the gate is many bf16 ulps: 2 of 78.6M outputs at the x width
     differed by 1.2e-6 at |ref| ~4e-6, within the fp32 gate), and a rounding
     boundary between them is rare: at most 1% of the outputs differ (a wrong
-    rounding mode would move about half)."""
+    rounding mode would move about half; ops/_bf16.py:bf16_rounding_apart)."""
     assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == ref.shape
-    err = (out.float() - ref.float()).abs()
-    assert bool((err <= bf16_ulp(ref) + 1e-4 + 1e-4 * ref.float().abs()).all()), err.max().item()
-    assert (err > 0).float().mean().item() <= 1e-2
+    within, share = bf16_rounding_apart(out, ref)
+    assert within, (out.float() - ref.float()).abs().max().item()
+    assert share <= 1e-2, share
 
 
-@pytest.mark.parametrize("shape", [(2, 96, 128), (1, 36, 44), (2, 640, 640)])
-@pytest.mark.parametrize("c0,c1", [(16, 32), (32, 64), (64, 128), (96, 192)], ids=["n", "s", "m_l", "x"])
+@pytest.mark.parametrize("shape", [(2, 96, 128), (1, 36, 44), (3, 68, 100), (1, 640, 640), (2, 640, 640)])
+@pytest.mark.parametrize("c0,c1", [(8, 16), (16, 32), (32, 64), (64, 128), (96, 192)], ids=["c8", "n", "s", "m_l", "x"])
 def test_stem_kernel_bf16_matches_plain(dev, c0, c1, shape):
-    """The bf16 path's forms, uint8 -> bf16 (the predict path) and bf16 -> bf16
-    (a bf16 image, /255 not folded), at the stem widths of every scale, ragged
-    tiles included. Both versions compute in fp32 and round once to bf16
-    (assert_bf16_rounding_apart)."""
+    """The bf16 path's forms (stem_bf16_kernel: split-bf16 wgmma), uint8 -> bf16
+    (the predict path) and bf16 -> bf16 (a bf16 image, /255 not folded), at the
+    stem widths of every scale (and c0 = 8, half a conv0 chunk), ragged tiles
+    (9x13 of 8x16, 17x25) and B=1 included. The plain version computes in fp32
+    and rounds once to bf16 (assert_bf16_rounding_apart)."""
     rng = np.random.default_rng(c1)
     w0, b0, w1, b1 = _stem_weights(rng, c0, c1, dev)
     img = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(dev)
@@ -146,6 +187,87 @@ def test_stem_plan_keeps_scale_n_and_fits_every_width(dev):
         assert 0 < plan["smem_bytes"] <= SMEM_LIMIT_BYTES
         if c1 <= 128:
             assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+
+
+def test_stem_bf16_plan_takes_128_pixels_at_every_width(dev):
+    """The bf16 forms' plan: an 8x16 tile (128 pixels) at every width; all of c1
+    on each of two warpgroups and two blocks an SM up to c1 = 64, two halves of c1
+    on four warpgroups and one block an SM from 128; every YAML width fits; the
+    bf16 bank takes 4 bytes a weight (hi and lo; the fp32 bank takes 8)."""
+    for c0, c1 in ((16, 32), (32, 64), (64, 128), (96, 192)):
+        plan = stem_plan(c0, c1, torch.bfloat16)
+        assert plan["tile"] == (8, 16)
+        assert plan["warpgroups_per_64_pixels"] == (1 if c1 <= 64 else 2)
+        assert plan["c1_per_warpgroup"] * plan["warpgroups_per_64_pixels"] >= c1
+        assert 0 < plan["smem_bytes"] <= SMEM_LIMIT_BYTES
+        if c1 <= 64:
+            assert 2 * (plan["smem_bytes"] + 1024) <= 228 * 1024
+        # hi and lo, 2 bytes each, for 12 tap slots (3 K-chunks of 4 taps) of each 16 conv0 channels
+        assert plan["bank_bytes"] == 4 * 12 * -(-c0 // 16) * 16 * plan["c1_per_warpgroup"] * plan[
+            "warpgroups_per_64_pixels"]
+
+
+def test_stem_bank_keeps_fp32_and_bf16_banks_apart(dev):
+    """One w1, both forms: each form writes its own bank once (fp32 split-TF32
+    halves, bf16 halves), keeps it while the other form runs, and an in-place
+    write to w1 rebuilds both; outputs follow w1 in both forms."""
+    rng = np.random.default_rng(8)
+    w0, b0, w1, b1 = _stem_weights(rng, 16, 32, dev)
+    w0 = stem_weight_layout(w0 / 255.0)
+    img = torch.from_numpy(rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8)).to(dev)
+    before = fused_stem.bank_launches
+    bank32, bank16 = stem_bank(w1, 16, 32), stem_bank(w1, 16, 32, torch.bfloat16)
+    assert bank32.dtype == torch.float32 and bank16.dtype == torch.bfloat16
+    assert fused_stem.bank_launches == before + 2
+    for _ in range(2):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            fused_stem(img, w0, b0, w1, b1, out_dtype=out_dtype)
+    assert stem_bank(w1, 16, 32) is bank32 and stem_bank(w1, 16, 32, torch.bfloat16) is bank16
+    assert fused_stem.bank_launches == before + 2
+    with torch.no_grad():
+        w1.mul_(0.5)
+    out32 = fused_stem(img, w0, b0, w1, b1)
+    out16 = fused_stem(img, w0, b0, w1, b1, out_dtype=torch.bfloat16)
+    assert fused_stem.bank_launches == before + 4
+    ref32 = fused_stem_plain(img, w0, b0, w1, b1)
+    torch.cuda.synchronize()
+    assert bool(((out32 - ref32).abs() <= 1e-4 + 1e-4 * ref32.abs()).all())
+    assert_bf16_rounding_apart(out16, fused_stem_plain(img, w0, b0, w1, b1, out_dtype=torch.bfloat16))
+
+
+# sha256 (first 16 hex digits) of the fp32 forms' outputs, [B, H/4, W/4, c1] float32, for the inputs of
+# test_stem_fp32_forms_are_unchanged, as the fp32 kernel gave them before the bf16 forms moved to
+# their own kernel (the kernel is deterministic: no atomics, a fixed order of sums)
+FP32_DIGESTS = {
+    (32, 64, (2, 96, 128), "uint8"): "04c8847f32328e85",
+    (32, 64, (2, 96, 128), "float32"): "78c48cbc7760fc17",
+    (32, 64, (1, 36, 44), "uint8"): "0416cbfdd19da923",
+    (32, 64, (1, 36, 44), "float32"): "4ec13539c50e89c2",
+    (64, 128, (2, 96, 128), "uint8"): "9c1108d7ea561d18",
+    (64, 128, (2, 96, 128), "float32"): "d7cd44639b8d489d",
+    (64, 128, (1, 36, 44), "uint8"): "93b758f37f4262b2",
+    (64, 128, (1, 36, 44), "float32"): "a96b01f89fc6ca11",
+    (96, 192, (2, 96, 128), "uint8"): "f93de6d690666d30",
+    (96, 192, (2, 96, 128), "float32"): "344739c6836a5bf8",
+    (96, 192, (1, 36, 44), "uint8"): "42a21cc8d30427b4",
+    (96, 192, (1, 36, 44), "float32"): "e57c58d42d6d6fc3",
+}
+
+
+@pytest.mark.parametrize("shape", [(2, 96, 128), (1, 36, 44)])
+@pytest.mark.parametrize("c0,c1", [(32, 64), (64, 128), (96, 192)], ids=["s", "m_l", "x"])
+def test_stem_fp32_forms_are_unchanged(dev, c0, c1, shape):
+    """The fp32 forms (uint8 -> float32, float32 -> float32) give bit for bit
+    what they gave before the bf16 forms were redesigned, at the widths of
+    test_stem_kernel_at_every_scale_width, from fixed seeds."""
+    import hashlib
+
+    rng = np.random.default_rng(1000 + c0 + shape[1])
+    w0, b0, w1, b1 = _stem_weights(rng, c0, c1, dev)
+    img = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(dev)
+    for form, x, w in (("uint8", img, stem_weight_layout(w0 / 255.0)), ("float32", img.float() / 255.0, w0)):
+        out = fused_stem(x, w, b0, w1, b1)
+        assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16] == FP32_DIGESTS[(c0, c1, shape, form)]
 
 
 @pytest.mark.parametrize("shape", [(3, 36, 52), (3, 68, 100), (0, 36, 52)])

@@ -6,7 +6,8 @@ whose layer 0 takes uint8 (``YOLO.fuse()``), else float /255. Device: forward
 them. Host: boxes back to the original image -> ``engine/results.py:Results``.
 
 ``compute_dtype=torch.bfloat16`` runs the forward on a bf16 copy of the model
-that the predictor makes once (``utils/fuse.py:compute_dtype_copy``): uint8
+(``utils/fuse.py:compute_dtype_copy``), kept while the model stays as it was
+and made anew when it changed (``utils/fuse.py:current_dtype_copy``): uint8
 input goes to the fused stem as it is, float input is cast to bf16, and the
 decode, NMS and detections stay fp32, as in the JAX package.
 
@@ -25,7 +26,7 @@ import torch
 
 from ..data.letterbox import letterbox
 from ..ops.nms import non_max_suppression
-from ..utils.fuse import compute_dtype_copy
+from ..utils.fuse import current_dtype_copy
 from .results import Results
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -58,7 +59,7 @@ class DetectionPredictor:
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
         self.compute_dtype = compute_dtype
-        self.model = model if compute_dtype == torch.float32 else compute_dtype_copy(model, compute_dtype)
+        self.source_model = model
         self.device = next(model.parameters()).device
         self.names = names or {i: str(i) for i in range(model.nc)}
         self.imgsz = imgsz if isinstance(imgsz, (tuple, list)) else (imgsz, imgsz)
@@ -72,19 +73,30 @@ class DetectionPredictor:
             m[list(classes)] = 1.0
             self.class_mask = m.to(self.device)
 
+    @property
+    def model(self):
+        """The model the forward runs: ``source_model`` in fp32; in bf16 its copy
+        as the model is now (a predict after any change to the model runs the
+        changed model, as in the JAX package, whose predictor casts the current
+        params per op)."""
+        if self.compute_dtype == torch.float32:
+            return self.source_model
+        return current_dtype_copy(self.source_model, self.compute_dtype)
+
     # -- device graph --------------------------------------------------------
     @torch.inference_mode()
     def run(self, x: torch.Tensor) -> dict:
         """NHWC batch on the model's device -> fixed-shape detections (device tensors)."""
-        preds = self.model(x)
-        head = self.model.head
+        model = self.model
+        preds = model(x)
+        head = model.head
         if self.class_mask is None:
             # top-k-first: choosing anchors on the max class logit commutes with
             # the sigmoid, and single-label NMS only reads the top max_nms
             decoded = head.decode_topk(preds, k=self.max_nms)
         else:  # a class mask changes each anchor's ranking score
             decoded = head.decode(preds, raw_scores=True)
-        return non_max_suppression(decoded, nc=self.model.nc, conf_thres=self.conf, iou_thres=self.iou,
+        return non_max_suppression(decoded, nc=model.nc, conf_thres=self.conf, iou_thres=self.iou,
                                    max_det=self.max_det, max_nms=self.max_nms, agnostic=self.agnostic,
                                    class_mask=self.class_mask, scores_are_logits=True)
 
@@ -92,7 +104,7 @@ class DetectionPredictor:
     def preprocess(self, images: List[np.ndarray]):
         """Letterbox + BGR->RGB, stacked NHWC: uint8 when the model folds /255 into
         layer 0, else float32 /255 in the compute dtype. Returns (batch tensor on device, metadata)."""
-        u8 = getattr(self.model, "uint8_input", False)
+        u8 = getattr(self.source_model, "uint8_input", False)
         processed, meta = [], []
         for im in images:
             lb, ratio, pad = letterbox(im, self.imgsz)

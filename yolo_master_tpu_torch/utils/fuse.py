@@ -8,7 +8,8 @@ letterboxed uint8 image. The TPU's space-to-depth blob and lane padding have
 no counterpart: the CUDA stem reads the NHWC image directly. Opt-in, as in the
 JAX package: :func:`fused_esmoe_fuse` swaps the dense ES_MOE blocks for the
 fused ES_MOE kernel. :func:`compute_dtype_copy` makes the bf16 copy that a
-predictor runs in (the JAX package casts per op instead).
+predictor runs in (the JAX package casts per op instead), and
+:func:`current_dtype_copy` keeps it while the model stays as it was.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import copy
 
 import torch
 import torch.nn as nn
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..nn.layers import Conv, FusedStem, Passthrough
 from ..nn.moe.es_moe import ES_MOE, FusedESMOE
@@ -108,3 +110,52 @@ def compute_dtype_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
         if isinstance(m, FusedStem):
             m.out_dtype = dtype
     return out
+
+
+def model_key(model: nn.Module):
+    """What a copy of ``model`` depends on, as one tuple that is cheap to compare:
+    each module's identity and type and its MoE switches (``sparse_inference``,
+    ``use_sparse_inference``), and each parameter's and buffer's address and
+    version counter. An in-place write (``calibrate_bn``, ``load_state_dict``,
+    an edit under ``torch.no_grad()``), a module swapped in
+    (``fused_esmoe_fuse``) or a switch flipped changes it; a write through
+    ``.data`` does not, as ``ops/stem.py:stem_bank`` and
+    ``nn/moe/dispatch.py:expert_bank`` do not see one. None where a tensor is
+    an inference tensor, which has no version counter."""
+    key, stack = [], [model]
+    try:
+        while stack:  # the module tree by its own dicts: model.modules() builds a name for each module
+            d = stack.pop().__dict__  # not getattr: a Module's __getattr__ raises (slowly) for a missing switch
+            key += (id(d), d.get("sparse_inference"), d.get("use_sparse_inference"))
+            for t in d["_parameters"].values():
+                if t is not None:
+                    key += (t.data_ptr(), t._version)
+            for t in d["_buffers"].values():
+                if t is not None:
+                    key += (t.data_ptr(), t._version)
+            for m in d["_modules"].values():
+                if m is not None:
+                    key.append(type(m))
+                    stack.append(m)
+    except RuntimeError:  # an inference tensor's _version
+        return None
+    return tuple(key)
+
+
+# model -> {dtype: (model_key, copy)}: dropped with the model
+_dtype_copies = WeakIdKeyDictionary()
+
+
+def current_dtype_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``model``'s :func:`compute_dtype_copy` as ``model`` is now: made at the
+    first call, then kept (its stem's weight bank with it) while
+    :func:`model_key` stays the same, and made anew after any change, so that a
+    bf16 predict follows the model as an fp32 one does. Every predictor of the
+    model shares the copy."""
+    key = model_key(model)
+    copies = _dtype_copies.setdefault(model, {})
+    cached = copies.get(dtype)
+    if key is None or cached is None or cached[0] != key:
+        with torch.inference_mode(False):  # the copy's tensors keep version counters (its stem bank is kept)
+            cached = copies[dtype] = (key, compute_dtype_copy(model, dtype))
+    return cached[1]
