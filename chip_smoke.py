@@ -60,10 +60,24 @@ yolo-master-v0_1-n with seeded random weights. Phases:
      ms/img beside the fp32 path's in turns; the card's bf16 raw head outputs
      against the port's CPU fp32 (rel-RMS within 1.5x that of the port's CPU
      bf16) and decoded on the CPU (keep sets equal to the card's own)
- 16. device time by kernel of the predict path, with fused_esmoe_fuse, of the
+ 16. the validation path, YOLO("yolo-master-n").fuse().val(data=..., imgsz=640,
+     batch=16), on a synthetic set of 40 images (long side 640, varied aspect
+     ratios, uniform noise; the last batch wraps), labelled from the model's own detections,
+     with phase 9's calibrated weights (class biases at 0), in fp32 and bf16:
+     launch counts (stem and NMS once a batch), finite metrics, the time split
+     (host load, device forward + decode + NMS, host matching); the NMS kernel
+     on one val batch's multi-label candidates (B=16, N=4096, iou 0.7) against
+     its plain loop, beside the best 2048; the candidate sort's device time;
+     seeded detections through the card's NMS give the CPU's metrics exactly;
+     the card's own decoded outputs through the CPU's NMS and matching give
+     its metrics exactly (their distance from the CPU's printed); detection
+     counts equal to the CPU validator's and each metric within 1e-3, beside the
+     CPU's own fused-vs-unfused and fp32-vs-fp64 differences; bf16 decoded
+     outputs within 1.5x the CPU bf16's rel-RMS from the CPU fp32
+ 17. device time by kernel of the predict path, with fused_esmoe_fuse, of the
      v0_1 path in sparse and dense eval and of the scale-m path at batch 16,
      each fp32 path also in bf16, and the stem's share of each (torch.profiler)
- 17. no module of jax or of the JAX package was imported
+ 18. no module of jax or of the JAX package was imported
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
@@ -116,6 +130,11 @@ NMS_PHASES = ("sort_candidates_kernel", "iou_mask_kernel", "scan_kernel")
 PORT_KERNEL_NAMES = ("stem_kernel", "stem_bf16_kernel", "stem_bank_kernel", "stem_bank_bf16_kernel", *NMS_PHASES,
                      "fused_esmoe_kernel", "split_bank_kernel", "gathered_expert_matmul_kernel")
 BF16_FRAMES = 4  # frames of the bf16 paths' GPU-vs-CPU checks
+VAL_IMAGES = 40  # the val phase's synthetic set: not a multiple of the batch, so the last batch wraps
+VAL_BATCH = 16
+VAL_NMS = dict(conf_thres=0.001, iou_thres=0.7, max_det=300, max_nms=4096)  # the validator's defaults
+VAL_METRICS = ("precision", "recall", "mAP50", "mAP50-95")
+VAL_METRIC_TOL = 1e-3  # the card's validator vs the CPU's: tests/test_torch_validator.py:METRIC_TOL (port vs JAX)
 
 
 def log(msg: str) -> None:
@@ -1346,6 +1365,281 @@ def phase_bf16_paths(dev, facades, imgs):
     return out
 
 
+def write_val_set(root, n: int, seed: int = 0):
+    """``n`` PNGs under ``root/images`` with their long side at IMGSZ (no resize,
+    so no resampler is needed to load them), of varied aspect ratios, portrait
+    and landscape: uniform noise, as phase 9's frames, on which its BN was
+    calibrated (on images unlike them, such as flat rectangles, the random
+    network turns fp32 rounding into boxes hundreds of pixels apart, in either
+    package and against fp64). Returns the dataset yaml (the 80 COCO names, so
+    that COCO rows take the 80 -> 91 map)."""
+    import numpy as np
+    from PIL import Image
+
+    from yolo_master_tpu_torch.utils import coco_names
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    shorts = (352, 384, 427, 480, 512, 576, 640)
+    for i in range(n):
+        s = shorts[i % len(shorts)]
+        h, w = (s, IMGSZ) if i % 2 == 0 else (IMGSZ, s)
+        im = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        Image.fromarray(im).save(root / "images" / f"{i + 1:06d}.png", compress_level=1)
+    yaml_path = root / "data.yaml"
+    lines = [f"path: {root}", "val: images", "names:"] + [f"  {k}: {v}" for k, v in coco_names().items()]
+    yaml_path.write_text("\n".join(lines) + "\n")
+    return yaml_path
+
+
+def label_from_detections(model, yaml_path, seed: int = 7):
+    """Write each image's labels from ``model``'s own fp32 val detections: its 4
+    best, each box jittered by up to 10% of its size, so that the metrics count
+    real matches at every IoU threshold (random weights find none of the drawn
+    rectangles); tests/test_torch_validator.py labels its set the same way."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from yolo_master_tpu_torch.data.dataset import DataLoader, YOLODataset, img2label_path
+    from yolo_master_tpu_torch.engine.validator import DetectionValidator
+
+    ds = YOLODataset(str(yaml_path), imgsz=IMGSZ)
+    v = DetectionValidator(model, imgsz=IMGSZ)
+    rng = np.random.default_rng(seed)
+    seen = 0
+    for b in DataLoader(ds, VAL_BATCH).epoch():
+        det = {k: t.cpu().numpy() for k, t in v.run(v.preprocess(b["images"])).items()}
+        for i in range(min(VAL_BATCH, len(ds) - seen)):
+            h0, w0 = ds.shapes[seen]
+            boxes = v._to_original(det["boxes"][i, :4], *v._letterbox_params(h0, w0), w0, h0, clip=True)
+            rows = []
+            for box, c in zip(boxes, det["classes"][i, :4]):
+                box = box + rng.uniform(-0.1, 0.1, 4) * np.tile(box[2:] - box[:2], 2)
+                x1, x2 = np.clip(box[[0, 2]], 0, w0)
+                y1, y2 = np.clip(box[[1, 3]], 0, h0)
+                if x2 - x1 >= 1 and y2 - y1 >= 1:
+                    rows.append(f"{int(c)} {(x1 + x2) / 2 / w0:.6f} {(y1 + y2) / 2 / h0:.6f} "
+                                f"{(x2 - x1) / w0:.6f} {(y2 - y1) / h0:.6f}")
+            Path(img2label_path(ds.img_files[seen])).write_text("\n".join(rows) + "\n")
+            seen += 1
+
+
+def seeded_val_predictions(batch, seed: int, anchors: int = 8400, nc: int = 80):
+    """Decoded predictions [B, anchors, 4 + nc] (xywh letterboxed px, probabilities)
+    for one val batch: three jittered copies of each GT box (its class at
+    0.55-0.95, another class at 0.2-0.5), distractor boxes, class noise on a 1/4096
+    grid over (0, 0.003) (a third below conf 0.001, many exact ties), and a run
+    of rows copied from one (the form of tests/test_torch_validator.py's gate 2)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b = batch["images"].shape[0]
+    xy = rng.uniform(0, IMGSZ, (b, anchors, 2))
+    wh = rng.uniform(4, IMGSZ / 2, (b, anchors, 2))
+    scores = np.round(rng.uniform(0, 0.003, (b, anchors, nc)) * 4096) / 4096
+    for i in range(b):
+        row = 0
+        for box, c in zip(batch["boxes"][i][batch["mask"][i]], batch["classes"][i][batch["mask"][i]]):
+            for _ in range(3):
+                x1, y1, x2, y2 = box + rng.uniform(-0.08, 0.08, 4) * np.tile(box[2:] - box[:2], 2)
+                xy[i, row], wh[i, row] = ((x1 + x2) / 2, (y1 + y2) / 2), (x2 - x1, y2 - y1)
+                scores[i, row, c] = rng.uniform(0.55, 0.95)
+                scores[i, row, (c + 1 + rng.integers(0, nc - 1)) % nc] = rng.uniform(0.2, 0.5)
+                row += 1
+    scores[:, 60:70] = scores[:, 60:61]
+    return np.concatenate([xy, wh, scores], -1).astype(np.float32)
+
+
+def phase_val(dev, state):
+    """YOLO("yolo-master-n").fuse().val(data=..., imgsz=640, batch=16) on a
+    synthetic set of VAL_IMAGES, in fp32 and bf16 (a set written under the
+    checkout and removed after)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    root = Path(tempfile.mkdtemp(prefix=".val_set_", dir=Path(__file__).resolve().parent))
+    try:
+        return _phase_val(dev, state, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_val(dev, state, root):
+    import math
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.data.dataset import DataLoader, YOLODataset
+    from yolo_master_tpu_torch.engine.validator import DetectionValidator
+    from yolo_master_tpu_torch.ops import cuda_nms, nms
+
+    bf16 = torch.bfloat16
+    yaml_path = write_val_set(root, VAL_IMAGES)
+    # phase 9's calibrated weights with the class biases at 0: the init's bias (a
+    # prior of ~1e-5 a class) puts nearly every score below conf 0.001, where a
+    # trained detector passes nearly every candidate
+    def facade(where, fuse=True):
+        y = YOLO("yolo-master-n", device=where).load_state_dict(state)
+        with torch.no_grad():
+            for branch in y.model.head.cv3:
+                branch[-1].bias.zero_()
+        return y.fuse() if fuse else y
+
+    gpu, cpu = facade(dev), facade("cpu")
+    label_from_detections(gpu.model, yaml_path)
+    ds = YOLODataset(str(yaml_path), imgsz=IMGSZ)
+    n_batches = math.ceil(VAL_IMAGES / VAL_BATCH)
+    val_kw = dict(data=str(yaml_path), imgsz=IMGSZ, batch=VAL_BATCH)
+
+    def rows_per_image(path):
+        rows = json.loads(Path(path).read_text())
+        return [sum(r["image_id"] == i + 1 for r in rows) for i in range(VAL_IMAGES)]
+
+    out = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", bf16)):
+        reset_launches()
+        m = gpu.val(compute_dtype=dt, save_json=str(root / f"{name}.json"), **val_kw)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"[val] {name}: launches {launches}; {m['images']} images, P {m['precision']:.6f} R {m['recall']:.6f} "
+            f"mAP50 {m['mAP50']:.6f} mAP50-95 {m['mAP50-95']:.6f}")
+        require(m["images"] == VAL_IMAGES and all(math.isfinite(m[k]) for k in VAL_METRICS),
+                f"val {name}: images or metrics")
+        # the fp32 stem bank was written by the label pass; the bf16 copy is new and writes its own
+        require(launches["stem"] == n_batches and launches["nms"] == n_batches
+                and launches["stem_bank"] == (1 if dt == bf16 else 0),
+                f"val {name} did not launch the stem and NMS kernels once a batch")
+        counts = rows_per_image(root / f"{name}.json")
+        warm = [gpu.val(compute_dtype=dt, **val_kw) for _ in range(2)]
+        log(f"[val] {name}: detections per image {counts}")
+        for w in warm:
+            s = w["speed"]
+            log(f"[val] {name}, warm: {1e3 * w['sec'] / VAL_IMAGES:.3f} ms/img in all (host clock); host load + "
+                f"resize + letterbox {s['load']:.3f}, device forward + decode + NMS {s['device']:.3f} (CUDA events), "
+                f"host matching {s['match']:.3f} ms/img")
+        out[name] = dict(metrics=m, launches=launches, counts=counts, speed=[w["speed"] for w in warm],
+                         ms_per_img=[1e3 * w["sec"] / VAL_IMAGES for w in warm])
+
+    def replayed(y, batches):
+        """``y``'s validator over the set, each batch's forward replaced by the given
+        decoded outputs (NMS and matching as they are, NMS on ``y``'s device)."""
+        vv = DetectionValidator(y.model, data=str(yaml_path), imgsz=IMGSZ, batch=VAL_BATCH)
+        it = iter(batches)
+        vv.run = lambda x: nms.non_max_suppression(next(it).to(vv.device), nc=80, multi_label=True, **VAL_NMS)
+        return vv()
+
+    # the card's own decoded outputs, captured in a val run, through the CPU's NMS and matching:
+    # the card's metrics exactly (everything after the forward agrees bit for bit)
+    captured = []
+    vc = DetectionValidator(gpu.model, data=str(yaml_path), imgsz=IMGSZ, batch=VAL_BATCH)
+
+    def run_capture(x):
+        with torch.inference_mode():
+            decoded = gpu.model.forward_predict(x)
+            captured.append(decoded.cpu())
+            return nms.non_max_suppression(decoded, nc=80, multi_label=True, **VAL_NMS)
+    vc.run = run_capture
+    m_card, m_replay = vc(), replayed(cpu, captured)
+    require(all(m_card[k] == m_replay[k] for k in (*VAL_METRICS, "fitness")),
+            "val: the card's decoded outputs give other metrics through the CPU's NMS and matching")
+    log(f"[val] the card's own decoded outputs through the CPU's NMS and matching: the card's metrics exactly "
+        f"(mAP50-95 {m_card['mAP50-95']:.6f})")
+
+    # the whole validator, card against CPU: detection counts equal, each metric within VAL_METRIC_TOL;
+    # beside it what rounding alone does on the CPU (fused vs unfused, fp32 vs fp64)
+    m_cpu = cpu.val(save_json=str(root / "cpu.json"), **val_kw)
+    require(rows_per_image(root / "cpu.json") == out["fp32"]["counts"], "val: GPU and CPU detection counts differ")
+    unfused = facade("cpu", fuse=False)
+    m_u32 = unfused.val(**val_kw)
+    unfused.model.double()
+    m_u64 = unfused.val(**val_kw)
+    diffs = {"card vs CPU": (out["fp32"]["metrics"], m_cpu), "CPU fused vs unfused": (m_cpu, m_u32),
+             "CPU unfused fp32 vs fp64": (m_u32, m_u64)}
+    diff = {name: {k: abs(a[k] - b[k]) for k in VAL_METRICS} for name, (a, b) in diffs.items()}
+    log(f"[val] |metric differences| (fp32): {json.dumps(diff)}")
+    # the forward's part: decoded outputs of 4 val images, card against CPU, and the CPU's fp32 against fp64
+    x4 = next(DataLoader(ds, VAL_BATCH).epoch())["images"][:4]
+    with torch.inference_mode():
+        d_cpu = cpu.model.forward_predict(torch.from_numpy(x4))
+        d64 = unfused.model.forward_predict(torch.from_numpy(x4).double() / 255.0)
+        d32 = facade("cpu", fuse=False).model.forward_predict(torch.from_numpy(x4).float() / 255.0)
+    errs = {name: ((a[..., :4] - b[..., :4]).abs().max().item(), (a[..., 4:] - b[..., 4:]).abs().max().item())
+            for name, (a, b) in {"card vs CPU": (captured[0][:4], d_cpu), "CPU fp32 vs fp64": (d32, d64)}.items()}
+    log(f"[val] decoded outputs of 4 val images, max |diff| (box px, score): {errs}")
+    require(max(diff["card vs CPU"].values()) <= VAL_METRIC_TOL and m_cpu["mAP50-95"] > 0.05,
+            f"val: the card's metrics differ from the CPU validator's beyond {VAL_METRIC_TOL}")
+
+    # the NMS kernel on one val batch's multi-label candidates, against its plain loop
+    batch = next(DataLoader(ds, VAL_BATCH).epoch())
+    v = DetectionValidator(gpu.model, imgsz=IMGSZ)
+    with torch.inference_mode():
+        decoded = gpu.model.forward_predict(v.preprocess(batch["images"]))
+        cboxes, scores, cls_idx, _ = nms._prep_candidates(decoded, 80, VAL_NMS["conf_thres"], VAL_NMS["max_nms"],
+                                                          True, None, False)
+    cand = (cboxes + cls_idx[..., None] * nms.MAX_WH).float().contiguous()
+    scores = scores.contiguous()
+    iou, max_det = VAL_NMS["iou_thres"], VAL_NMS["max_det"]
+    ki, kv = cuda_nms.batched_greedy_nms(cand, scores, iou, max_det)
+    ki_p, kv_p = cuda_nms.batched_greedy_nms_plain(cand, scores, iou, max_det)
+    torch.cuda.synchronize()
+    require(torch.equal(ki, ki_p) and torch.equal(kv, kv_p), "NMS kernel vs plain differ on the val candidates")
+    valid = (scores > 0).float().mean().item()
+    # the same box under two or more classes among a batch's candidates: apart only by the class offset
+    shared = (cboxes[:, :64, None] == cboxes[:, None]).all(-1).sum(-1).gt(1).float().mean().item()
+    steps = (kv.sum(1) + (kv.sum(1) < max_det).long()).sum().item()
+    bound_ms, bound_by, _ = bound(nbytes(cand, scores, ki, kv), steps * cand.shape[1] * 15)
+    ms = cuda_ms(lambda: cuda_nms.batched_greedy_nms(cand, scores, iou, max_det), inner=10)
+    plain_ms = cuda_ms(lambda: cuda_nms.batched_greedy_nms_plain(cand, scores, iou, max_det), reps=3, warmup=1)
+    top = cand[:, :2048].contiguous(), scores[:, :2048].contiguous()  # sorted by score: the best 2048
+    ms_2048 = cuda_ms(lambda: cuda_nms.batched_greedy_nms(*top, iou, max_det), inner=10)
+    scratch = cuda_nms._lib().nms_scratch_bytes(VAL_BATCH, cand.shape[1], max_det)
+    log(f"[val] NMS kernel == plain on one val batch's multi-label candidates, B={VAL_BATCH} N={cand.shape[1]} "
+        f"iou {iou}: {valid:.4f} of the candidates valid, {shared:.4f} of the first 64 share their box with another "
+        f"class, {int(kv.sum())} kept; kernel {ms:.4f} ms (the best 2048 of the same candidates {ms_2048:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); scratch {scratch / 2**20:.1f} MiB")
+    flat = decoded[..., 4:].reshape(decoded.shape[0], -1)
+    sort_ms = cuda_ms(lambda: nms.stable_topk(flat, VAL_NMS["max_nms"]), reps=10)
+    prep_ms = cuda_ms(lambda: nms._prep_candidates(decoded, 80, VAL_NMS["conf_thres"], VAL_NMS["max_nms"], True,
+                                                   None, False), reps=10)
+    log(f"[val] the candidate sort (stable sort of [{flat.shape[0]}, {flat.shape[1]}] probabilities): "
+        f"{sort_ms:.4f} ms a batch; the whole candidate step {prep_ms:.4f} ms")
+
+    # seeded detections through the card's NMS and through the CPU's: the same metrics, exactly
+    decoded_batches = [torch.from_numpy(seeded_val_predictions(b, seed))
+                       for seed, b in enumerate(DataLoader(ds, VAL_BATCH).epoch())]
+    seeded = {"card": replayed(gpu, decoded_batches), "cpu": replayed(cpu, decoded_batches)}
+    log(f"[val] seeded detections, card NMS vs CPU: {[(k, seeded['card'][k], seeded['cpu'][k]) for k in VAL_METRICS]}")
+    require(all(seeded["card"][k] == seeded["cpu"][k] for k in (*VAL_METRICS, "fitness"))
+            and seeded["cpu"]["mAP50-95"] > 0.3, "val: seeded detections give other metrics on the card")
+
+    # bf16: the card's bf16 copy against the CPU fp32, within 1.5x the CPU bf16 copy's own distance
+    x8 = batch["images"][:8]
+    with torch.inference_mode():
+        g16 = DetectionValidator(gpu.model, compute_dtype=bf16).model.forward_predict(
+            torch.from_numpy(x8).to(dev)).cpu()
+        c32 = cpu.model.forward_predict(torch.from_numpy(x8))
+        c16 = DetectionValidator(cpu.model, compute_dtype=bf16).model.forward_predict(torch.from_numpy(x8))
+    stats = {}
+    for key, sl in (("boxes", np.s_[..., :4]), ("scores", np.s_[..., 4:])):
+        stats[key] = (rel_rms(g16[sl], c32[sl]), rel_rms(c16[sl], c32[sl]))
+        require(bool(torch.isfinite(g16).all()) and 0 < stats[key][1] and stats[key][0] <= 1.5 * stats[key][1],
+                f"val bf16: GPU {key} rel-RMS {stats[key][0]} from CPU fp32, more than 1.5x the CPU bf16's")
+    log(f"[val] bf16 decoded outputs of 8 val images, rel-RMS from the CPU fp32: boxes GPU {stats['boxes'][0]:.4e} "
+        f"(CPU bf16 {stats['boxes'][1]:.4e}), scores GPU {stats['scores'][0]:.4e} (CPU bf16 {stats['scores'][1]:.4e})")
+    out.update(decode_err=errs,
+               nms_4096=dict(max_abs_err=(ki.long() - ki_p.long()).abs().max().item(), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, ms_best_2048=ms_2048, valid_share=valid,
+                             scratch_bytes=scratch),
+               sort_ms=sort_ms, prep_ms=prep_ms, metric_diffs=diff, seeded=seeded["card"], bf16_rel_rms=stats)
+    return out
+
+
 def profile_kernels(run, xb, iters: int = 5):
     """(wall ms per iteration, {kernel name: device us per iteration}, kernels per iteration)
     of ``run(xb)`` under torch.profiler, after one untimed call."""
@@ -1455,6 +1749,8 @@ def main():
     bf16_res = phase_bf16_paths(dev, {"yolo-master-n": model, "with fused_esmoe_fuse": moe, "yolo-master-v0_1-n": v01,
                                       "yolo-master-m": scale_m}, imgs)
     done("bf16 paths")
+    val = phase_val(dev, state)
+    done("val path")
 
     def v01_dense(xb):
         v01.model.sparse_inference = False
@@ -1494,12 +1790,15 @@ def main():
     kernels = [
         kernel_entry("fused_stem", "stem.cu", "pallas_stem.py:177", main_launches["stem"], stem_res[("n", 16)],
                      "uint8 [16,640,640,3] -> [16,160,160,32]", bound_peak=stem_res[("n", 16)]["bound_peak"],
-                     bank_launches=main_launches["stem_bank"],
+                     bank_launches=main_launches["stem_bank"], val_launches=val["fp32"]["launches"]["stem"],
                      widths={scale: {k: stem_res[(scale, 16)][k]
                                      for k in ("ms", "plain_ms", "bound_ms", "bound_peak", "max_abs_err")}
                              for scale in STEM_WIDTHS}),
         kernel_entry("batched_greedy_nms", "nms.cu", "pallas_nms.py:120", main_launches["nms"],
-                     nms_res[(16, 2048, False)], "B=16 N=2048 max_det=300"),
+                     nms_res[(16, 2048, False)], "B=16 N=2048 max_det=300",
+                     val_launches={k: val[k]["launches"]["nms"] for k in ("fp32", "bf16")},
+                     val_multilabel_4096={"shape": "B=16 N=4096 max_det=300 iou=0.7, one val batch's multi-label "
+                                                   "candidates", **val["nms_4096"]}),
         kernel_entry("fused_esmoe", "esmoe.cu", "pallas_esmoe.py:81", moe_launches["esmoe"], es_sum,
                      "B=16, the four placements [16,160,160,64], [16,80,80,128], [16,40,40,128], "
                      "[16,20,20,256] summed", module_ms=es_sum["module_ms"], bound_peak=es_sum["bound_peak"]),
@@ -1519,6 +1818,8 @@ def main():
                      stem_bf16, "uint8 [16,640,640,3] -> bf16 [16,160,160,32] (the bf16 predict path's form)",
                      bound_peak=stem_bf16["bound_peak"], cudnn_bf16_pair_ms=stem_bf16["cudnn_bf16_pair_ms"],
                      bank_launches=bf16_res["yolo-master-n"]["launches"]["stem_bank"],
+                     val_launches=val["bf16"]["launches"]["stem"],
+                     val_bank_launches=val["bf16"]["launches"]["stem_bank"],
                      launches_scale_m=bf16_res["yolo-master-m"]["launches"]["stem"],
                      accumulation_rounding=bf16_rounding,
                      stem_share_scale_m_bs16=shares["yolo-master-m predict path, bf16"]["stem_share"],
@@ -1533,6 +1834,9 @@ def main():
                      "bf16 in and out, B=16, the four placements summed", module_ms=es_bf16["module_ms"],
                      bound_peak=es_bf16["bound_peak"]),
     ]
+    log("[val] ms/img at 640, bs 16, warm (load, device, match): " + json.dumps(
+        {k: {"all": val[k]["ms_per_img"], "split": val[k]["speed"]} for k in ("fp32", "bf16")})
+        + f"; candidate sort {val['sort_ms']:.4f} ms a batch")
     log("[e2e] device ms/img, fp32 and bf16 paths in turns: " + json.dumps(
         {name: {f"bs{bs}": r["e2e"][bs] for bs in (1, 16)} for name, r in bf16_res.items()}))
     print(gpu_name_and_power(), flush=True)

@@ -733,3 +733,114 @@ def test_c3k2_bank_is_kept_until_the_weights_change(dev):
             out, ref = fused_c3k2(x, wi, block.c, 1), fused_c3k2_plain(x, wi, block.c, 1)
             assert fused_c3k2.bank_builds == builds_before + 1
             assert bool(((out - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all())
+
+
+def _val_decoded(b, a, nc, seed=0):
+    """Decoded predictions [b, a, 4 + nc] as the validator's NMS sees them: xywh
+    px and probabilities, every third anchor scoring five classes at 1.0, saturated (one box
+    under several classes), most other scores spread below and about conf 0.001."""
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(b, a, 2, generator=g) * 600
+    wh = torch.rand(b, a, 2, generator=g) * 110 + 10
+    probs = torch.rand(b, a, nc, generator=g)
+    probs = torch.where(probs < 0.6, probs * 0.003, probs)
+    probs[:, ::3, :5] = 1.0  # saturated: tied across classes and anchors
+    return torch.cat([xy, wh, probs], -1)
+
+
+def test_nms_kernel_equals_plain_on_multilabel_val_candidates(dev):
+    """The validator's regime: multi-label candidates (conf 0.001, iou 0.7,
+    max_nms 4096) at B=16, N=4096, with the same box under several classes kept
+    apart only by the class offset: the kernel's keep sets equal the plain
+    loop's, and non_max_suppression on the card gives the CPU's detections."""
+    from yolo_master_tpu_torch.ops.nms import MAX_WH, _prep_candidates, non_max_suppression
+
+    decoded = _val_decoded(16, 2100, 80)
+    kw = dict(nc=80, conf_thres=0.001, iou_thres=0.7, max_det=300, max_nms=4096, multi_label=True)
+    cboxes, scores, cls_idx, _ = _prep_candidates(decoded.to(dev), 80, 0.001, 4096, True, None, False)
+    assert scores.shape == (16, 4096) and bool((scores > 0).all())
+    assert bool((cboxes[:, :1] == cboxes[:, 1:5]).all())  # the five tied classes of one anchor come first
+    cand = (cboxes + cls_idx[..., None] * MAX_WH).contiguous()
+    ki, kv = batched_greedy_nms(cand, scores.contiguous(), 0.7, 300)
+    ki_p, kv_p = batched_greedy_nms_plain(cand, scores, 0.7, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, ki_p) and torch.equal(kv, kv_p) and bool(kv.all())
+    on_card = non_max_suppression(decoded.to(dev), **kw)
+    on_cpu = non_max_suppression(decoded, **kw)
+    for k in ("valid", "classes", "scores", "boxes"):
+        assert torch.equal(on_card[k].cpu(), on_cpu[k]), k
+
+
+def _val_set(root, n, imgsz, seed=0):
+    """``n`` PNGs with their long side at ``imgsz`` (no resize), portrait and
+    landscape; returns the yaml (80 classes)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    for i in range(n):
+        s = int(rng.integers(imgsz // 2, imgsz + 1))
+        h, w = (s, imgsz) if i % 2 else (imgsz, s)
+        im = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        Image.fromarray(im).save(root / "images" / f"{i:04d}.png")
+    yaml_path = root / "data.yaml"
+    yaml_path.write_text(f"path: {root}\nval: images\nnames:\n" + "".join(f"  {i}: c{i}\n" for i in range(80)))
+    return yaml_path
+
+
+def test_val_on_the_card_matches_the_cpu(dev, tmp_path):
+    """YOLO(...).fuse().val() at 64 px on 20 images (batches of 8, the last
+    wrapped) on the card and on the CPU, same weights (BN calibrated on the set,
+    class biases at 0), labels drawn from the CPU's own detections (each
+    image's 4 best): the stem and NMS kernels launched once a batch, detection
+    counts per image equal, each metric within 1e-3 (the port-vs-JAX gate of
+    tests/test_torch_validator.py), in fp32; bf16 runs and gives finite metrics."""
+    import json
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.data.dataset import DataLoader, YOLODataset, img2label_path
+    from yolo_master_tpu_torch.engine.validator import DetectionValidator
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    imgsz, n, bs = 64, 20, 8
+    yaml_path = _val_set(tmp_path, n, imgsz)
+    ds = YOLODataset(str(yaml_path), imgsz=imgsz)
+    cpu = YOLO("yolo-master-n", device="cpu", seed=1)
+    calibrate_bn(cpu.model, torch.from_numpy(next(DataLoader(ds, bs).epoch())["images"]).float() / 255.0)
+    with torch.no_grad():
+        for branch in cpu.model.head.cv3:
+            branch[-1].bias.zero_()
+    card = YOLO("yolo-master-n", device=dev).load_state_dict(cpu.model.state_dict()).fuse()
+    cpu.fuse()
+    v = DetectionValidator(cpu.model, imgsz=imgsz)
+    seen = 0
+    for b in DataLoader(ds, bs).epoch():
+        det = {k: t.numpy() for k, t in v.run(v.preprocess(b["images"])).items()}
+        for i in range(min(bs, n - seen)):
+            h0, w0 = ds.shapes[seen]
+            boxes = v._to_original(det["boxes"][i, :4], *v._letterbox_params(h0, w0), w0, h0, clip=True)
+            rows = [f"{int(c)} {(x1 + x2) / 2 / w0:.6f} {(y1 + y2) / 2 / h0:.6f} {(x2 - x1) / w0:.6f} "
+                    f"{(y2 - y1) / h0:.6f}" for (x1, y1, x2, y2), c in zip(boxes, det["classes"][i, :4])]
+            with open(img2label_path(ds.img_files[seen]), "w") as f:
+                f.write("\n".join(rows) + "\n")
+            seen += 1
+
+    def counts(path):
+        rows = json.loads(path.read_text())
+        return [sum(r["image_id"] == i for r in rows) for i in range(n)]
+
+    kw = dict(data=str(yaml_path), imgsz=imgsz, batch=bs)
+    m_cpu = cpu.val(save_json=str(tmp_path / "cpu.json"), **kw)
+    fused_stem.launches = batched_greedy_nms.launches = 0
+    m_card = card.val(save_json=str(tmp_path / "card.json"), **kw)
+    torch.cuda.synchronize()
+    assert fused_stem.launches == batched_greedy_nms.launches == 3
+    assert m_card["images"] == m_cpu["images"] == n
+    assert counts(tmp_path / "card.json") == counts(tmp_path / "cpu.json")
+    assert m_cpu["mAP50-95"] > 0.1
+    for k in ("precision", "recall", "mAP50", "mAP50-95"):
+        assert abs(m_card[k] - m_cpu[k]) <= 1e-3, (k, m_card[k], m_cpu[k])
+    m16 = card.val(compute_dtype=torch.bfloat16, **kw)
+    assert m16["images"] == n and all(np.isfinite(m16[k]) for k in ("precision", "recall", "mAP50", "mAP50-95"))
+    assert fused_stem.launches == batched_greedy_nms.launches == 6

@@ -1,6 +1,7 @@
 """YOLO facade (counterpart of ``yolo_master_tpu/models/yolo.py``): detection only.
 
     YOLO("yolo-master-n").fuse().predict(images)
+    YOLO("yolo-master-n").fuse().val(data="data.yaml", imgsz=640, batch=16)
 
 The model runs on the card (``device="cuda"``) unless the caller asks for
 another device, as the CPU tests do with ``device="cpu"``. Weights are drawn
@@ -15,6 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from ..engine.predictor import DetectionPredictor
+from ..engine.validator import DetectionValidator
 from ..nn.tasks import DetectionModel
 from ..utils import coco_names
 from ..utils.fuse import fuse_bn, fused_stem_fuse
@@ -75,3 +77,20 @@ class YOLO:
 
     def __call__(self, source, **kwargs):
         return self.predict(source, **kwargs)
+
+    # -- validation ----------------------------------------------------------------
+    def val(self, **kwargs) -> dict:
+        """mAP of the model on a dataset yaml's val split (``engine/validator.py``).
+
+        Keyword arguments: data, imgsz, batch, conf, iou, max_det, max_nms, max_gt,
+        save_json (a path for COCO-format predictions), compute_dtype
+        (``torch.float32``, the default, or ``torch.bfloat16``: the model's bf16 copy).
+        Returns precision, recall, mAP50, mAP50-95, fitness, images, sec and speed
+        (ms per image of load, device and match).
+        """
+        keys = {"data", "imgsz", "batch", "conf", "iou", "max_det", "max_nms", "max_gt", "save_json",
+                "compute_dtype"}
+        unknown = set(kwargs) - keys
+        if unknown:
+            raise TypeError(f"unknown val arguments: {sorted(unknown)}")
+        return DetectionValidator(self.model, **kwargs)()
