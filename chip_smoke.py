@@ -1640,6 +1640,216 @@ def _phase_val(dev, state, root):
     return out
 
 
+def train_batch(b: int, m: int, dev, seed: int, max_boxes: int = 8):
+    """A seeded synthetic train batch at IMGSZ in the train step's layout: uniform-noise
+    images [b, IMGSZ, IMGSZ, 3] in 0..1, up to ``max_boxes`` boxes an image (xyxy px,
+    sides 24-320 px) in ``m`` padded slots, classes, mask."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(b, m, 2, generator=g) * (IMGSZ - 48)
+    wh = 24 + torch.rand(b, m, 2, generator=g) * 296
+    boxes = torch.cat([xy, (xy + wh).clamp(max=IMGSZ - 1)], -1)
+    n = torch.randint(1, max_boxes + 1, (b, 1), generator=g)
+    batch = {"images": torch.rand(b, IMGSZ, IMGSZ, 3, generator=g), "boxes": boxes,
+             "classes": torch.randint(0, 80, (b, m), generator=g), "mask": torch.arange(m)[None] < n}
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def train_model(state, where, head_bias_zero: bool = True):
+    """yolo-master-n (unfused) with phase 9's calibrated weights, the class biases at 0
+    as in the val phase, on ``where``."""
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+
+    y = YOLO("yolo-master-n", device=where).load_state_dict(state)
+    if head_bias_zero:
+        with torch.no_grad():
+            for branch in y.model.head.cv3:
+                branch[-1].bias.zero_()
+    return y
+
+
+def phase_train(dev, state):
+    """The train step (engine/train_step.py) on yolo-master-n at 640, fp32:
+    (a) one optimizer step at bs 2 on the card against the same step on the CPU,
+    from a state at step 50 of the warmup (every group's lr non-zero, momentum
+    traces seeded); (b) three optimizer steps of bs 16 x accumulate 4 (nbs 64),
+    max_gt 128: finite losses, the EMA counted, BN statistics moved, times, peak
+    memory and one profiled step; (c) the EMA weights loaded into a model,
+    fused, and validated on a synthetic set: the stem and NMS kernels launch."""
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from yolo_master_tpu_torch.engine import train_step as ts
+
+    metrics = ("loss", "box_loss", "cls_loss", "dfl_loss", "aux_loss")
+    out = {}
+
+    # (a) card against CPU, one optimizer step
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
+    runs = {}
+    g = torch.Generator().manual_seed(3)
+    for where in (dev, "cpu"):
+        y = train_model(state, where)
+        tx = pol.build_optimizer(y.model)
+        st = ts.make_train_state(y.model, tx)
+        st.step = st.opt_state.count = 50
+        st.ema_updates = 50.0
+        g.manual_seed(3)
+        with torch.no_grad():
+            for name, t in sorted(st.opt_state.buffers["trace"].items()):
+                t.copy_(torch.randn(t.shape, generator=g) * 1e-3)
+        before = {k: v.detach().clone() for k, v in y.model.state_dict().items() if v.is_floating_point()}
+        step = ts.make_train_step(y.model, tx)
+        st, met = step(st, train_batch(2, 8, where, seed=11))
+        runs[str(where)] = (y.model, st, {k: float(met[k]) for k in metrics}, before)
+    (mg, sg, lg, bg), (mc, sc, lc, bc) = runs[str(dev)], runs["cpu"]
+    loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in metrics}
+    log(f"[train a] one step at bs 2 from step 50 (lr {pol.lr_schedule(50):.3e}, bias lr "
+        f"{pol.bias_lr_schedule(50):.4f}, momentum {pol.momentum_schedule(50):.4f}): card {lg}, CPU {lc}; "
+        f"relative deviation {loss_err}")
+    require(all(math.isfinite(v) for v in lg.values()) and max(loss_err.values()) <= 1e-4,
+            "train (a): the card's loss components differ from the CPU's beyond 1e-4 relative")
+    # the step's updates, card against CPU, where a tensor moved by >= 1e-2 of the largest move:
+    # within 5e-2 of the tensor's own move (cuDNN's backward sums in another order than the CPU's)
+    sd_g, sd_c = mg.state_dict(), mc.state_dict()
+    moves = {k: ((sd_g[k].cpu() - bg[k].cpu()), (sd_c[k] - bc[k])) for k in bc}
+    top = max(d.abs().max().item() for _, d in moves.values())
+    rel = {k: (a - b).abs().max().item() / b.abs().max().item() for k, (a, b) in moves.items()
+           if b.abs().max().item() >= 1e-2 * top}
+    k_rel = max(rel, key=rel.get)
+    # the state after the step: within 1e-4 of each tensor's scale plus 1e-2 of its move in this step (a BN
+    # bias drawn at 0 is all move after one step at the bias lr)
+    worst = {}
+    for what, a, b in (("params and BN statistics", sd_g, sd_c), ("EMA", sg.ema_params, sc.ema_params)):
+        errs = {k: ((a[k].cpu() - b[k]).abs().max().item(),
+                    1e-4 * b[k].abs().max().item() + 1e-2 * moves[k][1].abs().max().item() + 1e-7)
+                for k in sc.ema_params}
+        k_worst = max(errs, key=lambda k: errs[k][0] / errs[k][1])
+        worst[what] = (k_worst, *errs[k_worst])
+        require(all(e <= lim for e, lim in errs.values()),
+                f"train (a): {what} after the step differ beyond their limit (worst {worst[what]})")
+    log(f"[train a] largest deviations, card vs CPU (tensor, |diff|, limit): {worst}; updates: worst {k_rel} "
+        f"{rel[k_rel]:.3e} of its largest move ({len(rel)} tensors moved by >= 1e-2 of the largest move, {top:.3e})")
+    require(rel[k_rel] <= 5e-2, "train (a): the card's updates differ from the CPU's beyond 5e-2 of their size")
+    out["a"] = dict(loss_rel_err=loss_err, worst=worst, update_rel_err=rel[k_rel])
+
+    # (b) the slice at full width: bs 16 x accumulate 4, three optimizer steps
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=16)
+    require(pol.accumulate == 4, "train (b): nbs 64 at bs 16 should accumulate 4")
+    y = train_model(state, dev)
+    tx = pol.build_optimizer(y.model)
+    st = ts.make_train_state(y.model, tx)
+    step = ts.make_train_step(y.model, tx, accumulate=pol.accumulate)
+    batches = [train_batch(16 * pol.accumulate, 128, dev, seed=20 + i) for i in range(4)]
+    bn_before = {k: v.clone() for k, v in y.model.state_dict().items() if k.endswith("running_mean")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for i in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, met = step(st, batches[i])
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append({k: float(met[k]) for k in (*metrics, "finite")})
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(not torch.equal(v, bn_before[k]) for k, v in y.model.state_dict().items() if k in bn_before)
+    log(f"[train b] yolo-master-n, 640, bs 16 x accumulate 4, max_gt 128, three steps: losses {losses}; ms per "
+        f"optimizer step {[round(t, 3) for t in step_ms]} (CUDA events), per micro-batch "
+        f"{[round(t / pol.accumulate, 3) for t in step_ms]}; peak memory {peak / 2**30:.2f} GiB; "
+        f"{moved} of {len(bn_before)} BN running means moved")
+    require(all(math.isfinite(r[k]) for r in losses for k in metrics) and all(r["finite"] == 1.0 for r in losses),
+            "train (b): a non-finite loss")
+    require(st.ema_updates == 3 and st.step == 3 and st.opt_state.count == 3, "train (b): the counters")
+    require(moved == len(bn_before), "train (b): BN statistics did not move")
+    # one micro-batch alone (forward, loss, backward) and the optimizer + EMA alone
+    mb = {k: v[:16] for k, v in batches[3].items()}
+    micro = ts.make_train_step(y.model, tx)  # accumulate 1: one micro-batch and its optimizer step
+    micro_ms = cuda_ms(lambda: micro(st, mb), reps=3, warmup=1)
+    log(f"[train b] one bs-16 step without accumulation (forward, loss, backward, optimizer, EMA): "
+        f"{micro_ms:.3f} ms (CUDA events, median of 3)")
+    # the step's layers on one bs-16 micro-batch, CUDA events between them: the train-mode forward,
+    # the loss (TAL included), backward, and the optimizer with the EMA (median of 3 after one untimed)
+    hyp = {"box": 7.5, "cls": 0.5, "dfl": 1.5, "moe": 0.01}
+    names = ("forward", "loss + TAL", "backward", "optimizer + EMA")
+    split = {k: [] for k in names}
+    y.model.train()
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        preds, aux = y.model.forward_train(mb["images"])
+        ev[1].record()
+        total, _ = y.model.compute_loss(preds, mb, sum(rec.value for rec in aux.values()), hyp)
+        ev[2].record()
+        total.backward()
+        ev[3].record()
+        tx.apply(y.model, st.opt_state)
+        ts.ema_blend(st.ema_params, y.model, ts.ema_decay(st.ema_updates))
+        ev[4].record()
+        ev[4].synchronize()
+        for p in y.model.parameters():
+            p.grad = None
+        for i, k in enumerate(names):
+            split[k].append(ev[i].elapsed_time(ev[i + 1]))
+    split = {k: statistics.median(v[1:]) for k, v in split.items()}
+    log("[train b] one bs-16 micro-batch by layer (CUDA events, ms): " + json.dumps(split))
+    # one profiled optimizer step: busy share and top kernels
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, _ = step(st, batches[3])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    count = sum(e.count for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"[train b] one profiled optimizer step: wall {wall_ms:.3f} ms under the profiler, device busy "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {count} kernels; top: "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
+    require(busy_ms > 0, "train (b): the profile shows no device time")
+    out["b"] = dict(losses=losses, step_ms=step_ms, micro_ms=[t / pol.accumulate for t in step_ms],
+                    step_no_accumulation_ms=micro_ms, layers_ms=split, peak_bytes=peak, busy_ms=busy_ms, wall_ms=wall_ms,
+                    busy_share=busy_ms / wall_ms, kernels=count)
+
+    # (c) the EMA weights to the kernels: a fused model of them through val()
+    from yolo_master_tpu_torch import YOLO
+
+    ema = YOLO("yolo-master-n", device=dev).load_state_dict(
+        {k: st.ema_params.get(k, v) for k, v in y.model.state_dict().items()}).fuse()
+    root = Path(tempfile.mkdtemp(prefix=".val_set_", dir=Path(__file__).resolve().parent))
+    try:
+        yaml_path = write_val_set(root, VAL_IMAGES, seed=5)
+        label_from_detections(ema.model, yaml_path)
+        reset_launches()
+        m = ema.val(data=str(yaml_path), imgsz=IMGSZ, batch=VAL_BATCH, save_json=str(root / "ema.json"))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        rows = json.loads((root / "ema.json").read_text())
+        counts = [sum(r["image_id"] == i + 1 for r in rows) for i in range(VAL_IMAGES)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_batches = math.ceil(VAL_IMAGES / VAL_BATCH)
+    log(f"[train c] val of the EMA model after three steps (fused): launches {launches}; {m['images']} images, "
+        f"P {m['precision']:.6f} R {m['recall']:.6f} mAP50 {m['mAP50']:.6f} mAP50-95 {m['mAP50-95']:.6f}; "
+        f"detections per image {counts}")
+    require(launches["stem"] == n_batches and launches["nms"] == n_batches,
+            "train (c): val of the EMA model did not launch the stem and NMS kernels once a batch")
+    require(m["images"] == VAL_IMAGES and all(c > 0 for c in counts)
+            and all(math.isfinite(m[k]) for k in VAL_METRICS), "train (c): an image without detections, or metrics")
+    out["c"] = dict(launches=launches, metrics={k: m[k] for k in VAL_METRICS})
+    return out
+
+
 def profile_kernels(run, xb, iters: int = 5):
     """(wall ms per iteration, {kernel name: device us per iteration}, kernels per iteration)
     of ``run(xb)`` under torch.profiler, after one untimed call."""
@@ -1751,6 +1961,8 @@ def main():
     done("bf16 paths")
     val = phase_val(dev, state)
     done("val path")
+    train = phase_train(dev, state)
+    done("train step")
 
     def v01_dense(xb):
         v01.model.sparse_inference = False
@@ -1791,12 +2003,14 @@ def main():
         kernel_entry("fused_stem", "stem.cu", "pallas_stem.py:177", main_launches["stem"], stem_res[("n", 16)],
                      "uint8 [16,640,640,3] -> [16,160,160,32]", bound_peak=stem_res[("n", 16)]["bound_peak"],
                      bank_launches=main_launches["stem_bank"], val_launches=val["fp32"]["launches"]["stem"],
+                     train_ema_val_launches=train["c"]["launches"]["stem"],
                      widths={scale: {k: stem_res[(scale, 16)][k]
                                      for k in ("ms", "plain_ms", "bound_ms", "bound_peak", "max_abs_err")}
                              for scale in STEM_WIDTHS}),
         kernel_entry("batched_greedy_nms", "nms.cu", "pallas_nms.py:120", main_launches["nms"],
                      nms_res[(16, 2048, False)], "B=16 N=2048 max_det=300",
                      val_launches={k: val[k]["launches"]["nms"] for k in ("fp32", "bf16")},
+                     train_ema_val_launches=train["c"]["launches"]["nms"],
                      val_multilabel_4096={"shape": "B=16 N=4096 max_det=300 iou=0.7, one val batch's multi-label "
                                                    "candidates", **val["nms_4096"]}),
         kernel_entry("fused_esmoe", "esmoe.cu", "pallas_esmoe.py:81", moe_launches["esmoe"], es_sum,
@@ -1837,6 +2051,7 @@ def main():
     log("[val] ms/img at 640, bs 16, warm (load, device, match): " + json.dumps(
         {k: {"all": val[k]["ms_per_img"], "split": val[k]["speed"]} for k in ("fp32", "bf16")})
         + f"; candidate sort {val['sort_ms']:.4f} ms a batch")
+    log("[train] " + json.dumps({"a": train["a"], "b": {k: v for k, v in train["b"].items() if k != "losses"}}))
     log("[e2e] device ms/img, fp32 and bf16 paths in turns: " + json.dumps(
         {name: {f"bs{bs}": r["e2e"][bs] for bs in (1, 16)} for name, r in bf16_res.items()}))
     print(gpu_name_and_power(), flush=True)

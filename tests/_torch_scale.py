@@ -1,11 +1,12 @@
 """Shared by tests/test_torch_scale_l.py and test_torch_scale_x.py: yolo-master
 at a wide scale in both packages on the same weights, on the CPU in fp32.
 
-Weights come from the JAX init through utils/weights.py:state_dict_from_jax;
-BatchNorm statistics are calibrated on the input in the port and carried back
-to the JAX tree with import_state_dict, as tests/test_torch_model.py's ``pair``
-fixture does (at the bare init the activations die out by the neck and the
-comparison would show nothing). The tolerances are those of
+Weights come from the port's seeded init, which draws every tensor from the
+JAX init's distributions (convs U(+-1/sqrt(fan_in)), BN identity, area
+attention trunc_normal(0.02)); BatchNorm statistics are calibrated on the
+input in the port, and the weights reach the JAX tree through
+:func:`jax_params_of` (at the bare init the activations die out by the neck
+and the comparison would show nothing). The tolerances are those of
 test_forward_predict_matches_jax_calibrated_bn: within 4x the port's own
 fp32-vs-fp64 error (floors 2e-3 px on boxes, 1e-5 on scores).
 """
@@ -23,10 +24,19 @@ from yolo_master_tpu.utils.torch_import import import_state_dict
 from yolo_master_tpu_torch.nn import layers as tlayers
 from yolo_master_tpu_torch.nn.tasks import DetectionModel
 from yolo_master_tpu_torch.utils.fuse import fuse_bn, fused_stem_fuse
-from yolo_master_tpu_torch.utils.weights import calibrate_bn, state_dict_from_jax
+from yolo_master_tpu_torch.utils.weights import calibrate_bn
 
 BOX, SCORE = np.s_[..., :4], np.s_[..., 4:]
 FLOORS = ((BOX, 2e-3, 0.1), (SCORE, 1e-5, 1e-2))  # (slice, floor, largest sane fp32-vs-fp64 error)
+
+
+def jax_params_of(jm, port):
+    """The port's weights as the JAX model's parameter tree (numpy leaves):
+    ``jax.eval_shape`` gives the tree's names and shapes without running the
+    JAX init (a 30-s compile on the CPU at any scale), and import_state_dict
+    fills it strictly, so a drift in the names fails."""
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map(np.asarray, import_state_dict(shapes, port.state_dict(), strict=True))
 
 
 def scale_pair(name: str):
@@ -34,15 +44,12 @@ def scale_pair(name: str):
     image and its uint8 copy, and JAX's forward_predict on both, stacked
     ([4, A, 84]: the float images, then the uint8 ones / 255)."""
     jm = JaxDetectionModel(name)
-    # init under jit: the same values as eager, one graph to compile
-    init = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(0)))
     x = np.random.default_rng(1).random((2, 64, 64, 3)).astype(np.float32)
     x_u8 = (x * 255).astype(np.uint8)
     port = DetectionModel(name)
-    port.load_state_dict(state_dict_from_jax(init), strict=True)
     calibrate_bn(port, torch.from_numpy(x))
     port.eval()
-    params = import_state_dict(init, port.state_dict(), strict=True)
+    params = jax_params_of(jm, port)
     ref = np.asarray(jax.jit(jm.forward_predict)(params, jnp.asarray(np.concatenate([x, x_u8 / np.float32(255)]))))
     return port, x, x_u8, ref
 

@@ -22,7 +22,7 @@ from yolo_master_tpu_torch.utils.fuse import fuse_bn
 from yolo_master_tpu_torch.utils.weights import state_dict_from_jax
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)

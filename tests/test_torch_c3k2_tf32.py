@@ -29,7 +29,7 @@ WIDTHS = [(32, 64, 1), (64, 128, 1), (32, 64, 2)]
 IDS = ["layer2", "layer5", "layer2_n2"]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)

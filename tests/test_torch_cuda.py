@@ -844,3 +844,53 @@ def test_val_on_the_card_matches_the_cpu(dev, tmp_path):
     m16 = card.val(compute_dtype=torch.bfloat16, **kw)
     assert m16["images"] == n and all(np.isfinite(m16[k]) for k in ("precision", "recall", "mAP50", "mAP50-95"))
     assert fused_stem.launches == batched_greedy_nms.launches == 6
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """engine/train_step.py: one SGD step of yolo-master-n at 64 px, B=2, from
+    step 50 of the warmup (every group's lr non-zero), on the card and on the
+    CPU from the same weights (BN calibrated) and batch: the loss components
+    within 1e-4 relative, the parameters, BN statistics and EMA after the step
+    within 1e-4 of each tensor's scale plus 1e-2 of its move in the step (the
+    card's backward sums in another order), ema_updates and the optimizer's
+    count advanced; then a fused copy of the card's EMA weights launches the
+    stem kernel in predict."""
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine import train_step as ts
+    from yolo_master_tpu_torch.nn.tasks import DetectionModel
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    rng = np.random.default_rng(5)
+    xy, wh = rng.uniform(0, 24, (2, 6, 2)), rng.uniform(16, 40, (2, 6, 2))
+    batch = {"images": torch.from_numpy(rng.random((2, 64, 64, 3), np.float32)),
+             "boxes": torch.from_numpy(np.concatenate([xy, np.minimum(xy + wh, 63)], -1).astype(np.float32)),
+             "classes": torch.from_numpy(rng.integers(0, 80, (2, 6))), "mask": torch.from_numpy(rng.random((2, 6)) < 0.8)}
+    base = DetectionModel("yolo-master-n")
+    calibrate_bn(base, batch["images"])
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        model = DetectionModel("yolo-master-n")
+        model.load_state_dict(base.state_dict())
+        model.to(where)
+        tx = pol.build_optimizer(model)
+        state = ts.make_train_state(model, tx)
+        state.step = state.opt_state.count = 50
+        state.ema_updates = 50.0
+        step = ts.make_train_step(model, tx)
+        state, met = step(state, {k: v.to(where) for k, v in batch.items()})
+        assert state.opt_state.count == 51 and state.ema_updates == 51.0 and float(met["finite"]) == 1.0
+        out[where.type] = (model, state, {k: float(met[k]) for k in ("loss", "box_loss", "cls_loss", "dfl_loss")})
+    (mg, sg, lg), (mc, sc, lc) = out["cuda"], out["cpu"]
+    for k, v in lc.items():
+        assert abs(lg[k] - v) <= 1e-4 * abs(v), (k, lg[k], v)
+    sd_g, sd_c, start = mg.state_dict(), mc.state_dict(), base.state_dict()
+    for name, ref in sc.ema_params.items():
+        move = (sd_c[name] - start[name]).abs().max()
+        for a, b in ((sd_g[name], sd_c[name]), (sg.ema_params[name], ref)):
+            assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max() + 1e-2 * move + 1e-7, name
+    ema = YOLO("yolo-master-n", device=dev).load_state_dict(
+        {k: sg.ema_params.get(k, v) for k, v in mg.state_dict().items()}).fuse()
+    fused_stem.launches = 0
+    ema.predict((rng.random((64, 64, 3)) * 255).astype(np.uint8), imgsz=64, conf=0.0)
+    assert fused_stem.launches == 1

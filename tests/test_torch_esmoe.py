@@ -27,10 +27,12 @@ from yolo_master_tpu_torch.ops.esmoe import fused_esmoe, fused_esmoe_plain, pack
 from yolo_master_tpu_torch.utils.fuse import fuse_bn, fused_esmoe_fuse
 from yolo_master_tpu_torch.utils.weights import calibrate_bn, state_dict_from_jax
 
+from _torch_scale import jax_params_of  # noqa: E402 (tests/ is on the path)
+
 CTX = Context(training=False)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -119,17 +121,19 @@ def _fp32_noise(port, x):
 
 @pytest.fixture(scope="module")
 def pairs():
-    """yolo-master-n at 64 px on the JAX init, in two settings: "default" (the
-    JAX init as it is, test_surgery_forward_runs's setting) and "calibrated"
-    (BN statistics calibrated on the input in the port and carried back to the
-    JAX tree: at the bare init the activations vanish by the neck and the
-    ES_MOE blocks hardly reach the output). Per setting: the port model, the
-    JAX tree after pallas_esmoe_fuse, the layers it swapped, and the JAX
-    fused model's output."""
-    jm = JaxDetectionModel("yolo-master-n")
-    init = _np_tree(jax.jit(jm.init)(jax.random.PRNGKey(0)))
+    """yolo-master-n at 64 px on the port's seeded init (the JAX init's
+    distributions; the JAX tree through tests/_torch_scale.py:jax_params_of),
+    in two settings: "default" (the init as it is, test_surgery_forward_runs's
+    setting) and "calibrated" (BN statistics calibrated on the input in the
+    port and carried back to the JAX tree: at the bare init the activations
+    vanish by the neck and the ES_MOE blocks hardly reach the output). Per
+    setting: the port model, the JAX tree after pallas_esmoe_fuse, the layers
+    it swapped, and the JAX fused model's output. The surgery rewrites the
+    JAX model's specs, so each setting fuses its own copy; both copies then
+    have the same graph, and one compiled forward serves both."""
+    init = jax_params_of(JaxDetectionModel("yolo-master-n"), DetectionModel("yolo-master-n"))
     x = np.random.default_rng(4).normal(0.4, 0.2, (2, 64, 64, 3)).astype(np.float32)
-    out = {}
+    out, forward = {}, None
     for setting in ("default", "calibrated"):
         port = DetectionModel("yolo-master-n")
         port.load_state_dict(state_dict_from_jax(init), strict=True)
@@ -137,16 +141,17 @@ def pairs():
             calibrate_bn(port, torch.from_numpy(x))
         port.eval()
         params = import_state_dict(init, port.state_dict(), strict=True)
+        jm = JaxDetectionModel("yolo-master-n")
         fused_params = pallas_esmoe_fuse(jm, params)
         swapped = [s.i for s in jm.specs if type(s.module).__name__ == "PallasESMOE"]
-        ref = np.asarray(jax.jit(jm.forward_predict)(fused_params, jnp.asarray(x)))
-        jm = JaxDetectionModel("yolo-master-n")  # the surgery rewrote the specs
+        forward = forward or jax.jit(jm.forward_predict)
+        ref = np.asarray(forward(fused_params, jnp.asarray(x)))
         out[setting] = (port, _np_tree(fused_params), swapped, ref)
     return x, out
 
 
 def _tolerance(setting, port, x):
-    """5e-3 at the JAX init (test_surgery_forward_runs's limit). At calibrated
+    """5e-3 at the seeded init (test_surgery_forward_runs's limit). At calibrated
     BN, fp32 rounding noise grows through the depth (~0.3 px on boxes and
     ~4e-3 on scores here, for the port against fp64), so the limit is 4x the
     port's own fp32-vs-fp64 error, boxes and scores apart, as in

@@ -1,8 +1,12 @@
 """The port's modules and yolo-master-n (yolo_master_tpu_torch/nn) against the
 JAX package on the same weights and inputs, on the CPU in fp32.
 
-Weights come from the JAX package's init and reach the port through
-utils/weights.py:state_dict_from_jax. For the whole model, BatchNorm statistics
+Whole-model weights come from the port's seeded init, which draws every
+tensor from the JAX init's distributions, as the JAX parameter tree
+(tests/_torch_scale.py:jax_params_of: jax.eval_shape's tree filled strictly,
+without the 30-s JAX init), and reach the port back through
+utils/weights.py:state_dict_from_jax. Single modules use the JAX module's own
+init. For the whole model, BatchNorm statistics
 are then calibrated on the input (utils/weights.py:calibrate_bn) and carried
 back to the JAX tree with import_state_dict: at the default init the
 activations vanish with depth and the output would not depend on the input.
@@ -33,10 +37,12 @@ from yolo_master_tpu_torch.nn.tasks import DetectionModel, parse_model
 from yolo_master_tpu_torch.utils.fuse import fold_uint8_input, fuse_bn, fused_stem_fuse
 from yolo_master_tpu_torch.utils.weights import calibrate_bn, state_dict_from_jax
 
+from _torch_scale import jax_params_of  # noqa: E402 (tests/ is on the path)
+
 CTX = Context(training=False)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -77,12 +83,10 @@ def _nhwc(t):
 @pytest.fixture(scope="module")
 def pair():
     """The JAX model and the port on the same weights, in two settings:
-    "default" (the JAX init as it is) and "calibrated" (BN statistics
+    "default" (the seeded init as it is) and "calibrated" (BN statistics
     calibrated on the input in the port, then carried back to the JAX tree)."""
     jm = JaxDetectionModel("yolo-master-n")
-    # init_params(0) under jit: the same values as eager, and a fraction of the
-    # cold compile time on the CPU (one graph, not hundreds of small ones)
-    init = _np_tree(jax.jit(jm.init)(jax.random.PRNGKey(0)))
+    init = jax_params_of(jm, DetectionModel("yolo-master-n"))
     forward = jax.jit(jm.forward_predict)
     x = np.random.default_rng(1).random((2, 64, 64, 3)).astype(np.float32)
     x_u8 = (x * 255).astype(np.uint8)
@@ -122,7 +126,7 @@ def _fp32_noise(port, x):
 
 
 def test_forward_predict_matches_jax(pair):
-    """JAX init as it is: boxes within 2e-3 px and scores within 1e-5
+    """The seeded init as it is: boxes within 2e-3 px and scores within 1e-5
     (tests/test_parity_torch.py's gate)."""
     _, x, _, out = pair
     port, ref = out["default"]
@@ -155,7 +159,7 @@ def test_forward_predict_matches_jax_calibrated_bn(pair):
 def test_fused_uint8_model_matches_jax_unfused(pair, surgery, setting):
     """BN folded and /255 folded into layer 0 (as the fused stem kernel's plain
     version, or as plain conv weights), fed raw uint8, against the unfused JAX
-    model on the float image: within 1e-3 at the JAX init; at calibrated BN
+    model on the float image: within 1e-3 at the seeded init; at calibrated BN
     within 4x the port's own fp32 noise (as above)."""
     _, x, x_u8, out = pair
     port, ref = out[setting]
@@ -219,7 +223,7 @@ def test_module_matches_jax(name):
     rng, cases = _module_cases()
     jm, tm, shapes = cases[name]()
     jm = jm.finalize("m")
-    p = _perturb_bn(_np_tree(jm.init(jax.random.PRNGKey(3))), rng)
+    p = _perturb_bn(_np_tree(jax.jit(jm.init)(jax.random.PRNGKey(3))), rng)  # jit: the eager values, one compile
     if "gamma" in p:
         p["gamma"] = rng.uniform(0.5, 1.5, p["gamma"].shape).astype(np.float32)
     tm = _load_module(tm, p)
@@ -287,11 +291,11 @@ def _trainable(tree):
 
 @pytest.fixture(scope="module")
 def v0_1():
-    """v0_1-n at 64 px: the JAX model and the port on the same weights, JAX
-    init as it is ("default") and with BN calibrated in the port and carried
-    back ("calibrated"), both in sparse eval (the default)."""
+    """v0_1-n at 64 px: the JAX model and the port on the same weights, the
+    seeded init as it is ("default") and with BN calibrated in the port and
+    carried back ("calibrated"), both in sparse eval (the default)."""
     jm = JaxDetectionModel("yolo-master-v0_1-n")
-    init = _np_tree(jax.jit(jm.init)(jax.random.PRNGKey(0)))
+    init = jax_params_of(jm, DetectionModel("yolo-master-v0_1-n"))
     forward = jax.jit(jm.forward_predict)
     x = np.random.default_rng(5).random((2, 64, 64, 3)).astype(np.float32)
     out = {}
@@ -325,7 +329,7 @@ def test_v0_1_weight_round_trip_through_torch_import(v0_1):
 
 @pytest.mark.parametrize("setting", ["default", "calibrated"])
 def test_v0_1_forward_predict_matches_jax(v0_1, setting):
-    """Sparse eval, the port against JAX: at the JAX init within 2e-3 px and
+    """Sparse eval, the port against JAX: at the seeded init within 2e-3 px and
     1e-5 on scores; with calibrated BN within 4x the port's own fp32-vs-fp64
     error (floors 2e-3 px, 1e-5), as test_forward_predict_matches_jax_calibrated_bn.
     The port's dense eval (sparse_inference=False) agrees with its sparse eval

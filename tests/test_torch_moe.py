@@ -33,7 +33,7 @@ from yolo_master_tpu_torch.ops.moe import dense_expert_matmul, gathered_expert_m
 from yolo_master_tpu_torch.utils.weights import state_dict_from_jax
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -61,7 +61,7 @@ def _seed_bn(tree, rng):
 def _pair(jblock, tblock, seed=0):
     """The JAX block's init (BN statistics seeded) loaded strict into the port's block."""
     jblock.finalize("m")
-    p = _seed_bn(_np_tree(jblock.init(jax.random.PRNGKey(seed))), np.random.default_rng(seed))
+    p = _seed_bn(_np_tree(jax.jit(jblock.init)(jax.random.PRNGKey(seed))), np.random.default_rng(seed))
     sd = state_dict_from_jax({"layers": {"0": p}})
     tblock.load_state_dict({k[len("model.0."):]: v for k, v in sd.items()}, strict=True)
     return jblock, p, tblock.eval()

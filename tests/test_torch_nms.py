@@ -20,7 +20,7 @@ from yolo_master_tpu_torch.ops.cuda_nms import batched_greedy_nms, batched_greed
 from yolo_master_tpu_torch.ops.nms import non_max_suppression, stable_topk
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)

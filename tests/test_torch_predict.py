@@ -14,12 +14,13 @@ import torch
 import jax
 
 from yolo_master_tpu.models.yolo import YOLO as JaxYOLO
+from yolo_master_tpu.nn.tasks import DetectionModel as JaxDetectionModel
 from yolo_master_tpu_torch import YOLO
 
 REPO = Path(__file__).resolve().parents[1]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -29,8 +30,16 @@ def _few_threads():
 
 @pytest.fixture(scope="module")
 def facades():
-    jy = JaxYOLO("yolo-master-n")
-    port = YOLO("yolo-master-n", device="cpu").load_jax_params(jax.tree_util.tree_map(np.asarray, jy.params))
+    """Both facades on the port's seeded weights. The JAX facade is built with
+    its init replaced by jax.eval_shape's tree of the same names and shapes
+    (the eager JAX init takes most of a minute on the CPU), then takes the
+    port's weights through its own load_state_dict."""
+    port = YOLO("yolo-master-n", device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JaxDetectionModel, "init_params",
+                   lambda self, seed=0: jax.eval_shape(self.init, jax.random.PRNGKey(seed)))
+        jy = JaxYOLO("yolo-master-n")
+    jy.load_state_dict(port.model.state_dict())
     return jy, port
 
 

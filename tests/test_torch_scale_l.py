@@ -10,7 +10,7 @@ import torch
 from _torch_scale import check_forward_predict, check_fused_uint8, check_scale_rules, scale_pair
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)

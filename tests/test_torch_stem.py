@@ -21,7 +21,7 @@ from yolo_master_tpu_torch.nn.layers import FusedStem
 from yolo_master_tpu_torch.ops.stem import fused_stem, stem_weight_layout
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)

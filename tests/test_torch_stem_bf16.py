@@ -38,7 +38,7 @@ BF16 = torch.bfloat16
 CHANNEL_CHUNK = 16  # conv0 channels per chunk of the kernel: one tap's chain is one depth-16 step
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)

@@ -29,7 +29,7 @@ from yolo_master_tpu_torch.ops.stem import fused_stem_plain
 CHANNEL_CHUNK = 16  # conv0 channels per chunk of the kernel: the depth of one conv1 chain
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)

@@ -26,7 +26,7 @@ from yolo_master_tpu_torch.ops.moe import gathered_expert_matmul
 DEPTHS = [64, 128, 256]  # the C of the kernels' main shapes
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)

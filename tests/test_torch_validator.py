@@ -68,7 +68,7 @@ METRICS = ("precision", "recall", "mAP50", "mAP50-95")
 BF16 = torch.bfloat16
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _few_threads():
     prev = torch.get_num_threads()
     torch.set_num_threads(2)

@@ -2,8 +2,10 @@
 
 Per level, a box branch (``cv2``) gives 4*reg_max DFL logits and a class branch
 (``cv3``) gives nc logits. :meth:`Detect.forward` returns them anchors-last,
-``[B, A, C]`` as in the JAX package, for :meth:`Detect.decode` (every anchor)
-or :meth:`Detect.decode_topk` (the predict path: the top-k anchors only).
+``[B, A, C]`` as in the JAX package, A running over levels, then rows, then
+columns, for :meth:`Detect.decode` (every anchor) or :meth:`Detect.decode_topk`
+(the predict path: the top-k anchors only). In train mode it returns the JAX
+package's training dict, ``{"one2many": {"boxes", "scores"}, "hw_shapes"}``.
 """
 
 from __future__ import annotations
@@ -61,13 +63,17 @@ class Detect(nn.Module):
             self.cv3[i][-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
 
     def forward(self, feats: List[torch.Tensor]) -> dict:
-        """Per-level NCHW maps -> {"boxes": [B, A, 4*reg_max], "scores": [B, A, nc] logits, "hw_shapes"}."""
+        """Per-level NCHW maps -> {"boxes": [B, A, 4*reg_max], "scores": [B, A, nc] logits, "hw_shapes"};
+        in train mode {"one2many": {"boxes", "scores"}, "hw_shapes"}."""
         boxes, scores = [], []
-        for i, f in enumerate(feats):
+        for i, f in enumerate(feats):  # NCHW -> NHWC, then (rows, columns) flattened as JAX's NHWC reshape
             boxes.append(self.cv2[i](f).permute(0, 2, 3, 1).flatten(1, 2))
             scores.append(self.cv3[i](f).permute(0, 2, 3, 1).flatten(1, 2))
-        return {"boxes": torch.cat(boxes, 1), "scores": torch.cat(scores, 1),
-                "hw_shapes": tuple((f.shape[2], f.shape[3]) for f in feats)}
+        hw_shapes = tuple((f.shape[2], f.shape[3]) for f in feats)
+        branch = {"boxes": torch.cat(boxes, 1), "scores": torch.cat(scores, 1)}
+        if self.training:
+            return {"one2many": branch, "hw_shapes": hw_shapes}
+        return {**branch, "hw_shapes": hw_shapes}
 
     def decode(self, preds: dict, raw_scores: bool = False) -> torch.Tensor:
         """DFL decode + anchor offset + stride scale -> [B, A, 4+nc]: xywh boxes in

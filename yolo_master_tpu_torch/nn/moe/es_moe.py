@@ -6,9 +6,12 @@ left unfolded by deploy fusion, as in the JAX package). Sparse eval (``top_k``
 below the expert count, ``use_sparse_inference``, and the model's
 ``sparse_inference`` switch on, as by default): the top-k weights, pruned by
 ``dynamic_threshold`` and renormalised, and only the selected experts run
-(``nn/moe/dispatch.py``). :class:`FusedESMOE` is the deploy form of a dense
-block as one CUDA kernel (``utils/fuse.py:fused_esmoe_fuse``). The
-expert-parallel path is not ported yet (ROADMAP.md §1.H item 20).
+(``nn/moe/dispatch.py``). In training every expert runs, masked by the
+weights, and the block publishes its GShard balance loss on the batch-mean
+weights as ``aux_record`` for ``DetectionModel.forward_train`` to collect.
+:class:`FusedESMOE` is the deploy form of a dense block as one CUDA kernel
+(``utils/fuse.py:fused_esmoe_fuse``). The expert-parallel path is not ported
+yet (ROADMAP.md §1.H item 20).
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ import torch.nn as nn
 
 from ...ops.esmoe import fused_esmoe, pack_esmoe_params
 from ..layers import BN_EPS, BN_MOMENTUM, BatchNorm2d
+from ..mixture_loss import AuxRecord
 from .dispatch import expert_bank, gather_dispatch, top_k_from_weights
 from .experts import EfficientExpertGroup
+from .losses import gshard_balance_loss
 from .routers import DynamicRoutingLayer
 
 
@@ -57,6 +62,8 @@ class ES_MOE(nn.Module):  # noqa: N801 - the graph YAMLs' module name
         self.use_sparse_inference = use_sparse_inference
         self.dynamic_threshold = dynamic_threshold
         self.sparse_inference = True  # the model-level switch (DetectionModel.sparse_inference)
+        self.balance_loss_coeff = 1.0
+        self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
         self.routing = DynamicRoutingLayer(in_channels, num_experts, reduction, top_k)
         self.experts = nn.ModuleList(
             EfficientExpertGroup(in_channels, out_channels, k)
@@ -78,6 +85,10 @@ class ES_MOE(nn.Module):  # noqa: N801 - the graph YAMLs' module name
 
     def forward(self, x):
         w, _ = self.routing(x)  # [B, E]
+        if self.training:
+            usage = w.float().mean(0)
+            self.aux_record = AuxRecord(gshard_balance_loss(usage, self.num_experts) * self.balance_loss_coeff,
+                                        "moe", usage.detach())
         if not self.training and self.sparse_inference and self._sparse_block():
             wts, idx = top_k_from_weights(self._sparse_retained_weights(w), self.top_k)
             out = gather_dispatch(self.experts[-1], expert_bank(self.experts), x, idx, wts)

@@ -9,7 +9,7 @@ ports it.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -17,6 +17,8 @@ import torch.nn as nn
 from ..utils import find_model_yaml, guess_scale, make_divisible, yaml_load
 from .heads import Detect
 from .layers import A2C2f, ABlock, Bottleneck, C2f, C3, C3k, C3k2, Concat, Conv, DWConv, FusedStem, Upsample
+from .losses import composite_loss
+from .mixture_loss import AuxRecord
 from .moe import ES_MOE, OptimizedMOEImproved
 
 MODULE_REGISTRY = {
@@ -219,3 +221,31 @@ class DetectionModel(nn.Module):
     def forward_predict(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         """Decoded [B, A, 4+nc]: xywh boxes in input pixels and sigmoid scores."""
         return self.head.decode(self.forward(x_nhwc))
+
+    def forward_train(self, x_nhwc: torch.Tensor) -> Tuple[dict, Dict[str, AuxRecord]]:
+        """Train-mode forward: (the head's training dict, the aux records of the
+        blocks that publish one, keyed by module path in forward order). The
+        caller puts the model in train mode (BatchNorm on batch statistics)."""
+        if not self.training:
+            raise RuntimeError("forward_train needs a model in train mode (model.train())")
+        publishers = [(name, m) for name, m in self.named_modules() if hasattr(m, "aux_record")]
+        for _, m in publishers:
+            m.aux_record = None
+        preds = self.forward(x_nhwc)
+        aux = {}
+        for name, m in publishers:
+            if m.aux_record is not None:
+                aux[name] = m.aux_record
+                m.aux_record = None  # the model keeps no graph past this call
+        return preds, aux
+
+    def compute_loss(self, preds: dict, batch: dict, aux_total: torch.Tensor, hyp: dict):
+        """(total, metrics) of the v8 loss of ``preds`` against ``batch`` (boxes [B, M, 4]
+        xyxy px, classes [B, M], mask [B, M]) plus ``hyp["moe"] * aux_total``; metrics
+        loss, box_loss, cls_loss, dfl_loss and aux_loss."""
+        lb = composite_loss(preds, preds["hw_shapes"], self.head.strides, batch["boxes"], batch["classes"],
+                            batch["mask"], nc=self.nc, aux_total=aux_total, reg_max=self.head.reg_max,
+                            box_gain=hyp.get("box", 7.5), cls_gain=hyp.get("cls", 0.5), dfl_gain=hyp.get("dfl", 1.5),
+                            moe_gain=hyp.get("moe", 0.01))
+        return lb.total, {"loss": lb.total, "box_loss": lb.box, "cls_loss": lb.cls, "dfl_loss": lb.dfl,
+                          "aux_loss": lb.aux}

@@ -45,3 +45,13 @@ def dfl_decode(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     x = torch.softmax(x.float(), dim=-1)
     proj = torch.arange(reg_max, dtype=torch.float32, device=x.device)
     return (x @ proj).to(box_logits.dtype)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max=None) -> torch.Tensor:
+    """xyxy boxes -> ltrb distances from the anchor points, clamped to [0, reg_max - 0.01]
+    when ``reg_max`` is given (the inverse of :func:`dist2bbox` with ``xywh=False``)."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    dist = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1)
+    if reg_max is not None:
+        dist = dist.clamp(0, reg_max - 0.01)
+    return dist

@@ -94,3 +94,79 @@ def calibrate_bn(model, x_nhwc: torch.Tensor) -> None:
     model.train(was_training)
     for bn, m in zip(bns, momenta):
         bn.momentum = m
+
+
+def _array_leaves(tree, path=()):
+    """(path, array) of every numpy leaf of a nested dict; optax's masked-out
+    entries (empty tuples) are skipped."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _array_leaves(v, path + (k,))
+    elif isinstance(tree, np.ndarray) or np.isscalar(tree):
+        yield path, np.asarray(tree)
+
+
+def _nest(leaves) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, arr in leaves:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return out
+
+
+def _opt_fields(node, found):
+    """Collect the optimizer state's counts and per-parameter buffers from an
+    optax state (NamedTuples, tuples and dicts with numpy leaves)."""
+    fields = getattr(node, "_fields", None)
+    if fields is not None:
+        for f in fields:
+            v = getattr(node, f)
+            if f == "count":
+                found["count"].append(int(np.asarray(v)))
+            elif f in ("trace", "mu", "nu") and isinstance(v, dict):
+                found[f].extend(_array_leaves(v))
+            else:
+                _opt_fields(v, found)
+    elif isinstance(node, dict):
+        for v in node.values():
+            _opt_fields(v, found)
+    elif isinstance(node, (tuple, list)):
+        for v in node:
+            _opt_fields(v, found)
+
+
+def train_state_from_jax(jax_state, model, tx):
+    """The port's :class:`~..engine.train_step.TrainState` from a JAX
+    ``TrainState`` whose leaves are numpy arrays (``jax.tree_util.tree_map(np.asarray, state)``),
+    for the same graph and an optimizer ``tx`` of the same kind as the one that made it.
+
+    The model takes ``params`` (strict); the state takes ``ema_params``,
+    ``step``, ``ema_updates``, ``aux_ema``, the optimizer's count and its
+    per-parameter buffers (SGD's momentum traces; Adam's mu and nu).
+    """
+    from ..engine.train_step import make_train_state
+
+    model.load_state_dict(state_dict_from_jax(jax_state.params), strict=True)
+    state = make_train_state(model, tx)
+    device = next(model.parameters()).device
+    ema = state_dict_from_jax(jax_state.ema_params)
+    for k in state.ema_params:
+        state.ema_params[k] = ema[k].to(device)
+    state.step = int(np.asarray(jax_state.step))
+    state.ema_updates = float(np.asarray(jax_state.ema_updates))
+    state.aux_ema = torch.from_numpy(np.array(jax_state.aux_ema, np.float32)).to(device)
+    found = {"count": [], "trace": [], "mu": [], "nu": []}
+    _opt_fields(jax_state.opt_state, found)
+    if len(set(found["count"])) > 1:
+        raise ValueError(f"the optimizer's groups disagree on the count: {sorted(set(found['count']))}")
+    state.opt_state.count = found["count"][0] if found["count"] else 0
+    for kind, bufs in state.opt_state.buffers.items():
+        carried = state_dict_from_jax(_nest(found[kind]))
+        missing = set(bufs) - set(carried)
+        if missing:
+            raise ValueError(f"the JAX optimizer state has no '{kind}' for {sorted(missing)[:5]}")
+        for name, buf in bufs.items():
+            buf.copy_(carried[name].reshape(buf.shape))
+    return state
