@@ -74,10 +74,21 @@ yolo-master-v0_1-n with seeded random weights. Phases:
      counts equal to the CPU validator's and each metric within 1e-3, beside the
      CPU's own fused-vs-unfused and fp32-vs-fp64 differences; bf16 decoded
      outputs within 1.5x the CPU bf16's rel-RMS from the CPU fp32
- 17. device time by kernel of the predict path, with fused_esmoe_fuse, of the
+ 17. the train step (engine/train_step.py) of yolo-master-n at 640, fp32: one
+     step at bs 2 on the card against the CPU; three steps of bs 16 x
+     accumulate 4 (times, peak memory, a profiled step); the EMA model's val()
+ 18. the training loop, YOLO("yolo-master-n").train(data=..., epochs=2,
+     batch=16, imgsz=640, amp=False, workers=4, save_period=1, close_mosaic=1),
+     on 64 train and 16 val synthetic PNGs: finite losses and val metrics, the
+     run's files, the Gini rule moving the MoE gain, the NMS kernel once a val
+     batch of the EMA; each epoch's time split (loader wait, optimizer steps,
+     val, checkpoint writes), the loader's images/s, peak memory, the NMS
+     kernel at the EMA val's shape (B=8, N=4096); resume=True from epoch 1's
+     checkpoint against the run's epoch 2; last.npz fused through predict()
+ 19. device time by kernel of the predict path, with fused_esmoe_fuse, of the
      v0_1 path in sparse and dense eval and of the scale-m path at batch 16,
      each fp32 path also in bf16, and the stem's share of each (torch.profiler)
- 18. no module of jax or of the JAX package was imported
+ 20. no module of jax or of the JAX package was imported
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
@@ -134,6 +145,7 @@ VAL_IMAGES = 40  # the val phase's synthetic set: not a multiple of the batch, s
 VAL_BATCH = 16
 VAL_NMS = dict(conf_thres=0.001, iou_thres=0.7, max_det=300, max_nms=4096)  # the validator's defaults
 VAL_METRICS = ("precision", "recall", "mAP50", "mAP50-95")
+TRAIN_IMAGES, TRAIN_VAL_IMAGES = 64, 16  # the train loop phase's synthetic set
 VAL_METRIC_TOL = 1e-3  # the card's validator vs the CPU's: tests/test_torch_validator.py:METRIC_TOL (port vs JAX)
 
 
@@ -1850,6 +1862,209 @@ def phase_train(dev, state):
     return out
 
 
+def write_train_set(root, seed: int = 0):
+    """TRAIN_IMAGES train and TRAIN_VAL_IMAGES val PNGs, long side 640 (the train
+    images of varied aspect ratios, so that the rect path resizes), uniform noise
+    as phase 9's frames, with 1-4 filled rectangles each, labelled. Returns the yaml."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shorts = (360, 427, 480, 512, 640)
+    for split, n in (("train", TRAIN_IMAGES), ("val", TRAIN_VAL_IMAGES)):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            s = shorts[i % len(shorts)]
+            h, w = (s, IMGSZ) if i % 2 == 0 else (IMGSZ, s)
+            im = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            rows = []
+            for _ in range(int(rng.integers(1, 5))):
+                bw, bh = int(rng.integers(40, w // 2)), int(rng.integers(40, h // 2))
+                x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+                cv2.rectangle(im, (x1, y1), (x1 + bw, y1 + bh), tuple(int(c) for c in rng.integers(0, 256, 3)), -1)
+                rows.append(f"{int(rng.integers(0, 80))} {(x1 + bw / 2) / w:.6f} {(y1 + bh / 2) / h:.6f} "
+                            f"{bw / w:.6f} {bh / h:.6f}")
+            cv2.imwrite(str(root / "images" / split / f"{i:06d}.png"), im, [cv2.IMWRITE_PNG_COMPRESSION, 1])
+            (root / "labels" / split / f"{i:06d}.txt").write_text("\n".join(rows) + "\n")
+    yaml_path = root / "data.yaml"
+    yaml_path.write_text(f"path: {root}\ntrain: images/train\nval: images/val\nnames:\n"
+                         + "".join(f"  {i}: c{i}\n" for i in range(80)))
+    return yaml_path
+
+
+def phase_train_loop(dev, state, imgs):
+    """The training loop, YOLO("yolo-master-n").train(...), on a synthetic set
+    written under the checkout and removed after."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    root = Path(tempfile.mkdtemp(prefix=".val_set_train_", dir=Path(__file__).resolve().parent))
+    try:
+        return _phase_train_loop(dev, state, imgs, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_train_loop(dev, state, imgs, root):
+    """(a) TRAIN_IMAGES train and TRAIN_VAL_IMAGES val images; yolo-master-n at
+    640 with phase 9's weights (class biases at 0) trained by
+    .train(epochs=2, batch=16, amp=False, workers=4, save_period=1,
+    close_mosaic=1, moe_schedule="gini"): bs 16 x accumulate 4, mosaic in epoch
+    1 and off in epoch 2, the EMA validated every epoch at batch 8; (b) finite
+    losses and val metrics, the run's files, the Gini rule moving the MoE gain,
+    the NMS kernel launched once a val batch; (c) each epoch's time split, the
+    loader's images/s with 4 workers, peak memory, the NMS kernel at the val's
+    shape (B=8, N=4096); (d) resume=True from epoch 1's checkpoint: starts at
+    epoch 1 at the saved step, its epoch-2 losses those of the run within 1e-4
+    relative (the card's backward is not bitwise repeatable; the train phase's card-vs-CPU
+    limit; the resumed run starts from the configured MoE gain, as the JAX
+    package's does, so its aux loss is compared per unit of gain); (e) last.npz
+    in a new YOLO, fused, through predict() at bs 1 and 16."""
+    import math
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.data.dataset import DataLoader, PrefetchLoader, YOLODataset
+    from yolo_master_tpu_torch.engine.trainer import DetectionTrainer
+    from yolo_master_tpu_torch.engine.validator import DetectionValidator
+    from yolo_master_tpu_torch.ops import cuda_nms, nms
+
+    yaml_path = write_train_set(root)
+    metrics = ("loss", "box_loss", "cls_loss", "dfl_loss", "aux_loss")
+    run_kw = dict(data=str(yaml_path), epochs=2, batch=16, imgsz=IMGSZ, amp=False, workers=4, save_period=1,
+                  close_mosaic=1, moe_schedule="gini")
+    out = {}
+
+    # (c) the loader alone: one epoch of 64 mosaic samples with 4 workers
+    ds = YOLODataset(str(yaml_path), split="train", imgsz=IMGSZ, augment=True)
+    loader = PrefetchLoader(ds, 16, shuffle=True, workers=4, images=np.float32)
+    t0 = time.perf_counter()
+    n = sum(b["images"].shape[0] for b in loader.epoch(0))
+    loader_ips = n / (time.perf_counter() - t0)
+
+    # (a)-(b) the run
+    y = train_model(state, dev)
+    trainer = DetectionTrainer(y, save_dir=str(root / "run"), **run_kw)
+    log_rows, vals = [], []
+    trainer.callbacks.add("on_fit_epoch_end", lambda e, agg: log_rows.append((e, dict(agg), trainer.moe_gain)))
+    inner = trainer.validator
+    trainer.validator = lambda: vals.append(inner()) or vals[-1]
+
+    def keep_epoch1_state(e, agg):  # before epoch 2's save, state/ holds epoch 1's
+        if e == 1:
+            shutil_copy(root / "run", root / "resume", ("state", "state_meta.json"))
+
+    trainer.callbacks.add("on_fit_epoch_end", keep_epoch1_state)
+    gain0 = trainer.moe_gain
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    val_batches = math.ceil(TRAIN_VAL_IMAGES / min(16, 8))
+    files = sorted(p.name for p in (root / "run").iterdir())
+    gains = [g for _, _, g in log_rows]
+    log(f"[train loop] yolo-master-n, 640, bs 16 x accumulate {trainer.accumulate} ({trainer.nb_opt} optimizer "
+        f"step an epoch), 2 epochs in {wall_s:.2f} s: epoch losses "
+        f"{[{k: round(agg[k], 4) for k in metrics} for _, agg, _ in log_rows]}; moe_gain {gain0} -> {gains}; "
+        f"val {[{k: round(m[k], 6) for k in VAL_METRICS} for m in vals]}; launches {launches}; files {files}")
+    for e, t in enumerate(trainer.timings):
+        log(f"[train loop] epoch {e + 1} wall {t['epoch_s']:.3f} s = loader wait {t['loader_s']:.3f} + optimizer "
+            f"steps {t['step_s']:.3f} + val {t['val_s']:.3f} + checkpoint writes {t['save_s']:.3f} (+ the rest "
+            f"{t['epoch_s'] - t['loader_s'] - t['step_s'] - t['val_s'] - t['save_s']:.3f})")
+    log(f"[train loop] the loader alone, 4 workers, mosaic on: {loader_ips:.1f} images/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    require(len(log_rows) == 2 and all(math.isfinite(agg[k]) and agg["finite"] == 1.0
+                                       for _, agg, _ in log_rows for k in metrics), "train loop: a non-finite loss")
+    require({"results.csv", "best.npz", "last.npz", "state", "state_meta.json", "routing_history.csv"} <= set(files),
+            f"train loop: the run's files {files}")
+    require(trainer.routing_history.rows and gains[0] != gain0, "train loop: the Gini rule did not move the MoE gain")
+    require(launches["nms"] == val_batches * 2, f"train loop: {launches['nms']} NMS launches, expected "
+            f"{val_batches} val batches x 2 epochs")
+    require(len(vals) == 2 and all(math.isfinite(m[k]) for m in vals for k in VAL_METRICS),
+            "train loop: val metrics")
+    require(not trainer.train_set.mosaic_enabled, "train loop: close_mosaic did not close mosaic")
+
+    # (c) the NMS kernel at the EMA val's shape: one val batch of 8, multi-label, N=4096
+    vds = YOLODataset(str(yaml_path), split="val", imgsz=IMGSZ)
+    batch = next(DataLoader(vds, 8).epoch())
+    v = DetectionValidator(y.model, imgsz=IMGSZ)  # the facade's model: the EMA weights after train()
+    with torch.inference_mode():
+        decoded = y.model.forward_predict(v.preprocess(batch["images"]))
+        cboxes, scores, cls_idx, _ = nms._prep_candidates(decoded, 80, VAL_NMS["conf_thres"], VAL_NMS["max_nms"],
+                                                          True, None, False)
+    cand = (cboxes + cls_idx[..., None] * nms.MAX_WH).float().contiguous()
+    scores = scores.contiguous()
+    iou, max_det = VAL_NMS["iou_thres"], VAL_NMS["max_det"]
+    ki, kv = cuda_nms.batched_greedy_nms(cand, scores, iou, max_det)
+    ki_p, kv_p = cuda_nms.batched_greedy_nms_plain(cand, scores, iou, max_det)
+    torch.cuda.synchronize()
+    require(torch.equal(ki, ki_p) and torch.equal(kv, kv_p), "train loop: NMS kernel vs plain on the EMA's candidates")
+    steps = (kv.sum(1) + (kv.sum(1) < max_det).long()).sum().item()
+    bound_ms, bound_by, _ = bound(nbytes(cand, scores, ki, kv), steps * cand.shape[1] * 15)
+    nms_ms = cuda_ms(lambda: cuda_nms.batched_greedy_nms(cand, scores, iou, max_det), inner=10)
+    plain_ms = cuda_ms(lambda: cuda_nms.batched_greedy_nms_plain(cand, scores, iou, max_det), reps=3, warmup=1)
+    log(f"[train loop] NMS kernel == plain on the EMA model's val candidates, B=8 N={cand.shape[1]} iou {iou}: "
+        f"{int(kv.sum())} kept; kernel {nms_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+
+    # (d) resume on the card from epoch 1's checkpoint
+    meta = json.loads((root / "resume" / "state_meta.json").read_text())
+    resumed = DetectionTrainer(train_model(state, dev), save_dir=str(root / "resume"), resume=True, **run_kw)
+    require(resumed.start_epoch == 1 and resumed.state.step == meta["step"] == trainer.nb_opt,
+            f"train loop: resume starts at epoch {resumed.start_epoch}, step {resumed.state.step}; saved {meta}")
+    resumed_rows = []
+    resumed.callbacks.add("on_fit_epoch_end", lambda e, agg: resumed_rows.append((e, dict(agg))))
+    resumed.train()
+    (e2, agg2), ref = resumed_rows[0], log_rows[1][1]
+    # the resumed run starts from the configured MoE gain, as the JAX package's resume does (the gain is not
+    # in its checkpoint): the aux loss is compared per unit of gain, and the total without it
+    gain_run, gain_resumed = log_rows[0][2], gain0
+    pairs = {k: (agg2[k], ref[k]) for k in ("box_loss", "cls_loss", "dfl_loss")}
+    pairs["loss - aux_loss"] = (agg2["loss"] - agg2["aux_loss"], ref["loss"] - ref["aux_loss"])
+    pairs["aux_loss / moe_gain"] = (agg2["aux_loss"] / gain_resumed, ref["aux_loss"] / gain_run)
+    rel = {k: abs(a - b) / max(abs(b), 1e-12) for k, (a, b) in pairs.items()}
+    log(f"[train loop] resumed at epoch 1, step {meta['step']} (moe_gain {gain_resumed}, the run's epoch 2 "
+        f"{gain_run}): epoch 2, resumed against the run: {json.dumps(pairs)}; relative deviation "
+        f"{max(rel.values()):.3e}")
+    require(len(resumed_rows) == 1 and e2 == 1 and max(rel.values()) <= 1e-4,
+            "train loop: the resumed epoch 2 differs from the run's beyond 1e-4 relative")
+    require(resumed.state.step == trainer.state.step, "train loop: the resumed run's step count")
+
+    # (e) the trained weights through the predict path: stem and NMS kernels
+    trained = YOLO(str(root / "run" / "last.npz"), device=dev).fuse()
+    reset_launches()
+    r1 = trained.predict(imgs[0], batch=1, **KW)
+    r16 = trained.predict(imgs, batch=16, **KW)
+    torch.cuda.synchronize()
+    predict_launches = read_launches()
+    log(f"[train loop] last.npz, fused, predict bs 1 + bs 16: launches {predict_launches}")
+    require(predict_launches["stem"] == 2 and predict_launches["nms"] == 2 and len(r1) == 1 and len(r16) == 16,
+            "train loop: predict of last.npz did not launch the stem and NMS kernels")
+    check_detections(r1 + r16)
+    out.update(epochs=[{k: agg[k] for k in metrics} for _, agg, _ in log_rows], gains=[gain0, *gains],
+               val=[{k: m[k] for k in VAL_METRICS} for m in vals], launches=launches, timings=trainer.timings,
+               wall_s=wall_s, loader_images_per_s=loader_ips, peak_bytes=peak, resume_rel_err=max(rel.values()),
+               predict_launches=predict_launches,
+               nms_b8=dict(max_abs_err=(ki.long() - ki_p.long()).abs().max().item(), ms=nms_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, n=cand.shape[1]))
+    return out
+
+
+def shutil_copy(src, dst, names):
+    import shutil
+
+    dst.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        (shutil.copytree if (src / name).is_dir() else shutil.copy2)(src / name, dst / name)
+
+
 def profile_kernels(run, xb, iters: int = 5):
     """(wall ms per iteration, {kernel name: device us per iteration}, kernels per iteration)
     of ``run(xb)`` under torch.profiler, after one untimed call."""
@@ -1963,6 +2178,8 @@ def main():
     done("val path")
     train = phase_train(dev, state)
     done("train step")
+    loop = phase_train_loop(dev, state, imgs)
+    done("train loop")
 
     def v01_dense(xb):
         v01.model.sparse_inference = False
@@ -2004,6 +2221,7 @@ def main():
                      "uint8 [16,640,640,3] -> [16,160,160,32]", bound_peak=stem_res[("n", 16)]["bound_peak"],
                      bank_launches=main_launches["stem_bank"], val_launches=val["fp32"]["launches"]["stem"],
                      train_ema_val_launches=train["c"]["launches"]["stem"],
+                     train_loop_predict_launches=loop["predict_launches"]["stem"],
                      widths={scale: {k: stem_res[(scale, 16)][k]
                                      for k in ("ms", "plain_ms", "bound_ms", "bound_peak", "max_abs_err")}
                              for scale in STEM_WIDTHS}),
@@ -2011,6 +2229,10 @@ def main():
                      nms_res[(16, 2048, False)], "B=16 N=2048 max_det=300",
                      val_launches={k: val[k]["launches"]["nms"] for k in ("fp32", "bf16")},
                      train_ema_val_launches=train["c"]["launches"]["nms"],
+                     train_loop_ema_val_launches=loop["launches"]["nms"],
+                     train_loop_predict_launches=loop["predict_launches"]["nms"],
+                     train_loop_ema_val_b8={"shape": f"B=8 N={loop['nms_b8']['n']} max_det=300 iou=0.7, the trained "
+                                                     "EMA model's val candidates", **loop["nms_b8"]},
                      val_multilabel_4096={"shape": "B=16 N=4096 max_det=300 iou=0.7, one val batch's multi-label "
                                                    "candidates", **val["nms_4096"]}),
         kernel_entry("fused_esmoe", "esmoe.cu", "pallas_esmoe.py:81", moe_launches["esmoe"], es_sum,
@@ -2052,6 +2274,7 @@ def main():
         {k: {"all": val[k]["ms_per_img"], "split": val[k]["speed"]} for k in ("fp32", "bf16")})
         + f"; candidate sort {val['sort_ms']:.4f} ms a batch")
     log("[train] " + json.dumps({"a": train["a"], "b": {k: v for k, v in train["b"].items() if k != "losses"}}))
+    log("[train loop] " + json.dumps({k: v for k, v in loop.items() if k != "predict_launches"}))
     log("[e2e] device ms/img, fp32 and bf16 paths in turns: " + json.dumps(
         {name: {f"bs{bs}": r["e2e"][bs] for bs in (1, 16)} for name, r in bf16_res.items()}))
     print(gpu_name_and_power(), flush=True)

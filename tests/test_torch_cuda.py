@@ -894,3 +894,59 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
     fused_stem.launches = 0
     ema.predict((rng.random((64, 64, 3)) * 255).astype(np.uint8), imgsz=64, conf=0.0)
     assert fused_stem.launches == 1
+
+
+def test_trainer_one_epoch_on_the_card_matches_the_cpu(dev, tmp_path):
+    """engine/trainer.py: one epoch of yolo-master-n at 64 px (8 train and 4 val
+    PNGs, batch 4, no accumulation, the synchronous loader) on the card and on
+    the CPU from the same weights (BN calibrated, class biases at 0): the first
+    optimizer step's loss components within 1e-4 relative (the card-vs-CPU
+    limit of test_train_step_on_the_card_matches_the_cpu), finite val metrics,
+    and the NMS kernel launched once by the EMA val's one batch."""
+    import cv2
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.data.dataset import DataLoader, YOLODataset
+    from yolo_master_tpu_torch.engine.trainer import DetectionTrainer
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    rng = np.random.default_rng(11)
+    for split, n in (("train", 8), ("val", 4)):
+        (tmp_path / "images" / split).mkdir(parents=True)
+        (tmp_path / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            im = rng.integers(0, 256, (64, 48 + (8 * i) % 24, 3), dtype=np.uint8)
+            cv2.imwrite(str(tmp_path / "images" / split / f"{i}.png"), im)
+            (tmp_path / "labels" / split / f"{i}.txt").write_text(f"{i % 80} 0.5 0.5 0.4 0.5\n")
+    yaml_path = tmp_path / "data.yaml"
+    yaml_path.write_text(f"path: {tmp_path}\ntrain: images/train\nval: images/val\nnames:\n"
+                         + "".join(f"  {i}: c{i}\n" for i in range(80)))
+    base = YOLO("yolo-master-n", device="cpu")
+    ds = YOLODataset(str(yaml_path), split="train", imgsz=64)
+    calibrate_bn(base.model, torch.from_numpy(next(DataLoader(ds, 8, images=np.float32).epoch())["images"]))
+    with torch.no_grad():
+        for branch in base.model.head.cv3:
+            branch[-1].bias.zero_()
+    weights = {k: v.clone() for k, v in base.model.state_dict().items()}
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        y = YOLO("yolo-master-n", device=where).load_state_dict(weights)
+        trainer = DetectionTrainer(y, data=str(yaml_path), epochs=1, batch=4, nbs=4, imgsz=64, amp=False, workers=0,
+                                   save_dir=str(tmp_path / f"run_{where.type}"))
+        first = []
+        step = trainer.step_fn
+
+        def recorded(state, batch, gain, step=step, first=first):
+            state, m = step(state, batch, gain)
+            if not first:
+                first.append({k: float(m[k]) for k in ("loss", "box_loss", "cls_loss", "dfl_loss")})
+            return state, m
+
+        trainer.step_fn = recorded
+        batched_greedy_nms.launches = 0
+        metrics = trainer.train()
+        out[where.type] = (first[0], metrics, batched_greedy_nms.launches)
+    (lg, mg, ng), (lc, _, _) = out["cuda"], out["cpu"]
+    for k, v in lc.items():
+        assert abs(lg[k] - v) <= 1e-4 * abs(v), (k, lg[k], v)
+    assert ng == 1 and all(np.isfinite(mg[k]) for k in ("precision", "recall", "mAP50", "mAP50-95"))

@@ -415,8 +415,9 @@ def test_val_rejects_unknown_keywords_and_datasets_it_cannot_load(synth):
         y.val(data=str(yaml_path), imgsz=IMGSZ, augment=True)
     with pytest.raises(ValueError, match="compute_dtype"):
         y.val(data=str(yaml_path), compute_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="§1.C item 7"):
-        tdataset.YOLODataset(str(yaml_path), augment=True)
+    assert tdataset.YOLODataset(str(yaml_path), split="val", augment=True).augment  # the train half is ported
+    with pytest.raises(ValueError, match="cache must be"):
+        tdataset.YOLODataset(str(yaml_path), split="val", cache="gpu")
     with pytest.raises(NotImplementedError, match="§1.E item 13"):
         tdataset.PoseDataset  # noqa: B018
     with pytest.raises(FileNotFoundError):

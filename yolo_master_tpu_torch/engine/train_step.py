@@ -364,8 +364,16 @@ def _check_trainable(model: torch.nn.Module) -> None:
             raise ValueError("a model with BatchNorm folded (fuse_bn) cannot be trained: train the unfused model")
 
 
+def moe_stats_path(name: str) -> str:
+    """A block's module name in the port (``model.3``) -> its path in the JAX
+    package (``layers.3``), the key of the JAX step's ``moe_stats``."""
+    head, _, rest = name.partition(".")
+    return f"layers.{rest}" if head == "model" else name
+
+
 def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp: Optional[dict] = None,
-                    accumulate: int = 1, ema_on: bool = True, compute_dtype: torch.dtype = torch.float32):
+                    accumulate: int = 1, ema_on: bool = True, compute_dtype: torch.dtype = torch.float32,
+                    return_stats: bool = False):
     """Build ``step(state, batch, moe_gain=None) -> (state, metrics)``.
 
     ``batch``: images [B, H, W, 3] float in 0..1, boxes [B, M, 4] xyxy px,
@@ -375,6 +383,10 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
     ``hyp["moe"]`` for this step. Metrics: loss, box_loss, cls_loss,
     dfl_loss, aux_loss (and aux_<family>, aux_isolated where the model
     publishes aux losses), each the mean over the micro-batches, and finite.
+    With ``return_stats`` also ``moe_stats``: for each routed block, by its
+    JAX path (:func:`moe_stats_path`), ``expert_usage`` [E] (the batch-mean
+    routing weights) and ``balance_loss``, means over the micro-batches as
+    the JAX step's.
     """
     if compute_dtype != torch.float32:
         raise NotImplementedError("training in bf16 is not ported yet (ROADMAP.md §1.C item 7): "
@@ -394,9 +406,9 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
             base, metrics = model.compute_loss(preds, mb, torch.zeros((), device=aux_ema.device), {**h, "moe": 0.0})
             total = base + aux_total
             metrics = {**metrics, **aux_metrics, "aux_loss": aux_total, "loss": total}
-            return total, metrics, new_ema
+            return total, metrics, new_ema, aux
         total, metrics = model.compute_loss(preds, mb, torch.zeros((), device=aux_ema.device), h)
-        return total, metrics, aux_ema
+        return total, metrics, aux_ema, aux
 
     def step(state: TrainState, batch: dict, moe_gain: Optional[float] = None):
         h = hyp if moe_gain is None else {**hyp, "moe": moe_gain}
@@ -407,22 +419,28 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
         start = [(bn.running_mean.clone(), bn.running_var.clone(), bn.num_batches_tracked.clone()) for bn in bns]
         for p in model.parameters():
             p.grad = None
-        aux_ema, total, sums = state.aux_ema, 0.0, {}
+        aux_ema, total, sums, stats = state.aux_ema, 0.0, {}, {}
         for i in range(accumulate):
             if i:  # every micro-batch's BN update starts from the step's statistics
                 _restore_bn(bns, start)
             mb = {k: v[i * (b // accumulate):(i + 1) * (b // accumulate)] for k, v in batch.items()}
-            t_i, m_i, aux_ema = loss_fn(mb, h, aux_ema)
+            t_i, m_i, aux_ema, aux = loss_fn(mb, h, aux_ema)
             t_i.backward()
             total = total + t_i.detach()
             for k, v in m_i.items():
                 sums[k] = sums[k] + v.detach() if k in sums else v.detach()
+            if return_stats:  # summed over the micro-batches in order, then / accumulate: the JAX step's tree_map
+                for name, rec in aux.items():
+                    for k, v in (("expert_usage", rec.usage), ("balance_loss", rec.value.detach())):
+                        key = (moe_stats_path(name), k)
+                        stats[key] = stats[key] + v if key in stats else v
         if accumulate > 1:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accumulate)
             total = total / accumulate
             sums = {k: v / accumulate for k, v in sums.items()}
+            stats = {k: v / accumulate for k, v in stats.items()}
         finite = bool(torch.isfinite(total))
         if finite:
             tx.apply(model, state.opt_state)
@@ -437,6 +455,10 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
         state.step += 1
         state.aux_ema = aux_ema
         metrics = {**sums, "finite": torch.tensor(float(finite))}
+        if return_stats:
+            metrics["moe_stats"] = {}
+            for (path, k), v in stats.items():
+                metrics["moe_stats"].setdefault(path, {})[k] = v
         return state, metrics
 
     return step

@@ -94,8 +94,8 @@ class DetectionValidator:
 
     # -- the loop --------------------------------------------------------------
     def __call__(self) -> Dict[str, float]:
-        dataset = YOLODataset(self.data, imgsz=self.imgsz, max_gt=self.max_gt)
-        loader = DataLoader(dataset, self.batch)
+        dataset = YOLODataset(self.data, split="val", imgsz=self.imgsz, max_gt=self.max_gt)
+        loader = DataLoader(dataset, self.batch, shuffle=False, images=np.uint8)
         metrics = DetMetrics(self.source_model.nc, dataset.names)
         jdict = [] if self.save_json else None
         # real COCO annotations use sparse category ids 1-90; map the

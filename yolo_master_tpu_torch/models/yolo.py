@@ -2,15 +2,22 @@
 
     YOLO("yolo-master-n").fuse().predict(images)
     YOLO("yolo-master-n").fuse().val(data="data.yaml", imgsz=640, batch=16)
+    YOLO("yolo-master-n").train(data="data.yaml", epochs=100, batch=16, imgsz=640, amp=False)
+    YOLO("runs/train/best.npz").fuse().predict(images)
 
 The model runs on the card (``device="cuda"``) unless the caller asks for
 another device, as the CPU tests do with ``device="cpu"``. Weights are drawn
 from ``seed`` with a ``torch.Generator`` on the CPU, so one seed gives the
-same model on every device.
+same model on every device. A ``.npz`` is a weights file: the port's
+``best.npz`` / ``last.npz``, which name their graph, or the JAX package's
+``save_params_npz`` file, whose graph comes from a ``<file>.json`` beside it
+(``{"model": ...}``, the JAX package's convention) or from ``cfg=``.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Dict, Optional
 
 import torch
@@ -19,15 +26,45 @@ from ..engine.predictor import DetectionPredictor
 from ..engine.validator import DetectionValidator
 from ..nn.tasks import DetectionModel
 from ..utils import coco_names
+from ..utils.checkpoint import load_weights_npz, model_from_ref
 from ..utils.fuse import fuse_bn, fused_stem_fuse
 from ..utils.weights import state_dict_from_jax
 
+TASK_ITEM = "ROADMAP.md §1.E item 13 (task heads, their datasets, validators and trainers)"
+MULTI_TRAINER_ITEM = "ROADMAP.md §1.C item 8 (MultiTrainer, after bf16 training)"
+
+
+def _npz_graph(path: Path, meta: dict, cfg, sd: dict):
+    """(graph, nc) of a weights file: ``cfg``, else the file's ``__meta__.model``,
+    else a ``<file>.json`` beside it; nc from the Detect head's class convs."""
+    sidecar = Path(f"{path}.json")
+    ref = cfg or meta.get("model") or (json.loads(sidecar.read_text()).get("model") if sidecar.exists() else None)
+    if not ref:
+        raise ValueError(f"{path} does not name its graph: pass cfg= (a model name or config dict)")
+    ref = model_from_ref(ref) if isinstance(ref, str) else ref
+    if isinstance(ref, str):
+        ref = ref.removesuffix(".yaml")
+    nc = next((v.shape[0] for k, v in sd.items() if k.endswith(".cv3.0.2.weight")), None)
+    return ref, nc
+
 
 class YOLO:
-    def __init__(self, model: str = "yolo-master-n", *, device="cuda", nc: Optional[int] = None, seed: int = 0):
+    def __init__(self, model="yolo-master-n", *, device="cuda", nc: Optional[int] = None, seed: int = 0,
+                 task: str = "detect", cfg=None):
+        if task != "detect":
+            raise NotImplementedError(f"task '{task}' is not ported yet: {TASK_ITEM}")
+        self.task = task
         self.device = torch.device(device)
         self.model_name = str(model)
+        weights = None
+        if str(model).endswith(".npz"):
+            weights, meta = load_weights_npz(model)
+            model, file_nc = _npz_graph(Path(model), meta, cfg, weights)
+            nc = nc or file_nc
+        self.cfg = model  # the graph: a model name or a config dict
         self.model = DetectionModel(model, nc=nc, seed=seed).eval()
+        if weights is not None:
+            self.model.load_state_dict(weights, strict=True)
         self._to_device()
         self.names: Dict[int, str] = coco_names() if self.model.nc == 80 else {i: str(i) for i in range(self.model.nc)}
         self._predictor: Optional[DetectionPredictor] = None
@@ -77,6 +114,23 @@ class YOLO:
 
     def __call__(self, source, **kwargs):
         return self.predict(source, **kwargs)
+
+    # -- training --------------------------------------------------------------------
+    def train(self, **kwargs) -> dict:
+        """Train this model in fp32 (``engine/trainer.py:DetectionTrainer``; its
+        keyword arguments, ``data`` a dataset yaml; ``amp=False`` is required
+        until bf16 training is ported). The model ends with the EMA weights, in
+        eval mode; ``save_dir`` (default ``runs/train``) holds ``best.npz``,
+        ``last.npz``, ``results.csv``, the routing history and, with
+        ``save_period``, the resume checkpoint. Returns the last val metrics
+        and ``best_fitness``."""
+        from ..engine.trainer import DetectionTrainer
+
+        if self.task != "detect":
+            raise NotImplementedError(f"training task '{self.task}' is not ported yet: {TASK_ITEM}")
+        if isinstance(kwargs.get("data"), (list, tuple)):
+            raise NotImplementedError(f"training on a list of datasets is not ported yet: {MULTI_TRAINER_ITEM}")
+        return DetectionTrainer(self, **kwargs).train()
 
     # -- validation ----------------------------------------------------------------
     def val(self, **kwargs) -> dict:
