@@ -85,10 +85,19 @@ yolo-master-v0_1-n with seeded random weights. Phases:
      val, checkpoint writes), the loader's images/s, peak memory, the NMS
      kernel at the EMA val's shape (B=8, N=4096); resume=True from epoch 1's
      checkpoint against the run's epoch 2; last.npz fused through predict()
- 19. device time by kernel of the predict path, with fused_esmoe_fuse, of the
+ 19. the train step in bf16 (compute_dtype=torch.bfloat16, the trainer's
+     default): one step at bs 2 on the card against the CPU's fp32 and bf16
+     steps, on two batches (the gradient trees' rel-RMS from the CPU fp32
+     within 1.5x the CPU bf16's); three steps of bs 16 x accumulate 4 (times by layer, peak memory,
+     a profiled step) beside phase 17's fp32 numbers
+ 20. the training loop with amp at its default (bf16): phase 18's run, resume
+     and predict of last.npz (fp32 weights), in bf16
+ 21. MultiTrainer: YOLO("yolo-master-n").train(data=[a, b], epochs=1, ...) on two
+     synthetic sets: two runs from the base weights, the base restored bitwise
+ 22. device time by kernel of the predict path, with fused_esmoe_fuse, of the
      v0_1 path in sparse and dense eval and of the scale-m path at batch 16,
      each fp32 path also in bf16, and the stem's share of each (torch.profiler)
- 20. no module of jax or of the JAX package was imported
+ 23. no module of jax or of the JAX package was imported
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
@@ -146,6 +155,7 @@ VAL_BATCH = 16
 VAL_NMS = dict(conf_thres=0.001, iou_thres=0.7, max_det=300, max_nms=4096)  # the validator's defaults
 VAL_METRICS = ("precision", "recall", "mAP50", "mAP50-95")
 TRAIN_IMAGES, TRAIN_VAL_IMAGES = 64, 16  # the train loop phase's synthetic set
+RESUME_REL_TOL_BF16 = 1e-4  # the bf16 loop's resumed epoch 2 against the run's: measured 1.6e-8 (PERF.md §7)
 VAL_METRIC_TOL = 1e-3  # the card's validator vs the CPU's: tests/test_torch_validator.py:METRIC_TOL (port vs JAX)
 
 
@@ -1683,6 +1693,109 @@ def train_model(state, where, head_bias_zero: bool = True):
     return y
 
 
+def train_step_bench(dev, state, dtype):
+    """Three optimizer steps of yolo-master-n at 640, bs 16 x accumulate 4 (nbs 64),
+    max_gt 128, in ``dtype``, from phase 9's weights (class biases at 0): finite
+    losses, the EMA counted, BN statistics moved, ms per optimizer step and per
+    micro-batch (CUDA events), peak memory; one bs-16 step without accumulation;
+    one bs-16 micro-batch by layer (forward, loss + TAL, backward, optimizer +
+    EMA); one profiled optimizer step (busy share, top kernels). Returns the
+    model, the state and the numbers."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolo_master_tpu_torch.engine import train_step as ts
+
+    metrics = ("loss", "box_loss", "cls_loss", "dfl_loss", "aux_loss")
+    tag = "train b" if dtype == torch.float32 else "train bf16 b"
+    what = str(dtype).removeprefix("torch.")
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=16)
+    require(pol.accumulate == 4, f"{tag}: nbs 64 at bs 16 should accumulate 4")
+    y = train_model(state, dev)
+    tx = pol.build_optimizer(y.model)
+    st = ts.make_train_state(y.model, tx)
+    step = ts.make_train_step(y.model, tx, accumulate=pol.accumulate, compute_dtype=dtype)
+    batches = [train_batch(16 * pol.accumulate, 128, dev, seed=20 + i) for i in range(4)]
+    bn_before = {k: v.clone() for k, v in y.model.state_dict().items() if k.endswith("running_mean")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    for i in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        st, met = step(st, batches[i])
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append({k: float(met[k]) for k in (*metrics, "finite")})
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(not torch.equal(v, bn_before[k]) for k, v in y.model.state_dict().items() if k in bn_before)
+    log(f"[{tag}] yolo-master-n, 640, {what}, bs 16 x accumulate 4, max_gt 128, three steps: losses {losses}; ms per "
+        f"optimizer step {[round(t, 3) for t in step_ms]} (CUDA events), per micro-batch "
+        f"{[round(t / pol.accumulate, 3) for t in step_ms]}; peak memory {peak / 2**30:.2f} GiB; "
+        f"{moved} of {len(bn_before)} BN running means moved")
+    require(all(math.isfinite(r[k]) for r in losses for k in metrics) and all(r["finite"] == 1.0 for r in losses),
+            f"{tag}: a non-finite loss")
+    require(st.ema_updates == 3 and st.step == 3 and st.opt_state.count == 3, f"{tag}: the counters")
+    require(moved == len(bn_before), f"{tag}: BN statistics did not move")
+    # one micro-batch alone (forward, loss, backward) and the optimizer + EMA alone
+    mb = {k: v[:16] for k, v in batches[3].items()}
+    micro = ts.make_train_step(y.model, tx, compute_dtype=dtype)  # accumulate 1: a micro-batch, its step
+    micro_ms = cuda_ms(lambda: micro(st, mb), reps=3, warmup=1)
+    log(f"[{tag}] one bs-16 step without accumulation (forward, loss, backward, optimizer, EMA): "
+        f"{micro_ms:.3f} ms (CUDA events, median of 3)")
+    # the step's layers on one bs-16 micro-batch, CUDA events between them: the train-mode forward,
+    # the loss (TAL included), backward, and the optimizer with the EMA (median of 3 after one untimed)
+    hyp = {"box": 7.5, "cls": 0.5, "dfl": 1.5, "moe": 0.01}
+    names = ("forward", "loss + TAL", "backward", "optimizer + EMA")
+    split = {k: [] for k in names}
+    y.model.train()
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        preds, aux = y.model.forward_train(mb["images"].to(dtype))
+        ev[1].record()
+        total, _ = y.model.compute_loss(preds, mb, sum(rec.value for rec in aux.values()), hyp)
+        ev[2].record()
+        total.backward()
+        ev[3].record()
+        tx.apply(y.model, st.opt_state)
+        ts.ema_blend(st.ema_params, y.model, ts.ema_decay(st.ema_updates))
+        ev[4].record()
+        ev[4].synchronize()
+        for p in y.model.parameters():
+            p.grad = None
+        for i, k in enumerate(names):
+            split[k].append(ev[i].elapsed_time(ev[i + 1]))
+    split = {k: statistics.median(v[1:]) for k, v in split.items()}
+    log(f"[{tag}] one bs-16 micro-batch by layer (CUDA events, ms): " + json.dumps(split))
+    # one profiled optimizer step: busy share and top kernels
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, _ = step(st, batches[3])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    count = sum(e.count for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"[{tag}] one profiled optimizer step: wall {wall_ms:.3f} ms under the profiler, device busy "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {count} kernels; top: "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
+    require(busy_ms > 0, f"{tag}: the profile shows no device time")
+    host = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    host_ms = {e.key: round(e.self_cpu_time_total / 1e3, 3) for e in host}
+    log(f"[{tag}] the profiled step's host: top ops by self CPU ms (calls): "
+        + "; ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ({e.count})" for e in host))
+    return y, st, dict(host_top_ms=host_ms, losses=losses, step_ms=step_ms,
+                       micro_ms=[t / pol.accumulate for t in step_ms], step_no_accumulation_ms=micro_ms,
+                       layers_ms=split, peak_bytes=peak, busy_ms=busy_ms, wall_ms=wall_ms,
+                       busy_share=busy_ms / wall_ms, kernels=count)
+
+
 def phase_train(dev, state):
     """The train step (engine/train_step.py) on yolo-master-n at 640, fp32:
     (a) one optimizer step at bs 2 on the card against the same step on the CPU,
@@ -1753,85 +1866,7 @@ def phase_train(dev, state):
     out["a"] = dict(loss_rel_err=loss_err, worst=worst, update_rel_err=rel[k_rel])
 
     # (b) the slice at full width: bs 16 x accumulate 4, three optimizer steps
-    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=16)
-    require(pol.accumulate == 4, "train (b): nbs 64 at bs 16 should accumulate 4")
-    y = train_model(state, dev)
-    tx = pol.build_optimizer(y.model)
-    st = ts.make_train_state(y.model, tx)
-    step = ts.make_train_step(y.model, tx, accumulate=pol.accumulate)
-    batches = [train_batch(16 * pol.accumulate, 128, dev, seed=20 + i) for i in range(4)]
-    bn_before = {k: v.clone() for k, v in y.model.state_dict().items() if k.endswith("running_mean")}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms, losses = [], []
-    for i in range(3):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        st, met = step(st, batches[i])
-        end.record()
-        end.synchronize()
-        step_ms.append(start.elapsed_time(end))
-        losses.append({k: float(met[k]) for k in (*metrics, "finite")})
-    peak = torch.cuda.max_memory_allocated()
-    moved = sum(not torch.equal(v, bn_before[k]) for k, v in y.model.state_dict().items() if k in bn_before)
-    log(f"[train b] yolo-master-n, 640, bs 16 x accumulate 4, max_gt 128, three steps: losses {losses}; ms per "
-        f"optimizer step {[round(t, 3) for t in step_ms]} (CUDA events), per micro-batch "
-        f"{[round(t / pol.accumulate, 3) for t in step_ms]}; peak memory {peak / 2**30:.2f} GiB; "
-        f"{moved} of {len(bn_before)} BN running means moved")
-    require(all(math.isfinite(r[k]) for r in losses for k in metrics) and all(r["finite"] == 1.0 for r in losses),
-            "train (b): a non-finite loss")
-    require(st.ema_updates == 3 and st.step == 3 and st.opt_state.count == 3, "train (b): the counters")
-    require(moved == len(bn_before), "train (b): BN statistics did not move")
-    # one micro-batch alone (forward, loss, backward) and the optimizer + EMA alone
-    mb = {k: v[:16] for k, v in batches[3].items()}
-    micro = ts.make_train_step(y.model, tx)  # accumulate 1: one micro-batch and its optimizer step
-    micro_ms = cuda_ms(lambda: micro(st, mb), reps=3, warmup=1)
-    log(f"[train b] one bs-16 step without accumulation (forward, loss, backward, optimizer, EMA): "
-        f"{micro_ms:.3f} ms (CUDA events, median of 3)")
-    # the step's layers on one bs-16 micro-batch, CUDA events between them: the train-mode forward,
-    # the loss (TAL included), backward, and the optimizer with the EMA (median of 3 after one untimed)
-    hyp = {"box": 7.5, "cls": 0.5, "dfl": 1.5, "moe": 0.01}
-    names = ("forward", "loss + TAL", "backward", "optimizer + EMA")
-    split = {k: [] for k in names}
-    y.model.train()
-    for _ in range(4):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        preds, aux = y.model.forward_train(mb["images"])
-        ev[1].record()
-        total, _ = y.model.compute_loss(preds, mb, sum(rec.value for rec in aux.values()), hyp)
-        ev[2].record()
-        total.backward()
-        ev[3].record()
-        tx.apply(y.model, st.opt_state)
-        ts.ema_blend(st.ema_params, y.model, ts.ema_decay(st.ema_updates))
-        ev[4].record()
-        ev[4].synchronize()
-        for p in y.model.parameters():
-            p.grad = None
-        for i, k in enumerate(names):
-            split[k].append(ev[i].elapsed_time(ev[i + 1]))
-    split = {k: statistics.median(v[1:]) for k, v in split.items()}
-    log("[train b] one bs-16 micro-batch by layer (CUDA events, ms): " + json.dumps(split))
-    # one profiled optimizer step: busy share and top kernels
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st, _ = step(st, batches[3])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    count = sum(e.count for e in kern)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"[train b] one profiled optimizer step: wall {wall_ms:.3f} ms under the profiler, device busy "
-        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {count} kernels; top: "
-        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
-    require(busy_ms > 0, "train (b): the profile shows no device time")
-    out["b"] = dict(losses=losses, step_ms=step_ms, micro_ms=[t / pol.accumulate for t in step_ms],
-                    step_no_accumulation_ms=micro_ms, layers_ms=split, peak_bytes=peak, busy_ms=busy_ms, wall_ms=wall_ms,
-                    busy_share=busy_ms / wall_ms, kernels=count)
+    y, st, out["b"] = train_step_bench(dev, state, torch.float32)
 
     # (c) the EMA weights to the kernels: a fused model of them through val()
     from yolo_master_tpu_torch import YOLO
@@ -1860,6 +1895,128 @@ def phase_train(dev, state):
             and all(math.isfinite(m[k]) for k in VAL_METRICS), "train (c): an image without detections, or metrics")
     out["c"] = dict(launches=launches, metrics={k: m[k] for k in VAL_METRICS})
     return out
+
+
+def step_gradients(model, tx, batch, dtype):
+    """The gradient tree (fp32 on the CPU, by parameter name) that one optimizer
+    step of ``model`` in ``dtype`` hands its optimizer on ``batch``, and the step's
+    metrics."""
+    from yolo_master_tpu_torch.engine import train_step as ts
+
+    grads, apply = {}, tx.apply
+
+    def capture(m, opt_state):
+        grads.update({n: p.grad.detach().float().cpu().clone() for n, p in m.named_parameters()})
+        apply(m, opt_state)
+
+    tx.apply = capture
+    try:
+        st = ts.make_train_state(model, tx)
+        _, met = ts.make_train_step(model, tx, compute_dtype=dtype)(st, batch)
+    finally:
+        del tx.apply
+    return grads, met
+
+
+def phase_train_bf16(dev, state, fp32):
+    """bf16 training's step (engine/train_step.py, compute_dtype=torch.bfloat16, the
+    trainer's default): (a) one step at bs 2 on the card in bf16 against the port's
+    CPU steps in fp32 and bf16 from the same weights and batch, on two batches:
+    the gradient trees' rel-RMS(card bf16 - CPU fp32) within 1.5x rel-RMS(CPU
+    bf16 - CPU fp32), the squared distances summed over the batches (the
+    whole-model bf16 statistic: deep in the backbone a bf16 gradient is mostly
+    rounding noise, so two bf16 programs are held by their distance from fp32
+    and one batch's statistic spreads); (b) train_step_bench in bf16 beside
+    phase 17's fp32 numbers of the same call (``fp32``)."""
+    import math
+
+    import torch
+
+    from yolo_master_tpu_torch.engine import train_step as ts
+
+    out = {}
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
+    sums, losses = [0.0, 0.0, 0.0], {}  # |card16 - cpu32|^2, |cpu16 - cpu32|^2, |cpu32|^2 over the batches
+    for seed in (11, 12):
+        grads = {}
+        for where, dtype in ((dev, torch.bfloat16), ("cpu", torch.float32), ("cpu", torch.bfloat16)):
+            y = train_model(state, where)
+            t0 = time.perf_counter()
+            g, met = step_gradients(y.model, pol.build_optimizer(y.model), train_batch(2, 8, where, seed=seed),
+                                    dtype)
+            key = f"{torch.device(where).type} {str(dtype).removeprefix('torch.')}"
+            grads[key] = torch.cat([g[n].flatten() for n in sorted(g)]).double()
+            losses[f"{key}, batch {seed}"] = {k: float(met[k]) for k in ("loss", "box_loss", "cls_loss", "dfl_loss",
+                                                                          "aux_loss")}
+            log(f"[train bf16 a] one step at 640, bs 2, batch {seed}, {key}: losses {losses[f'{key}, batch {seed}']} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        ref = grads["cpu float32"]
+        for i, key in enumerate(("cuda bfloat16", "cpu bfloat16")):
+            sums[i] += float(((grads[key] - ref) ** 2).sum())
+        sums[2] += float((ref ** 2).sum())
+    card, own = math.sqrt(sums[0] / sums[2]), math.sqrt(sums[1] / sums[2])
+    log(f"[train bf16 a] gradient trees ({ref.numel()} values a step, two steps), rel-RMS from the CPU fp32: card "
+        f"bf16 {card:.4e}, CPU bf16 {own:.4e} (ratio {card / own:.3f}, limit 1.5)")
+    require(all(math.isfinite(v) for r in losses.values() for v in r.values()), "train bf16 (a): a non-finite loss")
+    require(0 < own < 2 and card <= 1.5 * own,
+            "train bf16 (a): the card's bf16 gradients are further from the CPU fp32 than 1.5x the CPU bf16's")
+    out["a"] = dict(grad_rel_rms_card=card, grad_rel_rms_cpu_bf16=own, losses=losses)
+    _, _, out["b"] = train_step_bench(dev, state, torch.bfloat16)
+    b16, b32 = out["b"], fp32
+    log("[train bf16 a] bf16 beside fp32 (this call): ms per optimizer step "
+        f"{[round(t, 3) for t in b16['step_ms']]} vs {[round(t, 3) for t in b32['step_ms']]}; per micro-batch by "
+        f"layer {json.dumps(b16['layers_ms'])} vs {json.dumps(b32['layers_ms'])}; peak "
+        f"{b16['peak_bytes'] / 2**30:.2f} vs {b32['peak_bytes'] / 2**30:.2f} GiB; busy {b16['busy_ms']:.3f} ms "
+        f"({100 * b16['busy_share']:.1f}%, {b16['kernels']} kernels) vs {b32['busy_ms']:.3f} ms "
+        f"({100 * b32['busy_share']:.1f}%, {b32['kernels']} kernels)")
+    return out
+
+
+def phase_multitrainer(dev, state):
+    """MultiTrainer: YOLO("yolo-master-n").train(data=[a, b], epochs=1, batch=16,
+    imgsz=640, workers=4) with amp at its default (bf16), on two synthetic sets
+    of phase 18's form (different seeds), both yamls named data.yaml: two runs,
+    "data" and "data-2", each from the base weights, finite val metrics, the NMS
+    kernel once a val batch of each run's EMA, multitrain_results.json with the
+    runs and their mean, and the facade's model the base again, bitwise."""
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    here = Path(__file__).resolve().parent
+    roots = [Path(tempfile.mkdtemp(prefix=".val_set_multi_", dir=here)) for _ in range(2)]
+    try:
+        yamls = [str(write_train_set(root, seed=10 + i)) for i, root in enumerate(roots)]
+        y = train_model(state, dev)
+        base = {k: v.clone() for k, v in y.model.state_dict().items()}
+        reset_launches()
+        t0 = time.perf_counter()
+        res = y.train(data=yamls, epochs=1, batch=16, imgsz=IMGSZ, workers=4, save_dir=str(roots[0] / "multi"))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        payload = json.loads((roots[0] / "multi" / "multitrain_results.json").read_text())
+        files = sorted(p.name for p in (roots[0] / "multi").iterdir())
+    finally:
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+    restored = all(torch.equal(v, base[k]) for k, v in y.model.state_dict().items())
+    val_batches = math.ceil(TRAIN_VAL_IMAGES / min(16, 8))
+    shown = {n: {k: round(m[k], 6) for k in (*VAL_METRICS, "best_fitness") if k in m} for n, m in res.items()}
+    log(f"[multitrainer] two runs of 1 epoch in {wall_s:.2f} s: {json.dumps(shown)}"
+        f"; mean {json.dumps({k: round(v, 6) for k, v in payload['mean'].items() if k in VAL_METRICS})}; launches "
+        f"{launches}; files {files}; base restored bitwise: {restored}")
+    require(list(res) == ["data", "data-2"] and all("error" not in m for m in res.values()),
+            f"multitrainer: runs {list(res)}")
+    require(all(math.isfinite(m[k]) for m in res.values() for k in VAL_METRICS), "multitrainer: val metrics")
+    require(set(payload) == {"runs", "mean"} and payload["runs"] == res, "multitrainer: multitrain_results.json")
+    require(restored and not y.model.training, "multitrainer: the facade's model is not the base after the sweep")
+    require(launches["nms"] == 2 * val_batches, f"multitrainer: {launches['nms']} NMS launches, expected "
+            f"{val_batches} val batches x 2 runs")
+    return dict(runs=res, mean=payload["mean"], wall_s=wall_s, launches=launches)
 
 
 def write_train_set(root, seed: int = 0):
@@ -1893,24 +2050,24 @@ def write_train_set(root, seed: int = 0):
     return yaml_path
 
 
-def phase_train_loop(dev, state, imgs):
-    """The training loop, YOLO("yolo-master-n").train(...), on a synthetic set
-    written under the checkout and removed after."""
+def phase_train_loop(dev, state, imgs, amp: bool = False):
+    """The training loop, YOLO("yolo-master-n").train(..., amp=amp), on a synthetic
+    set written under the checkout and removed after."""
     import shutil
     import tempfile
     from pathlib import Path
 
     root = Path(tempfile.mkdtemp(prefix=".val_set_train_", dir=Path(__file__).resolve().parent))
     try:
-        return _phase_train_loop(dev, state, imgs, root)
+        return _phase_train_loop(dev, state, imgs, root, amp)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _phase_train_loop(dev, state, imgs, root):
+def _phase_train_loop(dev, state, imgs, root, amp):
     """(a) TRAIN_IMAGES train and TRAIN_VAL_IMAGES val images; yolo-master-n at
     640 with phase 9's weights (class biases at 0) trained by
-    .train(epochs=2, batch=16, amp=False, workers=4, save_period=1,
+    .train(epochs=2, batch=16, amp=amp, workers=4, save_period=1,
     close_mosaic=1, moe_schedule="gini"): bs 16 x accumulate 4, mosaic in epoch
     1 and off in epoch 2, the EMA validated every epoch at batch 8; (b) finite
     losses and val metrics, the run's files, the Gini rule moving the MoE gain,
@@ -1921,21 +2078,23 @@ def _phase_train_loop(dev, state, imgs, root):
     relative (the card's backward is not bitwise repeatable; the train phase's card-vs-CPU
     limit; the resumed run starts from the configured MoE gain, as the JAX
     package's does, so its aux loss is compared per unit of gain); (e) last.npz
-    in a new YOLO, fused, through predict() at bs 1 and 16."""
+    in a new YOLO, fused, through predict() at bs 1 and 16. With ``amp`` (phase
+    20: the default, bf16 training) the same run in bf16: last.npz holds fp32
+    weights, the resumed epoch 2 is held to RESUME_REL_TOL_BF16, and the NMS
+    kernel's B=8 check (c), the fp32 run's, is not repeated."""
     import math
     import numpy as np
     import torch
 
     from yolo_master_tpu_torch import YOLO
-    from yolo_master_tpu_torch.data.dataset import DataLoader, PrefetchLoader, YOLODataset
+    from yolo_master_tpu_torch.data.dataset import PrefetchLoader, YOLODataset
     from yolo_master_tpu_torch.engine.trainer import DetectionTrainer
-    from yolo_master_tpu_torch.engine.validator import DetectionValidator
-    from yolo_master_tpu_torch.ops import cuda_nms, nms
 
     yaml_path = write_train_set(root)
     metrics = ("loss", "box_loss", "cls_loss", "dfl_loss", "aux_loss")
-    run_kw = dict(data=str(yaml_path), epochs=2, batch=16, imgsz=IMGSZ, amp=False, workers=4, save_period=1,
+    run_kw = dict(data=str(yaml_path), epochs=2, batch=16, imgsz=IMGSZ, amp=amp, workers=4, save_period=1,
                   close_mosaic=1, moe_schedule="gini")
+    tag = "train loop bf16" if amp else "train loop"
     out = {}
 
     # (c) the loader alone: one epoch of 64 mosaic samples with 4 workers
@@ -1959,6 +2118,7 @@ def _phase_train_loop(dev, state, imgs, root):
 
     trainer.callbacks.add("on_fit_epoch_end", keep_epoch1_state)
     gain0 = trainer.moe_gain
+    require(trainer.compute_dtype == (torch.bfloat16 if amp else torch.float32), f"{tag}: the compute dtype")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1971,28 +2131,86 @@ def _phase_train_loop(dev, state, imgs, root):
     val_batches = math.ceil(TRAIN_VAL_IMAGES / min(16, 8))
     files = sorted(p.name for p in (root / "run").iterdir())
     gains = [g for _, _, g in log_rows]
-    log(f"[train loop] yolo-master-n, 640, bs 16 x accumulate {trainer.accumulate} ({trainer.nb_opt} optimizer "
+    log(f"[{tag}] yolo-master-n, 640, bs 16 x accumulate {trainer.accumulate} ({trainer.nb_opt} optimizer "
         f"step an epoch), 2 epochs in {wall_s:.2f} s: epoch losses "
         f"{[{k: round(agg[k], 4) for k in metrics} for _, agg, _ in log_rows]}; moe_gain {gain0} -> {gains}; "
         f"val {[{k: round(m[k], 6) for k in VAL_METRICS} for m in vals]}; launches {launches}; files {files}")
     for e, t in enumerate(trainer.timings):
-        log(f"[train loop] epoch {e + 1} wall {t['epoch_s']:.3f} s = loader wait {t['loader_s']:.3f} + optimizer "
+        log(f"[{tag}] epoch {e + 1} wall {t['epoch_s']:.3f} s = loader wait {t['loader_s']:.3f} + optimizer "
             f"steps {t['step_s']:.3f} + val {t['val_s']:.3f} + checkpoint writes {t['save_s']:.3f} (+ the rest "
             f"{t['epoch_s'] - t['loader_s'] - t['step_s'] - t['val_s'] - t['save_s']:.3f})")
-    log(f"[train loop] the loader alone, 4 workers, mosaic on: {loader_ips:.1f} images/s; peak memory "
+    log(f"[{tag}] the loader alone, 4 workers, mosaic on: {loader_ips:.1f} images/s; peak memory "
         f"{peak / 2**30:.2f} GiB")
     require(len(log_rows) == 2 and all(math.isfinite(agg[k]) and agg["finite"] == 1.0
-                                       for _, agg, _ in log_rows for k in metrics), "train loop: a non-finite loss")
+                                       for _, agg, _ in log_rows for k in metrics), f"{tag}: a non-finite loss")
     require({"results.csv", "best.npz", "last.npz", "state", "state_meta.json", "routing_history.csv"} <= set(files),
-            f"train loop: the run's files {files}")
-    require(trainer.routing_history.rows and gains[0] != gain0, "train loop: the Gini rule did not move the MoE gain")
-    require(launches["nms"] == val_batches * 2, f"train loop: {launches['nms']} NMS launches, expected "
+            f"{tag}: the run's files {files}")
+    require(trainer.routing_history.rows and gains[0] != gain0, f"{tag}: the Gini rule did not move the MoE gain")
+    require(launches["nms"] == val_batches * 2, f"{tag}: {launches['nms']} NMS launches, expected "
             f"{val_batches} val batches x 2 epochs")
     require(len(vals) == 2 and all(math.isfinite(m[k]) for m in vals for k in VAL_METRICS),
-            "train loop: val metrics")
-    require(not trainer.train_set.mosaic_enabled, "train loop: close_mosaic did not close mosaic")
+            f"{tag}: val metrics")
+    require(not trainer.train_set.mosaic_enabled, f"{tag}: close_mosaic did not close mosaic")
 
-    # (c) the NMS kernel at the EMA val's shape: one val batch of 8, multi-label, N=4096
+    with np.load(root / "run" / "last.npz") as f:
+        weight_dtypes = sorted({str(f[k].dtype) for k in f.files if not k.startswith("__meta__")})
+    log(f"[{tag}] last.npz holds {weight_dtypes}")
+    require(weight_dtypes == ["float32", "int64"], f"{tag}: last.npz holds {weight_dtypes}, not fp32 weights")
+    out.update(compute_dtype=str(trainer.compute_dtype), last_npz_dtypes=weight_dtypes)
+    if not amp:
+        out["nms_b8"] = nms_b8_check(y, yaml_path)
+
+    # (d) resume on the card from epoch 1's checkpoint
+    meta = json.loads((root / "resume" / "state_meta.json").read_text())
+    resumed = DetectionTrainer(train_model(state, dev), save_dir=str(root / "resume"), resume=True, **run_kw)
+    require(resumed.start_epoch == 1 and resumed.state.step == meta["step"] == trainer.nb_opt,
+            f"{tag}: resume starts at epoch {resumed.start_epoch}, step {resumed.state.step}; saved {meta}")
+    resumed_rows = []
+    resumed.callbacks.add("on_fit_epoch_end", lambda e, agg: resumed_rows.append((e, dict(agg))))
+    resumed.train()
+    (e2, agg2), ref = resumed_rows[0], log_rows[1][1]
+    # the resumed run starts from the configured MoE gain, as the JAX package's resume does (the gain is not
+    # in its checkpoint): the aux loss is compared per unit of gain, and the total without it
+    gain_run, gain_resumed = log_rows[0][2], gain0
+    pairs = {k: (agg2[k], ref[k]) for k in ("box_loss", "cls_loss", "dfl_loss")}
+    pairs["loss - aux_loss"] = (agg2["loss"] - agg2["aux_loss"], ref["loss"] - ref["aux_loss"])
+    pairs["aux_loss / moe_gain"] = (agg2["aux_loss"] / gain_resumed, ref["aux_loss"] / gain_run)
+    rel = {k: abs(a - b) / max(abs(b), 1e-12) for k, (a, b) in pairs.items()}
+    log(f"[{tag}] resumed at epoch 1, step {meta['step']} (moe_gain {gain_resumed}, the run's epoch 2 "
+        f"{gain_run}): epoch 2, resumed against the run: {json.dumps(pairs)}; relative deviation "
+        f"{max(rel.values()):.3e}")
+    tol = RESUME_REL_TOL_BF16 if amp else 1e-4
+    require(len(resumed_rows) == 1 and e2 == 1 and max(rel.values()) <= tol,
+            f"{tag}: the resumed epoch 2 differs from the run's beyond {tol} relative")
+    require(resumed.state.step == trainer.state.step, f"{tag}: the resumed run's step count")
+
+    # (e) the trained weights through the predict path: stem and NMS kernels
+    trained = YOLO(str(root / "run" / "last.npz"), device=dev).fuse()
+    reset_launches()
+    r1 = trained.predict(imgs[0], batch=1, **KW)
+    r16 = trained.predict(imgs, batch=16, **KW)
+    torch.cuda.synchronize()
+    predict_launches = read_launches()
+    log(f"[{tag}] last.npz, fused, predict bs 1 + bs 16: launches {predict_launches}")
+    require(predict_launches["stem"] == 2 and predict_launches["nms"] == 2 and len(r1) == 1 and len(r16) == 16,
+            f"{tag}: predict of last.npz did not launch the stem and NMS kernels")
+    check_detections(r1 + r16)
+    out.update(epochs=[{k: agg[k] for k in metrics} for _, agg, _ in log_rows], gains=[gain0, *gains],
+               val=[{k: m[k] for k in VAL_METRICS} for m in vals], launches=launches, timings=trainer.timings,
+               wall_s=wall_s, loader_images_per_s=loader_ips, peak_bytes=peak, resume_rel_err=max(rel.values()),
+               predict_launches=predict_launches)
+    return out
+
+
+def nms_b8_check(y, yaml_path):
+    """The NMS kernel at the EMA val's shape: one val batch of 8 of the trained
+    model, multi-label, N=4096, against its plain loop; times and bound."""
+    import torch
+
+    from yolo_master_tpu_torch.data.dataset import DataLoader, YOLODataset
+    from yolo_master_tpu_torch.engine.validator import DetectionValidator
+    from yolo_master_tpu_torch.ops import cuda_nms, nms
+
     vds = YOLODataset(str(yaml_path), split="val", imgsz=IMGSZ)
     batch = next(DataLoader(vds, 8).epoch())
     v = DetectionValidator(y.model, imgsz=IMGSZ)  # the facade's model: the EMA weights after train()
@@ -2014,47 +2232,8 @@ def _phase_train_loop(dev, state, imgs, root):
     log(f"[train loop] NMS kernel == plain on the EMA model's val candidates, B=8 N={cand.shape[1]} iou {iou}: "
         f"{int(kv.sum())} kept; kernel {nms_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
 
-    # (d) resume on the card from epoch 1's checkpoint
-    meta = json.loads((root / "resume" / "state_meta.json").read_text())
-    resumed = DetectionTrainer(train_model(state, dev), save_dir=str(root / "resume"), resume=True, **run_kw)
-    require(resumed.start_epoch == 1 and resumed.state.step == meta["step"] == trainer.nb_opt,
-            f"train loop: resume starts at epoch {resumed.start_epoch}, step {resumed.state.step}; saved {meta}")
-    resumed_rows = []
-    resumed.callbacks.add("on_fit_epoch_end", lambda e, agg: resumed_rows.append((e, dict(agg))))
-    resumed.train()
-    (e2, agg2), ref = resumed_rows[0], log_rows[1][1]
-    # the resumed run starts from the configured MoE gain, as the JAX package's resume does (the gain is not
-    # in its checkpoint): the aux loss is compared per unit of gain, and the total without it
-    gain_run, gain_resumed = log_rows[0][2], gain0
-    pairs = {k: (agg2[k], ref[k]) for k in ("box_loss", "cls_loss", "dfl_loss")}
-    pairs["loss - aux_loss"] = (agg2["loss"] - agg2["aux_loss"], ref["loss"] - ref["aux_loss"])
-    pairs["aux_loss / moe_gain"] = (agg2["aux_loss"] / gain_resumed, ref["aux_loss"] / gain_run)
-    rel = {k: abs(a - b) / max(abs(b), 1e-12) for k, (a, b) in pairs.items()}
-    log(f"[train loop] resumed at epoch 1, step {meta['step']} (moe_gain {gain_resumed}, the run's epoch 2 "
-        f"{gain_run}): epoch 2, resumed against the run: {json.dumps(pairs)}; relative deviation "
-        f"{max(rel.values()):.3e}")
-    require(len(resumed_rows) == 1 and e2 == 1 and max(rel.values()) <= 1e-4,
-            "train loop: the resumed epoch 2 differs from the run's beyond 1e-4 relative")
-    require(resumed.state.step == trainer.state.step, "train loop: the resumed run's step count")
-
-    # (e) the trained weights through the predict path: stem and NMS kernels
-    trained = YOLO(str(root / "run" / "last.npz"), device=dev).fuse()
-    reset_launches()
-    r1 = trained.predict(imgs[0], batch=1, **KW)
-    r16 = trained.predict(imgs, batch=16, **KW)
-    torch.cuda.synchronize()
-    predict_launches = read_launches()
-    log(f"[train loop] last.npz, fused, predict bs 1 + bs 16: launches {predict_launches}")
-    require(predict_launches["stem"] == 2 and predict_launches["nms"] == 2 and len(r1) == 1 and len(r16) == 16,
-            "train loop: predict of last.npz did not launch the stem and NMS kernels")
-    check_detections(r1 + r16)
-    out.update(epochs=[{k: agg[k] for k in metrics} for _, agg, _ in log_rows], gains=[gain0, *gains],
-               val=[{k: m[k] for k in VAL_METRICS} for m in vals], launches=launches, timings=trainer.timings,
-               wall_s=wall_s, loader_images_per_s=loader_ips, peak_bytes=peak, resume_rel_err=max(rel.values()),
-               predict_launches=predict_launches,
-               nms_b8=dict(max_abs_err=(ki.long() - ki_p.long()).abs().max().item(), ms=nms_ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by, n=cand.shape[1]))
-    return out
+    return dict(max_abs_err=(ki.long() - ki_p.long()).abs().max().item(), ms=nms_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, n=cand.shape[1])
 
 
 def shutil_copy(src, dst, names):
@@ -2180,6 +2359,12 @@ def main():
     done("train step")
     loop = phase_train_loop(dev, state, imgs)
     done("train loop")
+    train16 = phase_train_bf16(dev, state, train["b"])
+    done("bf16 train step")
+    loop16 = phase_train_loop(dev, state, imgs, amp=True)
+    done("bf16 train loop")
+    multi = phase_multitrainer(dev, state)
+    done("MultiTrainer")
 
     def v01_dense(xb):
         v01.model.sparse_inference = False
@@ -2222,6 +2407,7 @@ def main():
                      bank_launches=main_launches["stem_bank"], val_launches=val["fp32"]["launches"]["stem"],
                      train_ema_val_launches=train["c"]["launches"]["stem"],
                      train_loop_predict_launches=loop["predict_launches"]["stem"],
+                     train_loop_bf16_predict_launches=loop16["predict_launches"]["stem"],
                      widths={scale: {k: stem_res[(scale, 16)][k]
                                      for k in ("ms", "plain_ms", "bound_ms", "bound_peak", "max_abs_err")}
                              for scale in STEM_WIDTHS}),
@@ -2231,6 +2417,9 @@ def main():
                      train_ema_val_launches=train["c"]["launches"]["nms"],
                      train_loop_ema_val_launches=loop["launches"]["nms"],
                      train_loop_predict_launches=loop["predict_launches"]["nms"],
+                     train_loop_bf16_ema_val_launches=loop16["launches"]["nms"],
+                     train_loop_bf16_predict_launches=loop16["predict_launches"]["nms"],
+                     multitrainer_ema_val_launches=multi["launches"]["nms"],
                      train_loop_ema_val_b8={"shape": f"B=8 N={loop['nms_b8']['n']} max_det=300 iou=0.7, the trained "
                                                      "EMA model's val candidates", **loop["nms_b8"]},
                      val_multilabel_4096={"shape": "B=16 N=4096 max_det=300 iou=0.7, one val batch's multi-label "
@@ -2275,6 +2464,10 @@ def main():
         + f"; candidate sort {val['sort_ms']:.4f} ms a batch")
     log("[train] " + json.dumps({"a": train["a"], "b": {k: v for k, v in train["b"].items() if k != "losses"}}))
     log("[train loop] " + json.dumps({k: v for k, v in loop.items() if k != "predict_launches"}))
+    log("[train bf16] " + json.dumps({"a": train16["a"],
+                                      "b": {k: v for k, v in train16["b"].items() if k != "losses"}}))
+    log("[train loop bf16] " + json.dumps({k: v for k, v in loop16.items() if k != "predict_launches"}))
+    log("[multitrainer] " + json.dumps(multi))
     log("[e2e] device ms/img, fp32 and bf16 paths in turns: " + json.dumps(
         {name: {f"bs{bs}": r["e2e"][bs] for bs in (1, 16)} for name, r in bf16_res.items()}))
     print(gpu_name_and_power(), flush=True)

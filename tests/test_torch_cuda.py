@@ -950,3 +950,56 @@ def test_trainer_one_epoch_on_the_card_matches_the_cpu(dev, tmp_path):
     for k, v in lc.items():
         assert abs(lg[k] - v) <= 1e-4 * abs(v), (k, lg[k], v)
     assert ng == 1 and all(np.isfinite(mg[k]) for k in ("precision", "recall", "mAP50", "mAP50-95"))
+
+
+def test_bf16_train_step_on_the_card_matches_the_cpu(dev):
+    """engine/train_step.py in bf16 (the trainer's default): one step of
+    yolo-master-n at 640, B=2, on the card in bf16 and on the CPU in fp32 and
+    bf16, from the same weights (BN calibrated) and batch, on two batches: the
+    gradient trees the step hands its optimizer, rel-RMS(card bf16 - CPU fp32)
+    within 1.5x rel-RMS(CPU bf16 - CPU fp32), the squared distances summed over
+    the batches (chip_smoke.py's phase 19 (a); a bf16 gradient deep in the
+    backbone is mostly rounding noise, so the two bf16 programs are held by
+    their distance from fp32, not element by element)."""
+    import copy
+
+    from yolo_master_tpu_torch.engine import train_step as ts
+    from yolo_master_tpu_torch.nn.tasks import DetectionModel
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    def batch_of(seed):
+        rng = np.random.default_rng(seed)
+        xy, wh = rng.uniform(0, 400, (2, 8, 2)), rng.uniform(24, 320, (2, 8, 2))
+        return {"images": torch.from_numpy(rng.random((2, 640, 640, 3), np.float32)),
+                "boxes": torch.from_numpy(np.concatenate([xy, np.minimum(xy + wh, 639)], -1).astype(np.float32)),
+                "classes": torch.from_numpy(rng.integers(0, 80, (2, 8))),
+                "mask": torch.from_numpy(np.arange(8)[None] < rng.integers(1, 9, (2, 1)))}
+
+    def grads(model, batch, dtype):
+        tx = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD").build_optimizer(model)
+        out, apply = {}, tx.apply
+
+        def capture(m, opt_state):
+            out.update({n: p.grad.detach().float().cpu().clone() for n, p in m.named_parameters()})
+            apply(m, opt_state)
+
+        tx.apply = capture
+        st, met = ts.make_train_step(model, tx, compute_dtype=dtype)(ts.make_train_state(model, tx), batch)
+        assert float(met["finite"]) == 1.0
+        return torch.cat([out[n].flatten() for n in sorted(out)]).double()
+
+    batches = [batch_of(seed) for seed in (3, 4)]
+    base = DetectionModel("yolo-master-n")
+    calibrate_bn(base, batches[0]["images"])
+    sums = np.zeros(3)
+    for batch in batches:
+        g = {}
+        for key, where, dtype in (("card16", dev, torch.bfloat16), ("cpu32", "cpu", torch.float32),
+                                  ("cpu16", "cpu", torch.bfloat16)):
+            model = copy.deepcopy(base).to(where)
+            g[key] = grads(model, {k: v.to(where) for k, v in batch.items()}, dtype)
+        ref = g["cpu32"]
+        sums += [float(((g["card16"] - ref) ** 2).sum()), float(((g["cpu16"] - ref) ** 2).sum()),
+                 float((ref ** 2).sum())]
+    card, own = np.sqrt(sums[0] / sums[2]), np.sqrt(sums[1] / sums[2])
+    assert 0 < own < 2 and card <= 1.5 * own, (card, own)

@@ -301,7 +301,8 @@ def test_param_group_labels_match_jax_for_yolo_master_n():
 
 def test_refusals_name_their_roadmap_items():
     """v0_1 (OptimizedMOEImproved without its training-only parts), a fused
-    model, bf16 and the Muon optimizers are refused, naming what is missing."""
+    model, a compute dtype other than fp32 and bf16, and the Muon optimizers
+    are refused, naming what is missing."""
     with pytest.raises(NotImplementedError, match=r"§1\.C item 7"):
         ts.make_train_step(DetectionModel("yolo-master-v0_1-n"))
     from yolo_master_tpu_torch.utils.fuse import fuse_bn
@@ -310,8 +311,8 @@ def test_refusals_name_their_roadmap_items():
     fuse_bn(fused)
     with pytest.raises(ValueError, match="unfused"):
         ts.make_train_step(fused)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ts.make_train_step(DetectionModel(CFG_PLAIN), compute_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ts.make_train_step(DetectionModel(CFG_PLAIN), compute_dtype=torch.float16)
     for name in ("Muon", "MuSGD"):
         with pytest.raises(NotImplementedError, match=r"§1\.I item 23"):
             ts.build_optimizer(name, 0.01, DetectionModel(CFG_PLAIN))

@@ -329,8 +329,6 @@ def test_recovery_restores_the_healthy_state_and_keeps_step(tmp_path):
 def test_refusals_name_their_roadmap_items(synth_dataset, tmp_path):  # noqa: F811
     y = YOLO(CFG_MOE, device="cpu")
     cases = [
-        (dict(), r"§1\.C item 8.*amp=False"),  # amp=True is the default
-        (dict(amp=False, compute_dtype=torch.bfloat16), r"§1\.C item 8"),
         (dict(amp=False, mesh=object()), r"§1\.H item 19"),
         (dict(amp=False, expert_parallel=2), r"§1\.H item 20"),
         (dict(amp=False, peft={"enabled": True}), r"§1\.I item 22"),
@@ -340,8 +338,8 @@ def test_refusals_name_their_roadmap_items(synth_dataset, tmp_path):  # noqa: F8
     for kw, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             y.train(data=synth_dataset, save_dir=str(tmp_path), imgsz=64, workers=0, **kw)
-    with pytest.raises(NotImplementedError, match=r"§1\.C item 8 \(MultiTrainer"):
-        y.train(data=[synth_dataset, synth_dataset], amp=False)
+    with pytest.raises(ValueError, match="compute_dtype"):  # fp32 and bf16 only
+        y.train(data=synth_dataset, save_dir=str(tmp_path), imgsz=64, workers=0, compute_dtype=torch.float16)
     with pytest.raises(NotImplementedError, match=r"§1\.E item 13"):
         YOLO(CFG_MOE, device="cpu", task="segment")
     with pytest.raises(NotImplementedError, match=r"§1\.C item 7"):  # v0_1's training-only parts

@@ -2,13 +2,14 @@
 ``yolo_master_tpu/engine/train_step.py``): forward in train mode, the v8 loss
 with task-aligned assignment, the MoE balance aux composed per family,
 backward, gradient accumulation, the reference optimizer policy, EMA, and
-BatchNorm running statistics, with the JAX package's finite guard.
+BatchNorm running statistics, with the JAX package's finite guard; in fp32,
+or in bf16 with fp32 parameters, loss and state (``compute_dtype``).
 
     model = DetectionModel("yolo-master-n").to(device)
     policy = TrainPolicy(nc=model.nc, epochs=100, nb=len_of_loader, batch=16)
     tx = policy.build_optimizer(model)
     state = make_train_state(model, tx)
-    step = make_train_step(model, tx, accumulate=policy.accumulate)
+    step = make_train_step(model, tx, accumulate=policy.accumulate, compute_dtype=torch.bfloat16)
     state, metrics = step(state, batch)  # batch: images [B,H,W,3] /255, boxes, classes, mask
 
 The model holds the live parameters and BatchNorm statistics (JAX:
@@ -29,7 +30,13 @@ What follows the JAX package exactly, where PyTorch's own tools differ:
     reads the step's parameters);
   * a non-finite loss restores the parameters, BatchNorm statistics and the
     optimizer (its count too); ``step`` still counts, ``ema_updates`` does not,
-    the EMA is still blended (at the unchanged decay) and ``aux_ema`` moves on.
+    the EMA is still blended (at the unchanged decay) and ``aux_ema`` moves on;
+  * bf16 (``yolo_master_tpu/engine/trainer.py:13-14``, ``train_step.py:197``):
+    the forward and the backward in bf16, the loss in fp32 and no loss scaling
+    (bf16 has fp32's range), the finite guard on the fp32 loss.
+
+Refused: yolo-master-v0_1's graphs (OptimizedMOEImproved's training-only
+parts, ROADMAP.md §1.C), fused models, Muon / MuSGD.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ Schedule = Union[float, Callable[[int], float]]
 _HYP_DEFAULTS = {"box": 7.5, "cls": 0.5, "dfl": 1.5, "moe": 0.01}
 _AUX_GAINS = ("moe", "moa", "mot", "latent", "molora")
 _UNPORTED_OPTIMIZER = "ROADMAP.md §1.I item 23 (the Muon optimizers)"
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)  # the train step's forward and backward
 
 
 # -- parameter groups ------------------------------------------------------------------------
@@ -378,9 +386,13 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
 
     ``batch``: images [B, H, W, 3] float in 0..1, boxes [B, M, 4] xyxy px,
     classes [B, M], mask [B, M] bool, on the model's device; B a multiple of
-    ``accumulate``. ``hyp``: loss gains box / cls / dfl / moe (7.5, 0.5, 1.5,
-    0.01), mixture_aux_budget, mixture_aux_normalize. ``moe_gain`` overrides
-    ``hyp["moe"]`` for this step. Metrics: loss, box_loss, cls_loss,
+    ``accumulate``. ``compute_dtype``: float32, or bfloat16 for the JAX
+    package's mixed precision: the images cast to bf16, the fp32 parameters
+    cast per op (``nn/layers.py``), the loss and the aux in fp32, no loss
+    scaling; the gradients reach the fp32 parameters through the casts, and
+    the optimizer, EMA and BN statistics stay fp32. ``hyp``: loss gains box /
+    cls / dfl / moe (7.5, 0.5, 1.5, 0.01), mixture_aux_budget,
+    mixture_aux_normalize. ``moe_gain`` overrides ``hyp["moe"]`` for this step. Metrics: loss, box_loss, cls_loss,
     dfl_loss, aux_loss (and aux_<family>, aux_isolated where the model
     publishes aux losses), each the mean over the micro-batches, and finite.
     With ``return_stats`` also ``moe_stats``: for each routed block, by its
@@ -388,9 +400,8 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
     routing weights) and ``balance_loss``, means over the micro-batches as
     the JAX step's.
     """
-    if compute_dtype != torch.float32:
-        raise NotImplementedError("training in bf16 is not ported yet (ROADMAP.md §1.C item 7): "
-                                  "compute_dtype=torch.float32 only")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
     _check_trainable(model)
     hyp = {**_HYP_DEFAULTS, **(hyp or {})}
     tx = tx or make_optimizer(0.01, model)

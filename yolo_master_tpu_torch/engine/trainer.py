@@ -1,7 +1,17 @@
 """Detection trainer (counterpart of ``yolo_master_tpu/engine/trainer.py``;
-reference: ultralytics/engine/trainer.py:164-1719 BaseTrainer), fp32.
+reference: ultralytics/engine/trainer.py:164-1719 BaseTrainer) and
+:class:`MultiTrainer`.
 
-    YOLO("yolo-master-n").train(data="data.yaml", epochs=100, batch=16, imgsz=640, amp=False)
+    YOLO("yolo-master-n").train(data="data.yaml", epochs=100, batch=16, imgsz=640)
+    YOLO("yolo-master-n").train(data=["a.yaml", "b.yaml"], epochs=10)  # MultiTrainer
+
+``amp=True`` (the default, as in the JAX package) trains in bf16 mixed
+precision: the forward and backward in bf16 from the fp32 parameters through
+each op's cast, the loss in fp32, no loss scaling; the parameters, the
+optimizer, the EMA and the BatchNorm statistics stay fp32
+(``engine/train_step.py``). ``amp=False`` or ``compute_dtype=torch.float32``
+trains in fp32. The EMA's val runs in fp32 (JAX's validator has no compute
+dtype), and every checkpoint holds fp32 weights.
 
 One epoch: the train split, augmented (``data/dataset.py``; ``PrefetchLoader``
 with ``workers`` threads, or the synchronous ``DataLoader`` at ``workers=0``),
@@ -28,10 +38,9 @@ dashboard; the facade's model takes the EMA weights and is left in eval mode.
 ``close_mosaic`` turns mosaic off for the last epochs; ``resume=True``
 continues from ``save_dir/state`` at the epoch ``state_meta.json`` records.
 
-Refused, each naming its ROADMAP.md item: bf16 training (``amp=True``, the
-JAX package's default, or ``compute_dtype=torch.bfloat16``; pass
-``amp=False``), ``mesh=``, ``expert_parallel > 1``, ``peft=`` and ``batch=-1``.
-The train step refuses Muon / MuSGD and yolo-master-v0_1's graphs.
+Refused, each naming its ROADMAP.md item: ``mesh=``, ``expert_parallel > 1``,
+``peft=`` and ``batch=-1``. The train step refuses Muon / MuSGD and
+yolo-master-v0_1's graphs.
 """
 
 from __future__ import annotations
@@ -52,11 +61,10 @@ from ..nn.moe.scheduler import GiniBalanceScheduler, MapSaturationScheduler
 from ..utils.callbacks import default_callbacks
 from ..utils.checkpoint import load_train_state, model_ref, save_train_state, save_weights_npz
 from .recovery import TrainingRecoveryController
-from .train_step import TrainPolicy, make_train_state, make_train_step
+from .train_step import COMPUTE_DTYPES, TrainPolicy, make_train_state, make_train_step
 from .validator import DetectionValidator
 
 LOGGER = logging.getLogger(__name__)
-BF16_TRAINING = "ROADMAP.md §1.C item 8 (bf16 training, after the fp32 loop)"
 REFUSED = {
     "mesh": "ROADMAP.md §1.H item 19 (data parallelism)",
     "expert_parallel": "ROADMAP.md §1.H item 20 (expert parallelism)",
@@ -86,15 +94,15 @@ class DetectionTrainer:
                  moe_schedule: Optional[str] = "gini", peft: Optional[Dict] = None, workers: int = 4,
                  prefetch: int = 3, expert_parallel: int = 1, cache: Optional[str] = None):
         dtype = compute_dtype or (torch.bfloat16 if amp else torch.float32)
-        if dtype != torch.float32:
-            raise NotImplementedError(f"training in {dtype} (amp=True is the default) is not ported yet: "
-                                      f"{BF16_TRAINING}; pass amp=False to train in fp32")
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {dtype}")
         for name, given in (("mesh", mesh is not None), ("expert_parallel", expert_parallel > 1),
                             ("peft", bool(peft)), ("batch=-1", batch == -1)):
             if given:
                 raise NotImplementedError(f"{name} is not ported yet: {REFUSED[name]}")
         self.yolo = yolo
         self.model = yolo.model
+        self.compute_dtype = dtype
         self.device = next(self.model.parameters()).device
         self.data = data
         self.epochs = epochs
@@ -128,7 +136,7 @@ class DetectionTrainer:
         self.tx = self.policy.build_optimizer(self.model)
         self.state = make_train_state(self.model, self.tx)
         self.step_fn = make_train_step(self.model, self.tx, hyp=self.hyp, accumulate=self.accumulate,
-                                       return_stats=True)
+                                       compute_dtype=dtype, return_stats=True)
 
         self.callbacks = default_callbacks(str(self.save_dir), tensorboard=tensorboard)
         self.recovery = TrainingRecoveryController(self.model, str(self.save_dir), smoke_imgsz=min(imgsz, 64))
@@ -192,7 +200,8 @@ class DetectionTrainer:
         metrics_out: Dict[str, float] = {}
         nb_opt = self.nb_opt
         LOGGER.info(f"training {self.epochs} epochs x {nb_opt} steps, batch {self.batch}"
-                    f"{f' x{self.accumulate} accumulated' if self.accumulate > 1 else ''}, imgsz {self.imgsz}")
+                    f"{f' x{self.accumulate} accumulated' if self.accumulate > 1 else ''}, imgsz {self.imgsz}, "
+                    f"{str(self.compute_dtype).removeprefix('torch.')}")
         for epoch in range(self.start_epoch, self.epochs):
             if self.close_mosaic and epoch >= self.epochs - self.close_mosaic and self.train_set.mosaic_enabled:
                 self.train_set.mosaic_enabled = False  # reference close_mosaic
@@ -271,3 +280,80 @@ class DetectionTrainer:
         self.model.eval()
         metrics_out["best_fitness"] = best_fitness
         return metrics_out
+
+
+class MultiTrainer:
+    """Fine-tune one base model on each of a list of datasets in turn
+    (counterpart of ``yolo_master_tpu/engine/trainer.py:MultiTrainer``;
+    reference engine/trainer.py:1564, ``Model.train(data=[...])``).
+
+    Every run starts from a copy of the base weights; runs are named by their
+    dataset's stem, a repeat as ``name-2``, ``name-3``, ..., and write under
+    ``save_dir/<name>``. A run that raises is recorded as ``{"error": 1.0}``
+    and the sweep goes on. ``multitrain_results.json`` holds each run's
+    numeric metrics and their mean over the runs that finished; a
+    ``multitrain_results.png`` fitness bar chart is drawn where matplotlib is
+    installed (skipped with a warning elsewhere, as in JAX). The facade's
+    model is restored to the base weights afterwards, in eval mode.
+    """
+
+    def __init__(self, yolo, datasets, trainer_cls=None, save_dir: str = "runs/multitrain", **kwargs):
+        self.yolo = yolo
+        self.datasets = list(datasets)
+        self.trainer_cls = trainer_cls or DetectionTrainer
+        self.save_dir = Path(save_dir)
+        self.kwargs = kwargs
+        self.metrics: Dict[str, Dict[str, float]] = {}
+
+    def train(self) -> Dict[str, Dict[str, float]]:
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        base = {k: v.detach().clone() for k, v in self.yolo.model.state_dict().items()}
+        names: list = []
+        for i, data in enumerate(self.datasets):
+            stem = Path(str(data)).stem or f"dataset{i}"
+            name, k = stem, 2
+            while name in names:
+                name, k = f"{stem}-{k}", k + 1
+            names.append(name)
+            LOGGER.info(f"MultiTrainer {i + 1}/{len(self.datasets)}: fine-tuning on {data}")
+            self.yolo.load_state_dict(base)
+            try:
+                trainer = self.trainer_cls(self.yolo, data=data, save_dir=str(self.save_dir / name), **self.kwargs)
+                out = trainer.train()
+                self.metrics[name] = {k_: float(v) for k_, v in out.items() if isinstance(v, (int, float))}
+            except Exception as e:  # noqa: BLE001 - one bad dataset must not sink the sweep
+                LOGGER.warning(f"MultiTrainer: run '{name}' failed: {e}")
+                self.metrics[name] = {"error": 1.0}
+        self.yolo.load_state_dict(base)
+        self.yolo.model.eval()
+        ok = {n: m for n, m in self.metrics.items() if "error" not in m}
+        keys = sorted({k for m in ok.values() for k in m})
+        mean = {k: float(np.mean([m[k] for m in ok.values() if k in m])) for k in keys}
+        (self.save_dir / "multitrain_results.json").write_text(json.dumps({"runs": self.metrics, "mean": mean},
+                                                                          indent=2))
+        self._plot(ok)
+        return self.metrics
+
+    def _plot(self, ok: Dict[str, Dict[str, float]]) -> None:
+        """``multitrain_results.png``, each run's fitness as a bar (best-effort)."""
+        if not ok:
+            return
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            names = list(ok)
+            fits = [ok[n].get("best_fitness", ok[n].get("fitness", 0.0)) for n in names]
+            fig, ax = plt.subplots(figsize=(max(4, 1.2 * len(names)), 4))
+            ax.bar(names, fits, color="#4878cf")
+            ax.set_ylabel("fitness")
+            ax.set_title("MultiTrainer per-dataset fitness")
+            for lbl in ax.get_xticklabels():
+                lbl.set_rotation(30)
+            fig.tight_layout()
+            fig.savefig(self.save_dir / "multitrain_results.png", dpi=100)
+            plt.close(fig)
+        except Exception as e:  # noqa: BLE001
+            LOGGER.warning(f"MultiTrainer: plot skipped: {e}")

@@ -2,7 +2,7 @@
 
     YOLO("yolo-master-n").fuse().predict(images)
     YOLO("yolo-master-n").fuse().val(data="data.yaml", imgsz=640, batch=16)
-    YOLO("yolo-master-n").train(data="data.yaml", epochs=100, batch=16, imgsz=640, amp=False)
+    YOLO("yolo-master-n").train(data="data.yaml", epochs=100, batch=16, imgsz=640)
     YOLO("runs/train/best.npz").fuse().predict(images)
 
 The model runs on the card (``device="cuda"``) unless the caller asks for
@@ -31,7 +31,6 @@ from ..utils.fuse import fuse_bn, fused_stem_fuse
 from ..utils.weights import state_dict_from_jax
 
 TASK_ITEM = "ROADMAP.md §1.E item 13 (task heads, their datasets, validators and trainers)"
-MULTI_TRAINER_ITEM = "ROADMAP.md §1.C item 8 (MultiTrainer, after bf16 training)"
 
 
 def _npz_graph(path: Path, meta: dict, cfg, sd: dict):
@@ -117,19 +116,27 @@ class YOLO:
 
     # -- training --------------------------------------------------------------------
     def train(self, **kwargs) -> dict:
-        """Train this model in fp32 (``engine/trainer.py:DetectionTrainer``; its
-        keyword arguments, ``data`` a dataset yaml; ``amp=False`` is required
-        until bf16 training is ported). The model ends with the EMA weights, in
-        eval mode; ``save_dir`` (default ``runs/train``) holds ``best.npz``,
-        ``last.npz``, ``results.csv``, the routing history and, with
-        ``save_period``, the resume checkpoint. Returns the last val metrics
-        and ``best_fitness``."""
-        from ..engine.trainer import DetectionTrainer
+        """Train this model (``engine/trainer.py:DetectionTrainer``; its keyword
+        arguments, ``data`` a dataset yaml), in bf16 mixed precision by default
+        (``amp=True``; ``amp=False`` trains in fp32). The model ends with the
+        EMA weights, in eval mode; ``save_dir`` (default ``runs/train``) holds
+        ``best.npz``, ``last.npz``, ``results.csv``, the routing history and,
+        with ``save_period``, the resume checkpoint. Returns the last val
+        metrics and ``best_fitness``. With ``data`` a list of yamls, the model
+        is fine-tuned on each from its current weights
+        (``engine/trainer.py:MultiTrainer``, ``save_dir`` default
+        ``runs/multitrain``), left as it was, and ``{run name: metrics}`` is
+        returned."""
+        from ..engine.trainer import DetectionTrainer, MultiTrainer
 
         if self.task != "detect":
             raise NotImplementedError(f"training task '{self.task}' is not ported yet: {TASK_ITEM}")
-        if isinstance(kwargs.get("data"), (list, tuple)):
-            raise NotImplementedError(f"training on a list of datasets is not ported yet: {MULTI_TRAINER_ITEM}")
+        data = kwargs.get("data")
+        if isinstance(data, (list, tuple)):
+            kwargs = dict(kwargs)
+            kwargs.pop("data")
+            save_dir = kwargs.pop("save_dir", "runs/multitrain")
+            return MultiTrainer(self, data, save_dir=save_dir, **kwargs).train()
         return DetectionTrainer(self, **kwargs).train()
 
     # -- validation ----------------------------------------------------------------

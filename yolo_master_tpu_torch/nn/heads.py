@@ -18,12 +18,12 @@ import torch.nn as nn
 
 from ..ops.anchors import dfl_decode, dist2bbox, make_anchors
 from ..ops.nms import stable_topk
-from .layers import Conv, DWConv
+from .layers import Conv, Conv2d, DWConv
 
 
-def _head_out(c1: int, c2: int) -> nn.Conv2d:
-    """Final 1x1 conv with bias."""
-    return nn.Conv2d(c1, c2, 1)
+def _head_out(c1: int, c2: int) -> Conv2d:
+    """Final 1x1 conv with bias, in the input's dtype (JAX: ``heads.py:234``)."""
+    return Conv2d(c1, c2, 1)
 
 
 class Detect(nn.Module):

@@ -10,11 +10,15 @@ JAX parameter tree one to one.
 
 BatchNorm uses eps 1e-3 and momentum 0.03, as the JAX package does.
 
-In a low-precision copy of a model (``utils/fuse.py:compute_dtype_copy``,
-bf16) each module follows the JAX package's per-op casts: convs in the
-activation dtype, eval BatchNorm folded in fp32 and applied as one
-multiply-add in the activation dtype, GroupNorm and average pooling in fp32,
-attention logits in the activation dtype with the softmax in fp32.
+Every module follows the JAX package's per-op casts, so that one module serves
+the fp32 model, a bf16 copy of it (``utils/fuse.py:compute_dtype_copy``) and
+bf16 training of its fp32 parameters: convs in the activation dtype, their
+weights cast to it on each call (:class:`Conv2d`; JAX ``w.astype(x.dtype)``,
+``yolo_master_tpu/nn/layers.py:65,74``), eval BatchNorm folded in fp32 and
+applied as one multiply-add in the activation dtype, train-mode BatchNorm in
+fp32 rounded once, GroupNorm and average pooling in fp32, attention logits in
+the activation dtype with the softmax in fp32, A2C2f's ``gamma`` cast to the
+activation dtype.
 """
 
 from __future__ import annotations
@@ -38,12 +42,22 @@ def autopad(k, p=None, d: int = 1):
     return k // 2 if p is None else p
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype: the weight and bias are cast to it on
+    each call (a no-op where they already have it), and the gradient reaches
+    them in their own dtype through the cast."""
+
+    def forward(self, x):
+        b = self.bias
+        return self._conv_forward(x, self.weight.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
 class Conv(nn.Module):
     """conv2d (no bias) + BatchNorm + SiLU; after :meth:`fuse`, conv2d with bias + SiLU."""
 
     def __init__(self, c1, c2, k=1, s=1, p=None, g=1, d=1, act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
         self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act is True else nn.Identity()
 
@@ -57,9 +71,8 @@ class Conv(nn.Module):
             return
         w, b = fold_bn(self.conv.weight, None, self.bn)
         conv = self.conv
-        fused = nn.Conv2d(conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, conv.padding,
-                          groups=conv.groups, dilation=conv.dilation, bias=True,
-                          device=w.device, dtype=w.dtype)
+        fused = Conv2d(conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride, conv.padding,
+                       groups=conv.groups, dilation=conv.dilation, bias=True, device=w.device, dtype=w.dtype)
         fused.weight.copy_(w)
         fused.bias.copy_(b)
         self.conv = fused
@@ -73,11 +86,15 @@ def bn_scale_shift(mean, var, weight, bias, eps: float):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d``; in eval, on an input of lower precision than its
-    statistics (bf16 against fp32), the JAX package's form
-    (``yolo_master_tpu/nn/layers.py:BatchNorm``): the statistics fold in fp32
-    into a scale and a shift, both rounded to the input's dtype, and one
-    multiply-add in that dtype."""
+    """``nn.BatchNorm2d``, on an input of lower precision than its statistics
+    (bf16 against fp32) in the JAX package's form
+    (``yolo_master_tpu/nn/layers.py:BatchNorm``). In eval the statistics fold
+    in fp32 into a scale and a shift, both rounded to the input's dtype, and
+    one multiply-add in that dtype. In training PyTorch's own mixed-dtype batch
+    norm is JAX's form (``layers.py:130-144``): the statistics of the input
+    widened to fp32, the biased variance in the normalisation and the unbiased
+    one in the running statistics, ``(x - mean) * inv + bias`` in fp32 rounded
+    once to the input's dtype."""
 
     def forward(self, x):
         if self.training or x.dtype == self.running_var.dtype:
@@ -238,7 +255,7 @@ class A2C2f(nn.Module):
             ys.append(m(ys[-1]))
         y = self.cv2(torch.cat(ys, 1))
         if self.gamma is not None:
-            return x + self.gamma.view(1, -1, 1, 1) * y
+            return x + self.gamma.to(y.dtype).view(1, -1, 1, 1) * y
         return y
 
 
@@ -261,7 +278,7 @@ class GroupNorm(nn.GroupNorm):
         return F.group_norm(x.to(self.weight.dtype), self.num_groups, self.weight, self.bias, self.eps).to(x.dtype)
 
 
-class PlainConv(nn.Conv2d):
+class PlainConv(Conv2d):
     """A bare conv2d with 'same' padding, no norm or activation, optional bias."""
 
     def __init__(self, c1, c2, k=1, s=1, g=1, bias=False):

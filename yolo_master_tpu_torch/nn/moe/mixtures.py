@@ -51,9 +51,10 @@ class SimpleExpert(nn.Module):
             y = F.group_norm(y.to(weight.dtype).reshape(b * kk, ch, h * w), gn.num_groups, eps=gn.eps)
             return (y.reshape(b, kk, ch, h * w) * weight[..., None] + bias[..., None]).to(x.dtype)
 
-        y = torch.matmul(sel["conv.0.weight"].flatten(3), x.reshape(b, 1, x.shape[1], h * w))  # [B, K, hid, HW]
+        w0 = sel["conv.0.weight"].flatten(3).to(x.dtype)
+        y = torch.matmul(w0, x.reshape(b, 1, x.shape[1], h * w))  # [B, K, hid, HW]
         y = F.silu(norm(y, self.conv[1], sel["conv.1.weight"], sel["conv.1.bias"]))
-        y = torch.matmul(sel["conv.3.weight"].flatten(3), y)  # [B, K, O, HW]
+        y = torch.matmul(sel["conv.3.weight"].flatten(3).to(x.dtype), y)  # [B, K, O, HW]
         y = norm(y, self.conv[4], sel["conv.4.weight"], sel["conv.4.bias"])
         return y.reshape(b, kk, -1, h, w)
 

@@ -201,9 +201,11 @@ class DetectionModel(nn.Module):
     def _forward_graph(self, x_nhwc: torch.Tensor, stop_before_head: bool = False):
         if isinstance(self.model[0], FusedStem):
             x = x_nhwc
-        else:  # uint8 (/255 folded into layer 0) or float, in layer 0's weights' dtype
-            x = x_nhwc.to(next(self.model[0].parameters()).dtype)
-            x = x.permute(0, 3, 1, 2)  # channels_last NCHW view
+        else:  # uint8 (/255 folded into layer 0) or float, in layer 0's weights' dtype, or in a lower
+            # precision than those (bf16 images into fp32 weights: bf16 training), which every op keeps
+            w_dtype = next(self.model[0].parameters()).dtype
+            lower = x_nhwc.is_floating_point() and x_nhwc.dtype.itemsize < w_dtype.itemsize
+            x = (x_nhwc if lower else x_nhwc.to(w_dtype)).permute(0, 3, 1, 2)  # channels_last NCHW view
         saved = {}
         for m in self.model:
             if m.f != -1:  # a negative index other than -1 counts back from this layer
@@ -225,7 +227,10 @@ class DetectionModel(nn.Module):
     def forward_train(self, x_nhwc: torch.Tensor) -> Tuple[dict, Dict[str, AuxRecord]]:
         """Train-mode forward: (the head's training dict, the aux records of the
         blocks that publish one, keyed by module path in forward order). The
-        caller puts the model in train mode (BatchNorm on batch statistics)."""
+        caller puts the model in train mode (BatchNorm on batch statistics).
+        bf16 images run the fp32 parameters in bf16 through each op's cast, as
+        JAX's ``forward_train`` on ``images.astype(compute_dtype)``; the head's
+        dict is then bf16 and the aux records fp32."""
         if not self.training:
             raise RuntimeError("forward_train needs a model in train mode (model.train())")
         publishers = [(name, m) for name, m in self.named_modules() if hasattr(m, "aux_record")]
@@ -242,7 +247,8 @@ class DetectionModel(nn.Module):
     def compute_loss(self, preds: dict, batch: dict, aux_total: torch.Tensor, hyp: dict):
         """(total, metrics) of the v8 loss of ``preds`` against ``batch`` (boxes [B, M, 4]
         xyxy px, classes [B, M], mask [B, M]) plus ``hyp["moe"] * aux_total``; metrics
-        loss, box_loss, cls_loss, dfl_loss and aux_loss."""
+        loss, box_loss, cls_loss, dfl_loss and aux_loss, in fp32 whatever the
+        head's dtype (``nn/losses.py`` widens the head outputs)."""
         lb = composite_loss(preds, preds["hw_shapes"], self.head.strides, batch["boxes"], batch["classes"],
                             batch["mask"], nc=self.nc, aux_total=aux_total, reg_max=self.head.reg_max,
                             box_gain=hyp.get("box", 7.5), cls_gain=hyp.get("cls", 0.5), dfl_gain=hyp.get("dfl", 1.5),
