@@ -94,10 +94,22 @@ yolo-master-v0_1-n with seeded random weights. Phases:
      and predict of last.npz (fp32 weights), in bf16
  21. MultiTrainer: YOLO("yolo-master-n").train(data=[a, b], epochs=1, ...) on two
      synthetic sets: two runs from the base weights, the base restored bitwise
- 22. device time by kernel of the predict path, with fused_esmoe_fuse, of the
+ 22. yolo-master-v0_1-n's train step at 640 with phase 12's weights (router
+     noise, progressive sparsity, expert dropout and aux loss; warmup_steps 2
+     and dropout_interval 2 on the routed blocks): one fp32 step at bs 2 on the
+     card against the CPU (phase 17's gate), the draws of the card's step
+     equal to the CPU's bit for bit; one bf16 step at bs 2 on two batches with
+     the card's routing pinned to the CPU bf16's picks (phase 19's statistic),
+     and the unpinned picks' flips counted; three steps of bs 16 x accumulate
+     4 in fp32 and bf16 (times by layer, peak memory, a profiled step) beside
+     yolo-master-n's
+ 23. the training loop of yolo-master-v0_1-n with amp at its default (bf16),
+     warmup_steps 1 and dropout_interval 1: phase 20's run, resume and
+     predict of last.npz
+ 24. device time by kernel of the predict path, with fused_esmoe_fuse, of the
      v0_1 path in sparse and dense eval and of the scale-m path at batch 16,
      each fp32 path also in bf16, and the stem's share of each (torch.profiler)
- 23. no module of jax or of the JAX package was imported
+ 25. no module of jax or of the JAX package was imported
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
@@ -155,6 +167,9 @@ VAL_BATCH = 16
 VAL_NMS = dict(conf_thres=0.001, iou_thres=0.7, max_det=300, max_nms=4096)  # the validator's defaults
 VAL_METRICS = ("precision", "recall", "mAP50", "mAP50-95")
 TRAIN_IMAGES, TRAIN_VAL_IMAGES = 64, 16  # the train loop phase's synthetic set
+V01 = "yolo-master-v0_1-n"
+V01_STEP_SCHEDULE = (2, 2)  # phase 22's warmup_steps, dropout_interval: steps 2 and 50 drop experts
+V01_LOOP_SCHEDULE = (1, 1)  # phase 23's: the loop's second optimizer step (step 1) drops experts
 RESUME_REL_TOL_BF16 = 1e-4  # the bf16 loop's resumed epoch 2 against the run's: measured 1.6e-8 (PERF.md §7)
 VAL_METRIC_TOL = 1e-3  # the card's validator vs the CPU's: tests/test_torch_validator.py:METRIC_TOL (port vs JAX)
 
@@ -1231,7 +1246,7 @@ def phase_v0_1_path(dev, base, imgs):
         log(f"[e2e] bs={bs}: device ms/img, yolo-master-n {[round(t, 4) for t in runs['yolo-master-n']]}, "
             f"yolo-master-v0_1-n sparse eval {[round(t, 4) for t in runs['sparse']]}, "
             f"dense eval {[round(t, 4) for t in runs['dense']]}")
-    return v01, launches, e2e
+    return v01, launches, e2e, state
 
 
 def phase_sahi(dev, moe):
@@ -1678,24 +1693,35 @@ def train_batch(b: int, m: int, dev, seed: int, max_boxes: int = 8):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def train_model(state, where, head_bias_zero: bool = True):
-    """yolo-master-n (unfused) with phase 9's calibrated weights, the class biases at 0
-    as in the val phase, on ``where``."""
+def train_model(state, where, head_bias_zero: bool = True, name: str = "yolo-master-n", schedule=None):
+    """``name`` (unfused; yolo-master-n with phase 9's calibrated weights, v0_1-n
+    with phase 12's) with the class biases at 0 as in the val phase, on ``where``;
+    ``schedule`` (warmup_steps, dropout_interval) set on every routed block."""
     import torch
 
     from yolo_master_tpu_torch import YOLO
 
-    y = YOLO("yolo-master-n", device=where).load_state_dict(state)
+    y = YOLO(name, device=where).load_state_dict(state)
     if head_bias_zero:
         with torch.no_grad():
             for branch in y.model.head.cv3:
                 branch[-1].bias.zero_()
+    if schedule is not None:
+        for m in routed_blocks(y.model):
+            m.warmup_steps, m.dropout_interval = schedule
     return y
 
 
-def train_step_bench(dev, state, dtype):
-    """Three optimizer steps of yolo-master-n at 640, bs 16 x accumulate 4 (nbs 64),
-    max_gt 128, in ``dtype``, from phase 9's weights (class biases at 0): finite
+def routed_blocks(model):
+    from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved
+
+    return [m for m in model.modules() if isinstance(m, OptimizedMOEImproved)]
+
+
+def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=None):
+    """Three optimizer steps of ``name`` at 640, bs 16 x accumulate 4 (nbs 64),
+    max_gt 128, in ``dtype``, from ``state`` (class biases at 0; ``schedule`` on
+    the routed blocks, train_model): finite
     losses, the EMA counted, BN statistics moved, ms per optimizer step and per
     micro-batch (CUDA events), peak memory; one bs-16 step without accumulation;
     one bs-16 micro-batch by layer (forward, loss + TAL, backward, optimizer +
@@ -1709,11 +1735,11 @@ def train_step_bench(dev, state, dtype):
     from yolo_master_tpu_torch.engine import train_step as ts
 
     metrics = ("loss", "box_loss", "cls_loss", "dfl_loss", "aux_loss")
-    tag = "train b" if dtype == torch.float32 else "train bf16 b"
+    tag = ("train b" if dtype == torch.float32 else "train bf16 b") + ("" if name == "yolo-master-n" else f" {name}")
     what = str(dtype).removeprefix("torch.")
     pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=16)
     require(pol.accumulate == 4, f"{tag}: nbs 64 at bs 16 should accumulate 4")
-    y = train_model(state, dev)
+    y = train_model(state, dev, name=name, schedule=schedule)
     tx = pol.build_optimizer(y.model)
     st = ts.make_train_state(y.model, tx)
     step = ts.make_train_step(y.model, tx, accumulate=pol.accumulate, compute_dtype=dtype)
@@ -1732,7 +1758,7 @@ def train_step_bench(dev, state, dtype):
         losses.append({k: float(met[k]) for k in (*metrics, "finite")})
     peak = torch.cuda.max_memory_allocated()
     moved = sum(not torch.equal(v, bn_before[k]) for k, v in y.model.state_dict().items() if k in bn_before)
-    log(f"[{tag}] yolo-master-n, 640, {what}, bs 16 x accumulate 4, max_gt 128, three steps: losses {losses}; ms per "
+    log(f"[{tag}] {name}, 640, {what}, bs 16 x accumulate 4, max_gt 128, three steps: losses {losses}; ms per "
         f"optimizer step {[round(t, 3) for t in step_ms]} (CUDA events), per micro-batch "
         f"{[round(t / pol.accumulate, 3) for t in step_ms]}; peak memory {peak / 2**30:.2f} GiB; "
         f"{moved} of {len(bn_before)} BN running means moved")
@@ -1755,7 +1781,7 @@ def train_step_bench(dev, state, dtype):
     for _ in range(4):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
-        preds, aux = y.model.forward_train(mb["images"].to(dtype))
+        preds, aux = y.model.forward_train(mb["images"].to(dtype), st.step)
         ev[1].record()
         total, _ = y.model.compute_loss(preds, mb, sum(rec.value for rec in aux.values()), hyp)
         ev[2].record()
@@ -1796,32 +1822,25 @@ def train_step_bench(dev, state, dtype):
                        busy_share=busy_ms / wall_ms, kernels=count)
 
 
-def phase_train(dev, state):
-    """The train step (engine/train_step.py) on yolo-master-n at 640, fp32:
-    (a) one optimizer step at bs 2 on the card against the same step on the CPU,
-    from a state at step 50 of the warmup (every group's lr non-zero, momentum
-    traces seeded); (b) three optimizer steps of bs 16 x accumulate 4 (nbs 64),
-    max_gt 128: finite losses, the EMA counted, BN statistics moved, times, peak
-    memory and one profiled step; (c) the EMA weights loaded into a model,
-    fused, and validated on a synthetic set: the stem and NMS kernels launch."""
+def card_vs_cpu_step(dev, make_model, tag):
+    """One optimizer step at bs 2 of ``make_model(where)`` on the card against the
+    same step on the CPU, from a state at step 50 of the trainer's warmup (every
+    group's lr non-zero, momentum traces seeded): the loss components within
+    1e-4 relative, the parameters, BN statistics and EMA after the step within
+    1e-4 of each tensor's scale plus 1e-2 of its move, the updates within 5e-2
+    of their size. Returns the numbers and the two models."""
     import math
-    import shutil
-    import tempfile
-    from pathlib import Path
 
     import torch
 
     from yolo_master_tpu_torch.engine import train_step as ts
 
     metrics = ("loss", "box_loss", "cls_loss", "dfl_loss", "aux_loss")
-    out = {}
-
-    # (a) card against CPU, one optimizer step
     pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
     runs = {}
     g = torch.Generator().manual_seed(3)
     for where in (dev, "cpu"):
-        y = train_model(state, where)
+        y = make_model(where)
         tx = pol.build_optimizer(y.model)
         st = ts.make_train_state(y.model, tx)
         st.step = st.opt_state.count = 50
@@ -1836,11 +1855,11 @@ def phase_train(dev, state):
         runs[str(where)] = (y.model, st, {k: float(met[k]) for k in metrics}, before)
     (mg, sg, lg, bg), (mc, sc, lc, bc) = runs[str(dev)], runs["cpu"]
     loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in metrics}
-    log(f"[train a] one step at bs 2 from step 50 (lr {pol.lr_schedule(50):.3e}, bias lr "
+    log(f"[{tag}] one step at bs 2 from step 50 (lr {pol.lr_schedule(50):.3e}, bias lr "
         f"{pol.bias_lr_schedule(50):.4f}, momentum {pol.momentum_schedule(50):.4f}): card {lg}, CPU {lc}; "
         f"relative deviation {loss_err}")
     require(all(math.isfinite(v) for v in lg.values()) and max(loss_err.values()) <= 1e-4,
-            "train (a): the card's loss components differ from the CPU's beyond 1e-4 relative")
+            f"{tag}: the card's loss components differ from the CPU's beyond 1e-4 relative")
     # the step's updates, card against CPU, where a tensor moved by >= 1e-2 of the largest move:
     # within 5e-2 of the tensor's own move (cuDNN's backward sums in another order than the CPU's)
     sd_g, sd_c = mg.state_dict(), mc.state_dict()
@@ -1859,11 +1878,32 @@ def phase_train(dev, state):
         k_worst = max(errs, key=lambda k: errs[k][0] / errs[k][1])
         worst[what] = (k_worst, *errs[k_worst])
         require(all(e <= lim for e, lim in errs.values()),
-                f"train (a): {what} after the step differ beyond their limit (worst {worst[what]})")
-    log(f"[train a] largest deviations, card vs CPU (tensor, |diff|, limit): {worst}; updates: worst {k_rel} "
+                f"{tag}: {what} after the step differ beyond their limit (worst {worst[what]})")
+    log(f"[{tag}] largest deviations, card vs CPU (tensor, |diff|, limit): {worst}; updates: worst {k_rel} "
         f"{rel[k_rel]:.3e} of its largest move ({len(rel)} tensors moved by >= 1e-2 of the largest move, {top:.3e})")
-    require(rel[k_rel] <= 5e-2, "train (a): the card's updates differ from the CPU's beyond 5e-2 of their size")
-    out["a"] = dict(loss_rel_err=loss_err, worst=worst, update_rel_err=rel[k_rel])
+    require(rel[k_rel] <= 5e-2, f"{tag}: the card's updates differ from the CPU's beyond 5e-2 of their size")
+    return dict(loss_rel_err=loss_err, worst=worst, update_rel_err=rel[k_rel]), {"card": mg, "cpu": mc}
+
+
+def phase_train(dev, state):
+    """The train step (engine/train_step.py) on yolo-master-n at 640, fp32:
+    (a) one optimizer step at bs 2 on the card against the same step on the CPU,
+    from a state at step 50 of the warmup (every group's lr non-zero, momentum
+    traces seeded); (b) three optimizer steps of bs 16 x accumulate 4 (nbs 64),
+    max_gt 128: finite losses, the EMA counted, BN statistics moved, times, peak
+    memory and one profiled step; (c) the EMA weights loaded into a model,
+    fused, and validated on a synthetic set: the stem and NMS kernels launch."""
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    out = {}
+
+    # (a) card against CPU, one optimizer step
+    out["a"], _ = card_vs_cpu_step(dev, lambda where: train_model(state, where), "train a")
 
     # (b) the slice at full width: bs 16 x accumulate 4, three optimizer steps
     y, st, out["b"] = train_step_bench(dev, state, torch.float32)
@@ -1897,10 +1937,10 @@ def phase_train(dev, state):
     return out
 
 
-def step_gradients(model, tx, batch, dtype):
+def step_gradients(model, tx, batch, dtype, step: int = 0):
     """The gradient tree (fp32 on the CPU, by parameter name) that one optimizer
-    step of ``model`` in ``dtype`` hands its optimizer on ``batch``, and the step's
-    metrics."""
+    step of ``model`` in ``dtype``, at train step ``step``, hands its optimizer on
+    ``batch``, and the step's metrics."""
     from yolo_master_tpu_torch.engine import train_step as ts
 
     grads, apply = {}, tx.apply
@@ -1912,6 +1952,7 @@ def step_gradients(model, tx, batch, dtype):
     tx.apply = capture
     try:
         st = ts.make_train_state(model, tx)
+        st.step = step
         _, met = ts.make_train_step(model, tx, compute_dtype=dtype)(st, batch)
     finally:
         del tx.apply
@@ -1969,6 +2010,121 @@ def phase_train_bf16(dev, state, fp32):
         f"{b16['peak_bytes'] / 2**30:.2f} vs {b32['peak_bytes'] / 2**30:.2f} GiB; busy {b16['busy_ms']:.3f} ms "
         f"({100 * b16['busy_share']:.1f}%, {b16['kernels']} kernels) vs {b32['busy_ms']:.3f} ms "
         f"({100 * b32['busy_share']:.1f}%, {b32['kernels']} kernels)")
+    return out
+
+
+def routing_recorder(plain, seen):
+    """process_logits (``plain``) that records each routed block's [B, E] rank mask, on the CPU, in forward order."""
+    def routing(logits, top_k, noise=None):
+        out = plain(logits, top_k, noise)
+        seen.append((out[0] > 0).cpu())
+        return out
+
+    return routing
+
+
+def routing_pinned(masks):
+    """process_logits that keeps, block by block in forward order, the experts of
+    ``masks`` over the block's own noisy probabilities, renormalised."""
+    import torch
+
+    from yolo_master_tpu_torch.nn.moe.routers import LOGIT_CLAMP
+
+    it = iter(masks)
+
+    def routing(logits, top_k, noise=None):
+        logits = logits.float() + noise if noise is not None else logits.float()
+        probs = torch.softmax(logits.clamp(-LOGIT_CLAMP, LOGIT_CLAMP), dim=-1)
+        w = probs * next(it).to(probs.device)
+        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), probs, logits
+
+    return routing
+
+
+def phase_v0_1_train(dev, state, n32, n16):
+    """yolo-master-v0_1-n's train step at 640 with phase 12's weights (class
+    biases at 0), warmup_steps 2 and dropout_interval 2 on its three routed
+    blocks (V01_STEP_SCHEDULE): (a) fp32, one step at bs 2 from step 50 (k = 2,
+    a dropout step) on the card against the CPU, phase 17's gate, and the
+    router noise and keep masks the card's step used equal to the CPU's bit
+    for bit; (b) bf16, one step at bs 2 at step 2 (k = 2, a dropout step) on two
+    batches: the card's routing pinned to the CPU bf16 step's picks, the
+    gradient trees' rel-RMS from the CPU fp32 within 1.5x the CPU bf16's (phase
+    19's statistic); unpinned, the (sample, block) pairs whose picks differ
+    between the card's bf16 and the CPU's, counted; (c) train_step_bench in fp32
+    and bf16 (steps 0-2: k anneals, step 2 drops experts) beside yolo-master-n's
+    numbers of the same call (``n32``, ``n16``: phases 17 and 19)."""
+    import math
+
+    import torch
+
+    from yolo_master_tpu_torch.engine import train_step as ts
+    from yolo_master_tpu_torch.nn.moe import mixtures as tmix
+
+    def make(where):
+        return train_model(state, where, name=V01, schedule=V01_STEP_SCHEDULE)
+
+    log(f"[v0_1 train] warmup_steps, dropout_interval = {V01_STEP_SCHEDULE} on layers 5, 8 and 11")
+    out = {}
+    out["a"], models = card_vs_cpu_step(dev, make, "v0_1 train a")
+    dropped = {}
+    for mg, mc in zip(routed_blocks(models["card"]), routed_blocks(models["cpu"])):
+        require(mg.step == mc.step == 50 and mg.dropped_experts().size > 0,
+                "v0_1 train (a): step 50 should drop experts")
+        require(torch.equal(mg._draws[1].cpu(), mc._draws[1]),
+                f"v0_1 train (a): {mg.jax_path}'s noise or keep mask differs between the card and the CPU")
+        dropped[mg.jax_path] = mg.dropped_experts().tolist()
+    log(f"[v0_1 train a] the router noise [2, E] and keep mask [E] of each block's step on the card equal the "
+        f"CPU's bit for bit; dropped experts at step 50: {dropped}")
+    out["a"]["dropped"] = dropped
+
+    # (b) bf16 against the CPU's fp32 and bf16, the card's routing pinned to the CPU bf16's picks
+    plain = tmix.process_logits
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
+    sums, flips, pairs = [0.0, 0.0, 0.0], 0, 0
+    runs = (("cpu bfloat16", "cpu", torch.bfloat16), ("cpu float32", "cpu", torch.float32),
+            ("cuda bfloat16 unpinned", dev, torch.bfloat16), ("cuda bfloat16", dev, torch.bfloat16))
+    for seed in (11, 12):
+        grads, masks = {}, {}
+        for key, where, dtype in runs:
+            seen = []
+            y = make(where)  # built before the routing is patched: the facade's stride probe routes too
+            tmix.process_logits = (routing_pinned(masks["cpu bfloat16"]) if key == "cuda bfloat16"
+                                   else routing_recorder(plain, seen))
+            try:
+                g, met = step_gradients(y.model, pol.build_optimizer(y.model), train_batch(2, 8, where, seed=seed),
+                                        dtype, step=2)
+            finally:
+                tmix.process_logits = plain
+            masks[key] = seen
+            grads[key] = torch.cat([g[n].flatten() for n in sorted(g)]).double()
+            require(all(math.isfinite(float(met[k])) for k in ("loss", "aux_loss")), f"v0_1 train (b): {key} loss")
+        flips += sum(int((a != b).any(-1).sum()) for a, b in zip(masks["cuda bfloat16 unpinned"],
+                                                                  masks["cpu bfloat16"]))
+        pairs += sum(m.shape[0] for m in masks["cpu bfloat16"])
+        ref = grads["cpu float32"]
+        for i, key in enumerate(("cuda bfloat16", "cpu bfloat16")):
+            sums[i] += float(((grads[key] - ref) ** 2).sum())
+        sums[2] += float((ref ** 2).sum())
+    card, own = math.sqrt(sums[0] / sums[2]), math.sqrt(sums[1] / sums[2])
+    log(f"[v0_1 train b] bf16 at step 2, two batches of 2: gradient trees' rel-RMS from the CPU fp32, the card's "
+        f"routing pinned to the CPU bf16's picks: card {card:.4e}, CPU bf16 {own:.4e} (ratio {card / own:.3f}, "
+        f"limit 1.5); unpinned, the card's bf16 and the CPU's bf16 pick a different top-2 set for {flips} of "
+        f"{pairs} (sample, block) pairs")
+    require(0 < own < 2 and card <= 1.5 * own,
+            "v0_1 train (b): the card's bf16 gradients are further from the CPU fp32 than 1.5x the CPU bf16's")
+    out["b"] = dict(grad_rel_rms_card=card, grad_rel_rms_cpu_bf16=own, flips=flips, pairs=pairs)
+
+    # (c) bs 16 x accumulate 4, three steps, in both dtypes, beside yolo-master-n's
+    for what, dtype, ref in (("fp32", torch.float32, n32), ("bf16", torch.bfloat16, n16)):
+        _, _, r = train_step_bench(dev, state, dtype, name=V01, schedule=V01_STEP_SCHEDULE)
+        out[f"c_{what}"] = r
+        log(f"[v0_1 train c] {what}, v0_1-n beside yolo-master-n (this call): ms per optimizer step "
+            f"{[round(t, 3) for t in r['step_ms']]} vs {[round(t, 3) for t in ref['step_ms']]}; per micro-batch by "
+            f"layer {json.dumps(r['layers_ms'])} vs {json.dumps(ref['layers_ms'])}; peak "
+            f"{r['peak_bytes'] / 2**30:.2f} vs {ref['peak_bytes'] / 2**30:.2f} GiB; busy {r['busy_ms']:.3f} ms "
+            f"({100 * r['busy_share']:.1f}%, {r['kernels']} kernels) vs {ref['busy_ms']:.3f} ms "
+            f"({100 * ref['busy_share']:.1f}%, {ref['kernels']} kernels)")
     return out
 
 
@@ -2050,23 +2206,23 @@ def write_train_set(root, seed: int = 0):
     return yaml_path
 
 
-def phase_train_loop(dev, state, imgs, amp: bool = False):
-    """The training loop, YOLO("yolo-master-n").train(..., amp=amp), on a synthetic
-    set written under the checkout and removed after."""
+def phase_train_loop(dev, state, imgs, amp: bool = False, name: str = "yolo-master-n", schedule=None):
+    """The training loop, YOLO(name).train(..., amp=amp), on a synthetic set
+    written under the checkout and removed after (``schedule``: train_model's)."""
     import shutil
     import tempfile
     from pathlib import Path
 
     root = Path(tempfile.mkdtemp(prefix=".val_set_train_", dir=Path(__file__).resolve().parent))
     try:
-        return _phase_train_loop(dev, state, imgs, root, amp)
+        return _phase_train_loop(dev, state, imgs, root, amp, name, schedule)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _phase_train_loop(dev, state, imgs, root, amp):
-    """(a) TRAIN_IMAGES train and TRAIN_VAL_IMAGES val images; yolo-master-n at
-    640 with phase 9's weights (class biases at 0) trained by
+def _phase_train_loop(dev, state, imgs, root, amp, name, schedule):
+    """(a) TRAIN_IMAGES train and TRAIN_VAL_IMAGES val images; ``name`` at 640
+    with ``state`` (class biases at 0; phase 9's weights for yolo-master-n) trained by
     .train(epochs=2, batch=16, amp=amp, workers=4, save_period=1,
     close_mosaic=1, moe_schedule="gini"): bs 16 x accumulate 4, mosaic in epoch
     1 and off in epoch 2, the EMA validated every epoch at batch 8; (b) finite
@@ -2094,7 +2250,7 @@ def _phase_train_loop(dev, state, imgs, root, amp):
     metrics = ("loss", "box_loss", "cls_loss", "dfl_loss", "aux_loss")
     run_kw = dict(data=str(yaml_path), epochs=2, batch=16, imgsz=IMGSZ, amp=amp, workers=4, save_period=1,
                   close_mosaic=1, moe_schedule="gini")
-    tag = "train loop bf16" if amp else "train loop"
+    tag = ("train loop bf16" if amp else "train loop") + ("" if name == "yolo-master-n" else f" {name}")
     out = {}
 
     # (c) the loader alone: one epoch of 64 mosaic samples with 4 workers
@@ -2105,7 +2261,7 @@ def _phase_train_loop(dev, state, imgs, root, amp):
     loader_ips = n / (time.perf_counter() - t0)
 
     # (a)-(b) the run
-    y = train_model(state, dev)
+    y = train_model(state, dev, name=name, schedule=schedule)
     trainer = DetectionTrainer(y, save_dir=str(root / "run"), **run_kw)
     log_rows, vals = [], []
     trainer.callbacks.add("on_fit_epoch_end", lambda e, agg: log_rows.append((e, dict(agg), trainer.moe_gain)))
@@ -2131,7 +2287,7 @@ def _phase_train_loop(dev, state, imgs, root, amp):
     val_batches = math.ceil(TRAIN_VAL_IMAGES / min(16, 8))
     files = sorted(p.name for p in (root / "run").iterdir())
     gains = [g for _, _, g in log_rows]
-    log(f"[{tag}] yolo-master-n, 640, bs 16 x accumulate {trainer.accumulate} ({trainer.nb_opt} optimizer "
+    log(f"[{tag}] {name}, 640, bs 16 x accumulate {trainer.accumulate} ({trainer.nb_opt} optimizer "
         f"step an epoch), 2 epochs in {wall_s:.2f} s: epoch losses "
         f"{[{k: round(agg[k], 4) for k in metrics} for _, agg, _ in log_rows]}; moe_gain {gain0} -> {gains}; "
         f"val {[{k: round(m[k], 6) for k in VAL_METRICS} for m in vals]}; launches {launches}; files {files}")
@@ -2162,7 +2318,8 @@ def _phase_train_loop(dev, state, imgs, root, amp):
 
     # (d) resume on the card from epoch 1's checkpoint
     meta = json.loads((root / "resume" / "state_meta.json").read_text())
-    resumed = DetectionTrainer(train_model(state, dev), save_dir=str(root / "resume"), resume=True, **run_kw)
+    resumed = DetectionTrainer(train_model(state, dev, name=name, schedule=schedule), save_dir=str(root / "resume"),
+                               resume=True, **run_kw)
     require(resumed.start_epoch == 1 and resumed.state.step == meta["step"] == trainer.nb_opt,
             f"{tag}: resume starts at epoch {resumed.start_epoch}, step {resumed.state.step}; saved {meta}")
     resumed_rows = []
@@ -2343,7 +2500,7 @@ def main():
     done("main path and scale m")
     c3k2_res, c3k2_launches = phase_c3k2(dev, model, imgs)
     moe, moe_launches, _ = phase_fused_esmoe_path(dev, model, state, imgs)
-    v01, _, _ = phase_v0_1_path(dev, model, imgs)
+    v01, _, _, v01_state = phase_v0_1_path(dev, model, imgs)
     sahi_launches = phase_sahi(dev, moe)
     done("fp32 paths")
     x16, _ = model._predictor.preprocess(imgs)
@@ -2365,6 +2522,11 @@ def main():
     done("bf16 train loop")
     multi = phase_multitrainer(dev, state)
     done("MultiTrainer")
+    v01_train = phase_v0_1_train(dev, v01_state, train["b"], train16["b"])
+    done("v0_1 train step")
+    log(f"[train loop bf16 {V01}] warmup_steps, dropout_interval = {V01_LOOP_SCHEDULE} on layers 5, 8 and 11")
+    v01_loop = phase_train_loop(dev, v01_state, imgs, amp=True, name=V01, schedule=V01_LOOP_SCHEDULE)
+    done("v0_1 train loop")
 
     def v01_dense(xb):
         v01.model.sparse_inference = False
@@ -2408,6 +2570,7 @@ def main():
                      train_ema_val_launches=train["c"]["launches"]["stem"],
                      train_loop_predict_launches=loop["predict_launches"]["stem"],
                      train_loop_bf16_predict_launches=loop16["predict_launches"]["stem"],
+                     v0_1_train_loop_predict_launches=v01_loop["predict_launches"]["stem"],
                      widths={scale: {k: stem_res[(scale, 16)][k]
                                      for k in ("ms", "plain_ms", "bound_ms", "bound_peak", "max_abs_err")}
                              for scale in STEM_WIDTHS}),
@@ -2420,6 +2583,8 @@ def main():
                      train_loop_bf16_ema_val_launches=loop16["launches"]["nms"],
                      train_loop_bf16_predict_launches=loop16["predict_launches"]["nms"],
                      multitrainer_ema_val_launches=multi["launches"]["nms"],
+                     v0_1_train_loop_ema_val_launches=v01_loop["launches"]["nms"],
+                     v0_1_train_loop_predict_launches=v01_loop["predict_launches"]["nms"],
                      train_loop_ema_val_b8={"shape": f"B=8 N={loop['nms_b8']['n']} max_det=300 iou=0.7, the trained "
                                                      "EMA model's val candidates", **loop["nms_b8"]},
                      val_multilabel_4096={"shape": "B=16 N=4096 max_det=300 iou=0.7, one val batch's multi-label "
@@ -2468,6 +2633,10 @@ def main():
                                       "b": {k: v for k, v in train16["b"].items() if k != "losses"}}))
     log("[train loop bf16] " + json.dumps({k: v for k, v in loop16.items() if k != "predict_launches"}))
     log("[multitrainer] " + json.dumps(multi))
+    log("[v0_1 train] " + json.dumps({"a": v01_train["a"], "b": v01_train["b"],
+                                      **{k: {n: v for n, v in v01_train[k].items() if n != "losses"}
+                                         for k in ("c_fp32", "c_bf16")}}))
+    log(f"[train loop bf16 {V01}] " + json.dumps({k: v for k, v in v01_loop.items() if k != "predict_launches"}))
     log("[e2e] device ms/img, fp32 and bf16 paths in turns: " + json.dumps(
         {name: {f"bs{bs}": r["e2e"][bs] for bs in (1, 16)} for name, r in bf16_res.items()}))
     print(gpu_name_and_power(), flush=True)

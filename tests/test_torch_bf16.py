@@ -136,7 +136,7 @@ def test_module_matches_jax_in_bf16(name):
         if name == "OptimizedMOEImproved":
             jw, _, _ = jax_process_logits(jm.routing.logits(p["routing"], xs[0][0], CTX), training=False,
                                           noise_std=0.0, top_k=2, num_experts=8)
-            tw = process_logits(tb.routing.logits(xs[0][1]), 2)
+            tw = process_logits(tb.routing.logits(xs[0][1]), 2)[0]
             jidx, tidx = np.asarray(jax_top_k_from_weights(jw, 2)[1]), top_k_from_weights(tw, 2)[1].numpy()
             np.testing.assert_array_equal(tidx, jidx)
     for out, ref in pairs:
@@ -240,10 +240,11 @@ def _pinned_routing(monkeypatch, picks):
     process_logits does."""
     it = iter([torch.from_numpy(np.array(p)).long() for p in picks])
 
-    def pinned(logits, top_k):
-        probs = torch.softmax(logits.float().clamp(-30.0, 30.0), dim=-1)
+    def pinned(logits, top_k, noise=None):
+        logits = logits.float()
+        probs = torch.softmax(logits.clamp(-30.0, 30.0), dim=-1)
         w = probs * torch.zeros_like(probs, dtype=torch.bool).scatter_(1, next(it), True)
-        return w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), probs, logits
 
     monkeypatch.setattr(tmixtures, "process_logits", pinned)
 
@@ -295,10 +296,10 @@ def test_v0_1_routing_flips_between_the_bf16_programs(models, fuse, flips, monke
     case = models["yolo-master-v0_1-n", "calibrated"]
     seen = []
 
-    def recorded(logits, top_k):
-        w = process_logits(logits, top_k)
-        seen.append(top_k_from_weights(w, top_k)[1].numpy())
-        return w
+    def recorded(logits, top_k, noise=None):
+        out = process_logits(logits, top_k, noise)
+        seen.append(top_k_from_weights(out[0], top_k)[1].numpy())
+        return out
 
     monkeypatch.setattr(tmixtures, "process_logits", recorded)
     _port_bf16(case, fuse)

@@ -1003,3 +1003,55 @@ def test_bf16_train_step_on_the_card_matches_the_cpu(dev):
                  float((ref ** 2).sum())]
     card, own = np.sqrt(sums[0] / sums[2]), np.sqrt(sums[1] / sums[2])
     assert 0 < own < 2 and card <= 1.5 * own, (card, own)
+
+
+def test_v0_1_train_step_on_the_card_matches_the_cpu(dev):
+    """engine/train_step.py on yolo-master-v0_1-n (router noise, progressive
+    sparsity, expert dropout and aux loss; warmup_steps 2 and dropout_interval
+    2 on the routed blocks): one SGD step at 640, B=2, from step 50 (k = 2, a
+    dropout step) on the card and on the CPU from the same weights (BN
+    calibrated) and batch: chip_smoke.py's phase 22 (a) gate (the loss
+    components within 1e-4 relative, the parameters, BN statistics and EMA
+    after the step within 1e-4 of each tensor's scale plus 1e-2 of its move),
+    and each block's router noise and keep mask on the card equal to the CPU's
+    bit for bit."""
+    from yolo_master_tpu_torch.engine import train_step as ts
+    from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved
+    from yolo_master_tpu_torch.nn.tasks import DetectionModel
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    rng = np.random.default_rng(6)
+    xy, wh = rng.uniform(0, 400, (2, 8, 2)), rng.uniform(24, 320, (2, 8, 2))
+    batch = {"images": torch.from_numpy(rng.random((2, 640, 640, 3), np.float32)),
+             "boxes": torch.from_numpy(np.concatenate([xy, np.minimum(xy + wh, 639)], -1).astype(np.float32)),
+             "classes": torch.from_numpy(rng.integers(0, 80, (2, 8))),
+             "mask": torch.from_numpy(np.arange(8)[None] < rng.integers(1, 9, (2, 1)))}
+    base = DetectionModel("yolo-master-v0_1-n")
+    calibrate_bn(base, batch["images"])
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        model = DetectionModel("yolo-master-v0_1-n")
+        model.load_state_dict(base.state_dict())
+        model.to(where)
+        blocks = [m for m in model.modules() if isinstance(m, OptimizedMOEImproved)]
+        for m in blocks:
+            m.warmup_steps, m.dropout_interval = 2, 2
+        tx = pol.build_optimizer(model)
+        state = ts.make_train_state(model, tx)
+        state.step = state.opt_state.count = 50
+        state.ema_updates = 50.0
+        state, met = ts.make_train_step(model, tx)(state, {k: v.to(where) for k, v in batch.items()})
+        assert float(met["finite"]) == 1.0 and all(m.dropped_experts().size > 0 for m in blocks)
+        out[where.type] = (model, state, {k: float(met[k]) for k in ("loss", "box_loss", "cls_loss", "dfl_loss",
+                                                                      "aux_loss")}, blocks)
+    (mg, sg, lg, bg), (mc, sc, lc, bc) = out["cuda"], out["cpu"]
+    for k, v in lc.items():
+        assert abs(lg[k] - v) <= 1e-4 * abs(v), (k, lg[k], v)
+    for a, b in zip(bg, bc):
+        assert a.jax_path == b.jax_path and torch.equal(a._draws[1].cpu(), b._draws[1]), a.jax_path
+    sd_g, sd_c, start = mg.state_dict(), mc.state_dict(), base.state_dict()
+    for name, ref in sc.ema_params.items():
+        move = (sd_c[name] - start[name]).abs().max()
+        for a, b in ((sd_g[name], sd_c[name]), (sg.ema_params[name], ref)):
+            assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max() + 1e-2 * move + 1e-7, name

@@ -152,7 +152,7 @@ def test_top_k_from_weights_and_process_logits_break_ties_as_jax(k):
     jwts, jidx = jdispatch.top_k_from_weights(jnp.asarray(w.numpy()), k)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     np.testing.assert_allclose(wts.numpy(), np.asarray(jwts), atol=1e-6)
-    ours = process_logits(torch.from_numpy(TIED), k).numpy()
+    ours = process_logits(torch.from_numpy(TIED), k)[0].numpy()
     theirs = jax_process_logits(jnp.asarray(TIED), training=False, noise_std=1.0, top_k=k, num_experts=4)[0]
     np.testing.assert_allclose(ours, np.asarray(theirs), atol=1e-6)
     assert ((ours > 0).sum(-1) == k).all()

@@ -60,6 +60,27 @@ def test_fused_predict_matches_jax_facade(facades, conf):
     assert out.orig_shape == (80, 70) and out.names[0] == "person"
 
 
+def test_fuse_takes_the_jax_facade_keywords(facades):
+    """fuse(pallas_stem=True) (the JAX README's deploy line), fuse(s2d=True)
+    and fuse(imgsz=...) predict exactly what fuse() predicts; an unknown
+    keyword raises TypeError, as in the JAX facade."""
+    _, port = facades
+    img = (np.random.default_rng(4).random((72, 64, 3)) * 255).astype(np.uint8)
+
+    def fused(**kw):
+        y = YOLO("yolo-master-n", device="cpu").load_state_dict(port.model.state_dict())
+        return y.fuse(**kw).predict(img, imgsz=64, conf=1e-5, max_det=20)[0]
+
+    ref = fused()
+    assert len(ref.boxes) > 0
+    for kw in ({"pallas_stem": True}, {"s2d": True}, {"imgsz": 320}, {"s2d": True, "pallas_stem": True, "imgsz": 64}):
+        out = fused(**kw)
+        for field in ("xyxy", "conf", "cls"):
+            np.testing.assert_array_equal(getattr(out.boxes, field), getattr(ref.boxes, field), err_msg=str(kw))
+    with pytest.raises(TypeError):
+        YOLO("yolo-master-n", device="cpu").fuse(blocked=True)
+
+
 def test_unfused_predict_batch_and_class_filter(facades):
     """A batch of two (float /255 input, no stem kernel) with a class filter:
     the mask path decodes every anchor and must agree with the JAX facade."""

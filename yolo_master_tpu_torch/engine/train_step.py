@@ -35,8 +35,11 @@ What follows the JAX package exactly, where PyTorch's own tools differ:
     the forward and the backward in bf16, the loss in fp32 and no loss scaling
     (bf16 has fp32's range), the finite guard on the fp32 loss.
 
-Refused: yolo-master-v0_1's graphs (OptimizedMOEImproved's training-only
-parts, ROADMAP.md §1.C), fused models, Muon / MuSGD.
+Routed blocks (yolo-master-v0_1's OptimizedMOEImproved) train at
+``state.step``, which every micro-batch of the step reads, as JAX's
+``step_idx``: their router noise, progressive sparsity and expert dropout
+are JAX's draws for that step (``nn/moe/mixtures.py``). Refused: fused
+models, Muon / MuSGD.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from ..nn.mixture_loss import compose_aux, init_aux_ema
+from ..nn.tasks import jax_module_path as moe_stats_path
 
 Schedule = Union[float, Callable[[int], float]]
 _HYP_DEFAULTS = {"box": 7.5, "cls": 0.5, "dfl": 1.5, "moe": 0.01}
@@ -359,24 +363,13 @@ def ema_blend(ema_params: Dict[str, torch.Tensor], model: torch.nn.Module, d: fl
 
 def _check_trainable(model: torch.nn.Module) -> None:
     from ..nn.layers import FusedStem
-    from ..nn.moe import FusedESMOE, OptimizedMOEImproved
+    from ..nn.moe import FusedESMOE
 
     for m in model.modules():
-        if isinstance(m, OptimizedMOEImproved):
-            raise NotImplementedError(
-                "training OptimizedMOEImproved (yolo-master-v0_1) needs its router noise, expert dropout, "
-                "progressive sparsity and aux loss, which are not ported yet: ROADMAP.md §1.C item 7")
         if isinstance(m, (FusedStem, FusedESMOE)):
             raise ValueError("a fused (deploy) model cannot be trained: train the unfused model")
         if isinstance(getattr(m, "bn", None), torch.nn.Identity):
             raise ValueError("a model with BatchNorm folded (fuse_bn) cannot be trained: train the unfused model")
-
-
-def moe_stats_path(name: str) -> str:
-    """A block's module name in the port (``model.3``) -> its path in the JAX
-    package (``layers.3``), the key of the JAX step's ``moe_stats``."""
-    head, _, rest = name.partition(".")
-    return f"layers.{rest}" if head == "model" else name
 
 
 def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp: Optional[dict] = None,
@@ -397,8 +390,9 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
     publishes aux losses), each the mean over the micro-batches, and finite.
     With ``return_stats`` also ``moe_stats``: for each routed block, by its
     JAX path (:func:`moe_stats_path`), ``expert_usage`` [E] (the batch-mean
-    routing weights) and ``balance_loss``, means over the micro-batches as
-    the JAX step's.
+    routing weights, or probabilities) and ``balance_loss`` (ES_MOE) or
+    ``aux_loss`` (OptimizedMOEImproved), means over the micro-batches as the
+    JAX step's.
     """
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
@@ -407,8 +401,8 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
     tx = tx or make_optimizer(0.01, model)
     bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
 
-    def loss_fn(mb: dict, h: dict, aux_ema: torch.Tensor):
-        preds, aux = model.forward_train(mb["images"].to(compute_dtype))
+    def loss_fn(mb: dict, h: dict, aux_ema: torch.Tensor, step_idx: int):
+        preds, aux = model.forward_train(mb["images"].to(compute_dtype), step_idx)
         if aux:
             gains = {f: h[f] for f in _AUX_GAINS if f in h}
             aux_total, new_ema, aux_metrics = compose_aux(aux, gains, aux_ema,
@@ -435,14 +429,14 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
             if i:  # every micro-batch's BN update starts from the step's statistics
                 _restore_bn(bns, start)
             mb = {k: v[i * (b // accumulate):(i + 1) * (b // accumulate)] for k, v in batch.items()}
-            t_i, m_i, aux_ema, aux = loss_fn(mb, h, aux_ema)
+            t_i, m_i, aux_ema, aux = loss_fn(mb, h, aux_ema, state.step)
             t_i.backward()
             total = total + t_i.detach()
             for k, v in m_i.items():
                 sums[k] = sums[k] + v.detach() if k in sums else v.detach()
             if return_stats:  # summed over the micro-batches in order, then / accumulate: the JAX step's tree_map
                 for name, rec in aux.items():
-                    for k, v in (("expert_usage", rec.usage), ("balance_loss", rec.value.detach())):
+                    for k, v in (("expert_usage", rec.usage), (rec.stat, rec.value.detach())):
                         key = (moe_stats_path(name), k)
                         stats[key] = stats[key] + v if key in stats else v
         if accumulate > 1:

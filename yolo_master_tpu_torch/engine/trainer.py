@@ -3,6 +3,7 @@ reference: ultralytics/engine/trainer.py:164-1719 BaseTrainer) and
 :class:`MultiTrainer`.
 
     YOLO("yolo-master-n").train(data="data.yaml", epochs=100, batch=16, imgsz=640)
+    YOLO("yolo-master-v0_1-n").train(data="data.yaml", epochs=100)      # routed MoE blocks
     YOLO("yolo-master-n").train(data=["a.yaml", "b.yaml"], epochs=10)  # MultiTrainer
 
 ``amp=True`` (the default, as in the JAX package) trains in bf16 mixed
@@ -38,9 +39,11 @@ dashboard; the facade's model takes the EMA weights and is left in eval mode.
 ``close_mosaic`` turns mosaic off for the last epochs; ``resume=True``
 continues from ``save_dir/state`` at the epoch ``state_meta.json`` records.
 
-Refused, each naming its ROADMAP.md item: ``mesh=``, ``expert_parallel > 1``,
-``peft=`` and ``batch=-1``. The train step refuses Muon / MuSGD and
-yolo-master-v0_1's graphs.
+yolo-master-v0_1's routed blocks train as JAX's (router noise, progressive
+sparsity, expert dropout, aux loss), keyed by the optimizer step, which a
+resumed run restores; their usage reaches the routing history and the Gini
+rule. Refused, each naming its ROADMAP.md item: ``mesh=``, ``expert_parallel >
+1``, ``peft=`` and ``batch=-1``; the train step refuses Muon / MuSGD.
 """
 
 from __future__ import annotations
@@ -221,8 +224,9 @@ class DetectionTrainer:
                 batch = {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
                 self.state, m = self.step_fn(self.state, batch, self.moe_gain)
                 stats = m.pop("moe_stats", None)
-                if stats:
-                    self.usage_tracker.update({p: {k: v.cpu().numpy() for k, v in s.items()} for p, s in stats.items()})
+                if stats:  # by sorted path, as JAX's tree_map hands them over: the routing history's row order
+                    self.usage_tracker.update({p: {k: v.cpu().numpy() for k, v in s.items()}
+                                               for p, s in sorted(stats.items())})
                 for k, v in sorted(m.items()):  # the JAX step's metrics come back in key order: results.csv's columns
                     agg[k] = agg.get(k, 0.0) + float(v)
                 times["step_s"] += time.perf_counter() - t_step

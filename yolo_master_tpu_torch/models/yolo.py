@@ -1,6 +1,6 @@
 """YOLO facade (counterpart of ``yolo_master_tpu/models/yolo.py``): detection only.
 
-    YOLO("yolo-master-n").fuse().predict(images)
+    YOLO("yolo-master-n").fuse().predict(images)   # fuse(pallas_stem=True), the JAX README's form, too
     YOLO("yolo-master-n").fuse().val(data="data.yaml", imgsz=640, batch=16)
     YOLO("yolo-master-n").train(data="data.yaml", epochs=100, batch=16, imgsz=640)
     YOLO("runs/train/best.npz").fuse().predict(images)
@@ -85,9 +85,14 @@ class YOLO:
         return self.load_state_dict(state_dict_from_jax(params_np))
 
     # -- deploy ------------------------------------------------------------------
-    def fuse(self) -> "YOLO":
+    def fuse(self, s2d: bool = False, pallas_stem: bool = False, imgsz: int = 640) -> "YOLO":
         """Fold BN into the convs and replace the two stem convs by the fused stem
-        kernel over uint8 NHWC input (``ops/stem.py``). Inference only."""
+        kernel over uint8 NHWC input (``ops/stem.py``). Inference only.
+
+        The JAX facade's keywords are taken and change nothing here: the stem
+        kernel is always installed (``pallas_stem``), the space-to-depth stem
+        is a TPU re-layout whose output is the plain stem's (``s2d``), and the
+        kernel reads any image size (``imgsz``)."""
         fuse_bn(self.model)
         fused_stem_fuse(self.model)
         self._to_device()

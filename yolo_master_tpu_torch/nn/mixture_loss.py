@@ -19,10 +19,12 @@ DEFAULT_EMA_DECAY = 0.9
 
 class AuxRecord(NamedTuple):
     """One block's aux loss of a train-mode forward: the value (with its graph),
-    its family, and the block's expert usage (detached)."""
+    its family, the block's expert usage (detached), and the name the JAX
+    block gives the value in its routing stats."""
     value: torch.Tensor
     family: str
     usage: torch.Tensor
+    stat: str = "balance_loss"
 
 
 def family_sums(aux: Mapping, device=None) -> torch.Tensor:

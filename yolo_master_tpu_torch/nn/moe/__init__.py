@@ -1,5 +1,6 @@
 """MoE blocks of the ported graphs: ES_MOE (dense and sparse eval, and its fused
-deploy form) and OptimizedMOEImproved / ModularRouterExpertMoE (eval)."""
+deploy form) and OptimizedMOEImproved / ModularRouterExpertMoE (sparse and
+dense eval, and training)."""
 
 from .es_moe import ES_MOE, FusedESMOE
 from .experts import DepthwiseSeparableConv, EfficientExpertGroup

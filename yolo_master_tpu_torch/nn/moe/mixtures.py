@@ -1,5 +1,5 @@
 """OptimizedMOEImproved (``ModularRouterExpertMoE``), the routed block of
-yolo-master-v0_1, in eval (counterpart of ``yolo_master_tpu/nn/moe/mixtures.py``).
+yolo-master-v0_1 (counterpart of ``yolo_master_tpu/nn/moe/mixtures.py``).
 
     w      = top-k renormalised softmax of the router's spatial-mean logits
     out    = shared_expert(x) + sum over the top-k experts e of w[b,e] * expert_e(x)
@@ -8,20 +8,43 @@ yolo-master-v0_1, in eval (counterpart of ``yolo_master_tpu/nn/moe/mixtures.py``
 Sparse eval (the model's ``sparse_inference`` switch on, as by default, and
 top_k below the expert count) runs only the selected experts
 (``nn/moe/dispatch.py``); otherwise every expert runs, masked by w. Only the
-``simple`` expert and the ``efficient`` router of v0_1 are ported; the
-training-only parts (router noise, expert dropout, progressive sparsity, the
-aux loss) wait for the training slice (ROADMAP.md §1.C item 7): a train-mode
-forward here routes as in eval, densely, and serves BatchNorm calibration.
+``simple`` expert and the ``efficient`` router of v0_1 are ported.
+
+Training follows the JAX block at the optimizer step ``step``
+(``DetectionModel.forward_train`` sets it) and the block's JAX module path
+``jax_path`` (``layers.5`` for the port's ``model.5``, set when the model is
+built), which together key every draw, ``fold_in(PRNGKey(crc32(jax_path)),
+step)``, as JAX's ``_path_key``:
+
+  * router noise: ``normal(key, [B, E]) * noise_std`` on the fp32 logits;
+  * progressive sparsity: k falls from E to top_k over ``warmup_steps``;
+  * expert dropout: from ``warmup_steps`` on, every ``dropout_interval``
+    steps, the experts ``permutation(fold_in(key, 1), E)[:n_drop]`` get no
+    weight;
+  * the aux loss (balance on the kept experts' counts, router z-loss),
+    published as ``aux_record``.
+
+The draws are made on the host (``utils/jax_random.py``, JAX's threefry bit
+for bit) once per step and batch size, and reach the model's device in one
+copy; every micro-batch of a step draws the same, as in JAX. Every expert
+runs in training, masked by w, as JAX computes them.
 """
 
 from __future__ import annotations
 
+import zlib
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils import jax_random
 from ..layers import BN_EPS, BN_MOMENTUM, BatchNorm2d, GroupNorm, PlainConv, avg_pool
+from ..mixture_loss import AuxRecord
 from .dispatch import expert_bank, gather_dispatch, top_k_from_weights
+from .losses import moe_aux_loss
 from .routers import LOGIT_CLAMP
 
 _UNPORTED = "ROADMAP.md §1.F item 14 (mixture modules)"
@@ -68,18 +91,43 @@ class _SpatialRouterNet(nn.Sequential):
                          BatchNorm2d(num_experts, eps=BN_EPS, momentum=BN_MOMENTUM))
 
 
-def process_logits(logits: torch.Tensor, top_k: int) -> torch.Tensor:
-    """Router logits [B, E] -> top-k renormalised weights [B, E], in fp32 (the
-    eval part of the JAX ``process_logits``).
+def process_logits(logits: torch.Tensor, top_k: int,
+                   noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router logits [B, E] -> (top-k renormalised weights, probabilities, the
+    logits the aux loss reads), all fp32 [B, E], as the JAX ``process_logits``.
 
-    The experts are ranked by probability with a stable sort (ties to the
-    lower index, as ``jnp.argsort``), and those of rank < top_k keep their mass.
+    ``noise`` (training: the router noise, already scaled) is added to the fp32
+    logits; the softmax reads them clamped to +-LOGIT_CLAMP, the aux loss
+    unclamped. The experts are ranked by probability with a stable sort (ties
+    to the lower index, as ``jnp.argsort``), and those of rank < top_k keep
+    their mass.
     """
-    probs = torch.softmax(logits.float().clamp(-LOGIT_CLAMP, LOGIT_CLAMP), dim=-1)
+    logits = logits.float()
+    if noise is not None:
+        logits = logits + noise
+    probs = torch.softmax(logits.clamp(-LOGIT_CLAMP, LOGIT_CLAMP), dim=-1)
     order = torch.argsort(-probs, dim=-1, stable=True)
     ranks = torch.argsort(order, dim=-1)
     w = probs * (ranks < top_k)
-    return w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return w / w.sum(-1, keepdim=True).clamp_min(1e-9), probs, logits
+
+
+def path_key(jax_path: str, step: int) -> np.ndarray:
+    """The block's key at ``step``: ``fold_in(PRNGKey(crc32(jax_path) & 0x7FFFFFFF),
+    uint32(step))``, the JAX package's ``_path_key``."""
+    return jax_random.fold_in(jax_random.PRNGKey(zlib.crc32(jax_path.encode()) & 0x7FFFFFFF), step)
+
+
+def adaptive_top_k(step: int, num_experts: int, top_k: int, warmup_steps: int) -> int:
+    """Progressive sparsity: ``max(top_k, floor(E - clip(step / warmup, 0, 1) * (E -
+    top_k)))``, in float32 as JAX's compiled train step computes it: step times
+    the float32 reciprocal of warmup, and the multiply-subtract fused (a float64
+    quotient floors the other way at some steps, e.g. E=16, top_k=2, warmup 7,
+    step 4: 8 against JAX's 7)."""
+    f32 = np.float32
+    progress = np.clip(f32(step) * (f32(1) / f32(warmup_steps)), f32(0), f32(1))
+    k = jax_random.fma32(-progress, f32(num_experts - top_k), f32(num_experts))
+    return max(top_k, int(np.floor(k)))
 
 
 class EfficientSpatialRouter(nn.Module):
@@ -99,13 +147,15 @@ class EfficientSpatialRouter(nn.Module):
 
 class OptimizedMOEImproved(nn.Module):
     """Pluggable-router MoE with an always-on shared expert (also registered as
-    ``ModularRouterExpertMoE``). Eval only, so the JAX constructor's
-    training-only arguments (noise, loss coefficients, progressive sparsity,
-    expert dropout, detach_routing) are not taken; see the module docstring."""
+    ``ModularRouterExpertMoE``), with the JAX constructor's arguments and
+    defaults; see the module docstring for the training form."""
 
     def __init__(self, in_channels: int, out_channels: int, num_experts: int = 4, top_k: int = 2,
-                 expert_type: str = "simple", router_type: str = "efficient", expert_expand_ratio: float = 2.0,
-                 add_residual: bool = True):
+                 expert_type: str = "simple", router_type: str = "efficient", noise_std: float = 1.0,
+                 balance_loss_coeff: float = 1.0, router_z_loss_coeff: float = 1.0,
+                 expert_expand_ratio: float = 2.0, progressive_sparsity: bool = True, detach_routing: bool = False,
+                 add_residual: bool = True, warmup_steps: int = 5000, expert_dropout_rate: float = 0.15,
+                 dropout_interval: int = 100):
         super().__init__()
         if not 1 <= top_k <= num_experts:
             raise ValueError(f"top_k must be in [1, {num_experts}], got {top_k}")
@@ -119,16 +169,68 @@ class OptimizedMOEImproved(nn.Module):
             raise NotImplementedError(f"router_type '{router_type}' is not ported yet: {_UNPORTED}")
         self.in_channels, self.out_channels = in_channels, out_channels
         self.num_experts, self.top_k = num_experts, top_k
+        self.noise_std = noise_std
+        self.balance_loss_coeff = balance_loss_coeff
+        self.router_z_loss_coeff = router_z_loss_coeff
+        self.progressive_sparsity = progressive_sparsity
+        self.detach_routing = detach_routing
         self.add_residual = add_residual
+        self.warmup_steps = warmup_steps
+        self.expert_dropout_rate = expert_dropout_rate
+        self.dropout_interval = dropout_interval
         self.sparse_inference = True  # the model-level switch (DetectionModel.sparse_inference)
+        self.jax_path = ""  # the JAX module path keying the draws (DetectionModel sets it)
+        self.step = 0  # the optimizer step of a train-mode forward (DetectionModel.forward_train sets it)
+        self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
+        self._draws: Optional[tuple] = None  # (key, [B + 1, E] noise and keep mask, any drop): draws()
         self.routing = EfficientSpatialRouter(in_channels, num_experts)
         self.experts = nn.ModuleList(SimpleExpert(in_channels, out_channels, expand_ratio=expert_expand_ratio)
                                      for _ in range(num_experts))
         self.shared_expert = nn.Sequential(PlainConv(in_channels, out_channels, 1),
                                            BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM), nn.SiLU())
 
+    def adaptive_top_k(self) -> int:
+        """The training k at ``self.step`` (top_k without progressive sparsity)."""
+        if not self.progressive_sparsity:
+            return self.top_k
+        return adaptive_top_k(self.step, self.num_experts, self.top_k, self.warmup_steps)
+
+    def dropped_experts(self) -> np.ndarray:
+        """The experts expert dropout silences at ``self.step`` (none off its steps)."""
+        step, e = self.step, self.num_experts
+        if not (self.expert_dropout_rate > 0 and step >= self.warmup_steps and step % self.dropout_interval == 0):
+            return np.zeros(0, np.int32)
+        n_drop = max(1, int(e * self.expert_dropout_rate))
+        return jax_random.permutation(jax_random.fold_in(path_key(self.jax_path, step), 1), e)[:n_drop]
+
+    def draws(self, batch: int, device) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """(router noise [B, E] or None, keep mask [E] or None) of this step, made
+        on the host and copied to ``device`` once per step and batch size (and
+        anew after a change to the settings they depend on)."""
+        key = (self.step, batch, str(device), self.jax_path, self.noise_std, self.expert_dropout_rate,
+               self.warmup_steps, self.dropout_interval)
+        if self._draws is None or self._draws[0] != key:
+            host = np.ones((batch + 1, self.num_experts), np.float32)
+            if self.noise_std > 0:
+                noise = jax_random.normal(path_key(self.jax_path, self.step), (batch, self.num_experts))
+                host[:batch] = noise * np.float32(self.noise_std)
+            dropped = self.dropped_experts()
+            host[batch, dropped] = 0.0
+            self._draws = (key, torch.from_numpy(host).to(device), dropped.size > 0)
+        _, t, drop = self._draws
+        return (t[:batch] if self.noise_std > 0 else None), (t[batch] if drop else None)
+
     def forward(self, x):
-        w = process_logits(self.routing.logits(x), self.top_k)
+        logits = self.routing.logits(x)
+        if self.training:
+            noise, keep = self.draws(x.shape[0], x.device)
+            w, probs, logits = process_logits(logits, self.adaptive_top_k(), noise)
+            if keep is not None:
+                w = w * keep
+            if self.detach_routing:
+                w = w.detach()
+        else:
+            w = process_logits(logits, self.top_k)[0]
         out = self.shared_expert(x).float()
         if not self.training and self.sparse_inference and self.top_k < self.num_experts:
             wts, idx = top_k_from_weights(w, self.top_k)
@@ -139,6 +241,10 @@ class OptimizedMOEImproved(nn.Module):
         out = out.to(x.dtype)
         if self.add_residual and self.in_channels == self.out_channels:
             out = out + x
+        if self.training:
+            aux = moe_aux_loss(probs, logits, w > 0, self.num_experts, balance_coeff=self.balance_loss_coeff,
+                               z_coeff=self.router_z_loss_coeff)
+            self.aux_record = AuxRecord(aux, "moe", probs.mean(0).detach(), "aux_loss")
         return out
 
 

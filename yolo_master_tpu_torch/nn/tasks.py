@@ -120,6 +120,14 @@ def parse_model(cfg: dict, ch: int = 3, scale: Optional[str] = None) -> Tuple[nn
     return nn.ModuleList(layers), sorted(set(save))
 
 
+def jax_module_path(name: str) -> str:
+    """A module's name in the port (``model.3``) -> its path in the JAX package
+    (``layers.3``): the key of the JAX step's ``moe_stats`` and of the routed
+    blocks' draws."""
+    head, _, rest = name.partition(".")
+    return f"layers.{rest}" if head == "model" else name
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight from ``generator``, as PyTorch's and the JAX package's
     defaults do: convs U(+-1/sqrt(fan_in)) for weight and bias, BN identity,
@@ -166,6 +174,9 @@ class DetectionModel(nn.Module):
         self.model, self.save = parse_model(self.yaml, ch, scale=scale)
         if not isinstance(self.head, Detect):
             raise ValueError("a detection model must end with Detect")
+        for name, m in self.named_modules():
+            if hasattr(m, "jax_path"):  # the routed blocks key their draws by the JAX package's path
+                m.jax_path = jax_module_path(name)
         init_weights(self, torch.Generator().manual_seed(seed))
         self.head.set_strides(self._probe_strides())
         self.head.bias_init()
@@ -224,8 +235,10 @@ class DetectionModel(nn.Module):
         """Decoded [B, A, 4+nc]: xywh boxes in input pixels and sigmoid scores."""
         return self.head.decode(self.forward(x_nhwc))
 
-    def forward_train(self, x_nhwc: torch.Tensor) -> Tuple[dict, Dict[str, AuxRecord]]:
-        """Train-mode forward: (the head's training dict, the aux records of the
+    def forward_train(self, x_nhwc: torch.Tensor, step: int = 0) -> Tuple[dict, Dict[str, AuxRecord]]:
+        """Train-mode forward at optimizer step ``step`` (the routed blocks'
+        draws, progressive sparsity and expert dropout read it, as the JAX
+        ``Context.step``): (the head's training dict, the aux records of the
         blocks that publish one, keyed by module path in forward order). The
         caller puts the model in train mode (BatchNorm on batch statistics).
         bf16 images run the fp32 parameters in bf16 through each op's cast, as
@@ -236,6 +249,8 @@ class DetectionModel(nn.Module):
         publishers = [(name, m) for name, m in self.named_modules() if hasattr(m, "aux_record")]
         for _, m in publishers:
             m.aux_record = None
+            if hasattr(m, "step"):
+                m.step = int(step)
         preds = self.forward(x_nhwc)
         aux = {}
         for name, m in publishers:

@@ -81,19 +81,33 @@ def calibrate_bn(model, x_nhwc: torch.Tensor) -> None:
     by the neck of yolo-master-n they are ~0 and the detections no longer
     depend on the image. One train-mode pass with momentum 1 makes each BN
     normalise its layer to unit scale on ``x_nhwc``: random weights then give
-    image-dependent outputs, and BN folding has real statistics to fold.
+    image-dependent outputs, and BN folding has real statistics to fold. The
+    routed blocks (OptimizedMOEImproved) route in that pass as in eval (their
+    top_k, no router noise, no expert dropout), so that the statistics are
+    those the eval graph sees.
     For tests and smoke runs on random weights; trained weights need none of it.
     """
+    from ..nn.moe import OptimizedMOEImproved
+
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     momenta = [bn.momentum for bn in bns]
+    routed = [(m, (m.noise_std, m.progressive_sparsity, m.expert_dropout_rate))
+              for m in model.modules() if isinstance(m, OptimizedMOEImproved)]
     was_training = model.training
     for bn in bns:
         bn.momentum = 1.0
+    for m, _ in routed:
+        m.noise_std, m.progressive_sparsity, m.expert_dropout_rate = 0.0, False, 0.0
     model.train()
-    model(x_nhwc)
-    model.train(was_training)
-    for bn, m in zip(bns, momenta):
-        bn.momentum = m
+    try:
+        model(x_nhwc)
+    finally:
+        model.train(was_training)
+        for bn, m in zip(bns, momenta):
+            bn.momentum = m
+        for m, saved in routed:
+            m.noise_std, m.progressive_sparsity, m.expert_dropout_rate = saved
+            m.aux_record = None
 
 
 def _array_leaves(tree, path=()):
