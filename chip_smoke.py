@@ -7,8 +7,8 @@ Builds the port's six hand-written CUDA kernel sources from the checkout
 of the split-TF32 header that stem.cu, esmoe.cu, moe.cu and c3k2.cu share and of
 the split-bf16 header of stem.cu's bf16 forms, one nvcc each, in parallel),
 holds each kernel against its plain PyTorch version on the card, and
-drives yolo_master_tpu_torch's paths at the full width of yolo-master-n and
-yolo-master-v0_1-n with seeded random weights. Phases:
+drives yolo_master_tpu_torch's paths at the full width of yolo-master-n,
+yolo-master-v0_1-n and yolo-master-v0_10-n with seeded random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
   2. build the six kernel sources (c3k2.cu's and stem.cu's bf16 kernel's
@@ -110,6 +110,18 @@ yolo-master-v0_1-n with seeded random weights. Phases:
      v0_1 path in sparse and dense eval and of the scale-m path at batch 16,
      each fp32 path also in bf16, and the stem's share of each (torch.profiler)
  25. no module of jax or of the JAX package was imported
+ 26. (run after phase 16) yolo-master-v0_10-n, the released EsMoE graph
+     (VisualEnhancedAdaptiveGateMoE blocks of 4/8/16 experts at layers 5, 8,
+     11; nn/moe/gated.py, plain PyTorch), phase 9's recipe:
+     fuse().predict(...) at batch 1 and 16 in fp32 and bf16 (launch counts,
+     max_det detections); GPU vs CPU decode at the fixed limits with both
+     programs' routing recorded (the card pinned to the CPU's where a pick or
+     kept count differs); the card's bf16 head outputs, pinned to the CPU
+     bf16's routing, within 1.5x the CPU bf16's rel-RMS from the CPU fp32;
+     device ms/img of both dtypes beside yolo-master-n's in turns, the busy
+     share and peak memory at bs 16; fuse().val() in fp32 on phase 16's kind
+     of set (the NMS kernel at N=4096, metrics within 1e-3 of the CPU
+     validator's); a bs-16 fp32 predict of v0_10-s and v0_10-m
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
@@ -168,6 +180,7 @@ VAL_NMS = dict(conf_thres=0.001, iou_thres=0.7, max_det=300, max_nms=4096)  # th
 VAL_METRICS = ("precision", "recall", "mAP50", "mAP50-95")
 TRAIN_IMAGES, TRAIN_VAL_IMAGES = 64, 16  # the train loop phase's synthetic set
 V01 = "yolo-master-v0_1-n"
+V10 = "yolo-master-v0_10-n"
 V01_STEP_SCHEDULE = (2, 2)  # phase 22's warmup_steps, dropout_interval: steps 2 and 50 drop experts
 V01_LOOP_SCHEDULE = (1, 1)  # phase 23's: the loop's second optimizer step (step 1) drops experts
 RESUME_REL_TOL_BF16 = 1e-4  # the bf16 loop's resumed epoch 2 against the run's: measured 1.6e-8 (PERF.md §7)
@@ -1677,6 +1690,252 @@ def _phase_val(dev, state, root):
     return out
 
 
+class gated_routing:
+    """Within this context every gated block (nn/moe/gated.py) records its top-k
+    indices and kept expert count into ``seen``, in forward order, or, given
+    ``picks`` (such a list), routes by them over its own probabilities."""
+
+    def __init__(self, seen=None, picks=None):
+        self.seen, self.picks = seen, picks
+
+    def __enter__(self):
+        import torch
+
+        from yolo_master_tpu_torch.nn.moe import gated
+
+        self.saved = plain_topk, plain_keep = gated.topk_renorm, gated.keep_count
+        it, state = iter(self.picks or []), {}
+
+        def topk(probs, k):
+            w, idx = plain_topk(probs, k)
+            if self.picks is not None:
+                state["pick"] = next(it)
+                idx = state["pick"][0].to(probs.device)
+                w = probs.gather(1, idx)
+                w = w / (w.sum(-1, keepdim=True) + 1e-6)
+            elif self.seen is not None:
+                self.seen.append([idx.cpu()])
+            return w, idx
+
+        def keep(complexity, k):
+            own = plain_keep(complexity, k)
+            if self.picks is not None:
+                return torch.tensor(state["pick"][1], device=complexity.device)
+            if self.seen is not None:
+                self.seen[-1].append(float(own))
+            return own
+
+        gated.topk_renorm, gated.keep_count = topk, keep
+        return self
+
+    def __exit__(self, *exc):
+        from yolo_master_tpu_torch.nn.moe import gated
+
+        gated.topk_renorm, gated.keep_count = self.saved
+
+
+def routing_flips(a, b) -> int:
+    """(sample, block) top-k sets that differ between two recorded routings, plus
+    each block whose kept count differs (one count a batch)."""
+    return sum(sum(set(r.tolist()) != set(q.tolist()) for r, q in zip(ia, ib)) + int(ka != kb)
+               for (ia, ka), (ib, kb) in zip(a, b))
+
+
+def phase_v0_10_path(dev, base_run, imgs):
+    """yolo-master-v0_10-n (VisualEnhancedAdaptiveGateMoE at layers 5, 8, 11: 4,
+    8 and 16 experts, top-2, the complexity gate; plain PyTorch, no kernel of its
+    own), seeded weights with BN calibrated on four frames, as the main path:
+    fuse().predict() at batch 1 and 16 in fp32 and bf16 (launch counts, max_det
+    detections); GPU vs CPU decode at the fixed limits, fp32, with the routing
+    recorded on both and the card's pinned to the CPU's where a pick flips; the
+    card's bf16 raw head outputs, pinned to the CPU bf16's routing, within 1.5x
+    the CPU bf16's rel-RMS from the CPU fp32; device ms/img of both dtypes
+    beside yolo-master-n's in turns, the busy share and peak memory at bs 16;
+    val() in fp32 on write_val_set's images (stem and NMS once a batch, the
+    NMS kernel at N=4096, metrics within VAL_METRIC_TOL of the CPU's); and a
+    bs-16 fp32 predict of v0_10-s and v0_10-m."""
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_master_tpu_torch.nn.moe import AdaptiveGateMoE
+    from yolo_master_tpu_torch.ops import nms as tnms
+    from yolo_master_tpu_torch.utils.fuse import compute_dtype_copy
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    bf16 = torch.bfloat16
+
+    def calibrated(name, where):
+        y = YOLO(name, device=where)
+        x_cal, _ = DetectionPredictor(y.model, imgsz=IMGSZ).preprocess(imgs[:4])
+        calibrate_bn(y.model, x_cal)
+        return y
+
+    v10 = calibrated(V10, dev)
+    blocks = [m for m in v10.model.model if isinstance(m, AdaptiveGateMoE)]
+    require([(m.i, type(m).__name__, m.num_experts) for m in blocks]
+            == [(i, "VisualEnhancedAdaptiveGateMoE", e) for i, e in ((5, 4), (8, 8), (11, 16))],
+            "v0_10-n's gated blocks")
+    state = {k: v.detach().clone() for k, v in v10.model.state_dict().items()}
+    cpu = YOLO(V10, device="cpu").load_state_dict(state)
+    v10.fuse()
+    cpu.fuse()
+    out = {"launches": {}, "e2e": {}, "flips": {}}
+    preds = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", bf16)):
+        reset_launches()
+        r1 = v10.predict(imgs[0], batch=1, compute_dtype=dt, **KW)
+        r16 = v10.predict(imgs, batch=16, compute_dtype=dt, **KW)
+        torch.cuda.synchronize()
+        launches = out["launches"][name] = read_launches()
+        log(f"[v0_10] predict {name} bs1 + bs16 launches: {launches}")
+        # fp32: the fused model's stem bank, written at its first call; bf16: the one bf16 copy's own
+        require(launches["stem"] == 2 and launches["nms"] == 2 and launches["stem_bank"] == 1,
+                f"the v0_10 {name} path did not launch the stem and NMS kernels")
+        require(len(r1) == 1 and len(r16) == 16, "v0_10 result counts")
+        check_detections(r1 + r16)
+        preds[name] = v10._predictor
+    log(f"[v0_10] image 0 top: {np.round(r1[0].boxes.data[0], 2).tolist()}")
+
+    # GPU vs CPU, fp32: the routing of both recorded, the card pinned to the CPU's where one flips
+    x, _ = preds["fp32"].preprocess(imgs[:BF16_FRAMES])
+    seen_gpu, seen_cpu = [], []
+    with torch.inference_mode():
+        with gated_routing(seen=seen_gpu):
+            full_gpu = v10.model.head.decode(v10.model(x[:2]), raw_scores=True).cpu()
+        with gated_routing(seen=seen_cpu):
+            full_cpu = cpu.model.head.decode(cpu.model(x[:2].cpu()), raw_scores=True)
+        out["flips"]["fp32"] = routing_flips(seen_gpu, seen_cpu)
+        if out["flips"]["fp32"]:
+            with gated_routing(picks=seen_cpu):
+                full_gpu = v10.model.head.decode(v10.model(x[:2]), raw_scores=True).cpu()
+    box_err, logit_err = decode_err(full_gpu, full_cpu)
+    log(f"[v0_10] GPU vs CPU decode, all {full_gpu.shape[1]} anchors: box max err {box_err:.3e} px, logit max err "
+        f"{logit_err:.3e}; routings that differ between the two fp32 programs: {out['flips']['fp32']} of "
+        f"{2 * len(blocks)} picks and {len(blocks)} kept counts (pinned where they do); kept counts "
+        f"{[k for _, k in seen_cpu]}")
+    require(box_err <= 5e-2 and logit_err <= 1e-3, "v0_10 GPU and CPU decode disagree beyond 5e-2 px / 1e-3")
+    out["decode_err"] = (box_err, logit_err)
+
+    # bf16: the card's copy pinned to the CPU bf16 copy's routing, against the CPU fp32
+    cpu16 = compute_dtype_copy(cpu.model, bf16)
+    seen16, seen_g16 = [], []
+    with torch.inference_mode():
+        c32 = cpu.model(x.cpu())
+        with gated_routing(seen=seen16):
+            c16 = cpu16(x.cpu())
+        with gated_routing(seen=seen_g16):
+            preds["bf16"].model(x)
+        with gated_routing(picks=seen16):
+            g16 = preds["bf16"].model(x)
+    out["flips"]["bf16"] = routing_flips(seen_g16, seen16)
+    stats = {}
+    for key in ("boxes", "scores"):
+        gpu, own = rel_rms(g16[key].float().cpu(), c32[key]), rel_rms(c16[key].float(), c32[key])
+        stats[key] = (gpu, own)
+        require(bool(torch.isfinite(g16[key]).all()) and 0 < own and gpu <= 1.5 * own,
+                f"v0_10 bf16: GPU {key} rel-RMS {gpu} from CPU fp32, more than 1.5x the CPU bf16's {own}")
+    log(f"[v0_10] bf16, {BF16_FRAMES} frames, the card pinned to the CPU bf16's routing "
+        f"({out['flips']['bf16']} of {BF16_FRAMES * len(blocks)} picks and {len(blocks)} kept counts differ "
+        f"unpinned), rel-RMS from the CPU fp32 head outputs: box logits GPU {stats['boxes'][0]:.4e} (CPU bf16 "
+        f"{stats['boxes'][1]:.4e}), class logits GPU {stats['scores'][0]:.4e} (CPU bf16 {stats['scores'][1]:.4e})")
+    out["bf16_rel_rms"] = stats
+
+    # device ms/img, uint8 batch on the card -> detections: v0_10-n fp32 and bf16 beside yolo-master-n, in turns
+    for bs in (1, 16):
+        xb, _ = preds["fp32"].preprocess(imgs[:bs])
+        runs = {"yolo-master-n": [], "fp32": [], "bf16": []}
+        for name in ("yolo-master-n", "fp32", "bf16", "bf16", "fp32", "yolo-master-n"):
+            run = base_run if name == "yolo-master-n" else preds[name].run
+            runs[name].append(cuda_ms(lambda: run(xb), reps=10, warmup=2) / bs)
+        out["e2e"][bs] = {k: statistics.median(v) for k, v in runs.items()}
+        log(f"[e2e] bs={bs}: device ms/img, yolo-master-n fp32 {[round(t, 4) for t in runs['yolo-master-n']]}, "
+            f"yolo-master-v0_10-n fp32 {[round(t, 4) for t in runs['fp32']]}, bf16 {[round(t, 4) for t in runs['bf16']]}")
+    xb, _ = preds["fp32"].preprocess(imgs)
+    out["profile"], out["peak_gib"] = {}, {}
+    for name in ("fp32", "bf16"):
+        wall_ms, dev_us, count = profile_kernels(preds[name].run, xb)
+        busy_ms = sum(dev_us.values()) / 1e3
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        preds[name].run(xb)
+        torch.cuda.synchronize()
+        out["peak_gib"][name] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["profile"][name] = dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms, kernels=count)
+        log(f"[v0_10] {name} bs=16 under torch.profiler: wall {wall_ms:.3f} ms/batch, device busy {busy_ms:.3f} "
+            f"ms/batch ({100 * busy_ms / wall_ms:.1f}%), {count:.0f} kernels/batch, peak memory of a batch "
+            f"{out['peak_gib'][name]:.3f} GiB; top: " + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+
+    # val, fp32: the set of the val phase, labelled from the card's own detections (class biases at 0)
+    root = Path(tempfile.mkdtemp(prefix=".val_set_", dir=Path(__file__).resolve().parent))
+    try:
+        yaml_path = write_val_set(root, VAL_IMAGES)
+
+        def facade(where):
+            y = YOLO(V10, device=where).load_state_dict(state)
+            with torch.no_grad():
+                for branch in y.model.head.cv3:
+                    branch[-1].bias.zero_()
+            return y.fuse()
+
+        gpu_v, cpu_v = facade(dev), facade("cpu")
+        label_from_detections(gpu_v.model, yaml_path)
+        val_kw = dict(data=str(yaml_path), imgsz=IMGSZ, batch=VAL_BATCH)
+        shapes, kernel = [], tnms.batched_greedy_nms
+
+        def recorded(cand, scores, iou, max_det):
+            shapes.append(tuple(cand.shape))
+            return kernel(cand, scores, iou, max_det)
+
+        reset_launches()
+        tnms.batched_greedy_nms = recorded
+        try:
+            m = gpu_v.val(**val_kw)
+        finally:
+            tnms.batched_greedy_nms = kernel
+        torch.cuda.synchronize()
+        launches = out["launches"]["val"] = read_launches()
+        n_batches = math.ceil(VAL_IMAGES / VAL_BATCH)
+        m_cpu = cpu_v.val(**val_kw)
+        diff = {k: abs(m[k] - m_cpu[k]) for k in VAL_METRICS}
+        log(f"[v0_10] val fp32: launches {launches}, NMS candidates {shapes}; {m['images']} images, P "
+            f"{m['precision']:.6f} R {m['recall']:.6f} mAP50 {m['mAP50']:.6f} mAP50-95 {m['mAP50-95']:.6f}; "
+            f"|card - CPU| {json.dumps(diff)}; speed {json.dumps(m['speed'])} ms/img")
+        require(launches["stem"] == n_batches and launches["nms"] == n_batches
+                and all(sh[1] == VAL_NMS["max_nms"] for sh in shapes),
+                "the v0_10 val did not launch the stem and NMS kernels (N=4096) once a batch")
+        require(m["images"] == VAL_IMAGES and max(diff.values()) <= VAL_METRIC_TOL and m_cpu["mAP50-95"] > 0.05,
+                f"v0_10 val: the card's metrics differ from the CPU validator's beyond {VAL_METRIC_TOL}")
+        out["val"] = dict(metrics={k: m[k] for k in VAL_METRICS}, diff=diff, speed=m["speed"], nms_shapes=shapes)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the other two released scales, bs 16 in fp32
+    out["scales"] = {}
+    for name in ("yolo-master-v0_10-s", "yolo-master-v0_10-m"):
+        y = calibrated(name, dev).fuse()
+        reset_launches()
+        r16 = y.predict(imgs, batch=16, **KW)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        require(launches["stem"] == 1 and launches["nms"] == 1 and len(r16) == 16,
+                f"{name}: the stem and NMS kernels once at bs 16")
+        check_detections(r16)
+        xb, _ = y._predictor.preprocess(imgs)
+        ms = cuda_ms(lambda: y._predictor.run(xb), reps=5, warmup=2) / 16
+        out["scales"][name] = dict(launches=launches, ms_per_img=ms)
+        log(f"[v0_10] {name} bs=16 fp32: launches {launches}, device {ms:.4f} ms/img")
+        del y
+    return v10, out
+
+
 def train_batch(b: int, m: int, dev, seed: int, max_boxes: int = 8):
     """A seeded synthetic train batch at IMGSZ in the train step's layout: uniform-noise
     images [b, IMGSZ, IMGSZ, 3] in 0..1, up to ``max_boxes`` boxes an image (xyxy px,
@@ -2512,6 +2771,8 @@ def main():
     done("bf16 paths")
     val = phase_val(dev, state)
     done("val path")
+    _, v10 = phase_v0_10_path(dev, fp32_runs["predict path"], imgs)
+    done("v0_10 paths")
     train = phase_train(dev, state)
     done("train step")
     loop = phase_train_loop(dev, state, imgs)
@@ -2571,6 +2832,8 @@ def main():
                      train_loop_predict_launches=loop["predict_launches"]["stem"],
                      train_loop_bf16_predict_launches=loop16["predict_launches"]["stem"],
                      v0_1_train_loop_predict_launches=v01_loop["predict_launches"]["stem"],
+                     v0_10_predict_launches=v10["launches"]["fp32"]["stem"],
+                     v0_10_val_launches=v10["launches"]["val"]["stem"],
                      widths={scale: {k: stem_res[(scale, 16)][k]
                                      for k in ("ms", "plain_ms", "bound_ms", "bound_peak", "max_abs_err")}
                              for scale in STEM_WIDTHS}),
@@ -2585,6 +2848,8 @@ def main():
                      multitrainer_ema_val_launches=multi["launches"]["nms"],
                      v0_1_train_loop_ema_val_launches=v01_loop["launches"]["nms"],
                      v0_1_train_loop_predict_launches=v01_loop["predict_launches"]["nms"],
+                     v0_10_predict_launches={k: v10["launches"][k]["nms"] for k in ("fp32", "bf16")},
+                     v0_10_val_launches=v10["launches"]["val"]["nms"],
                      train_loop_ema_val_b8={"shape": f"B=8 N={loop['nms_b8']['n']} max_det=300 iou=0.7, the trained "
                                                      "EMA model's val candidates", **loop["nms_b8"]},
                      val_multilabel_4096={"shape": "B=16 N=4096 max_det=300 iou=0.7, one val batch's multi-label "
@@ -2611,6 +2876,8 @@ def main():
                      val_launches=val["bf16"]["launches"]["stem"],
                      val_bank_launches=val["bf16"]["launches"]["stem_bank"],
                      launches_scale_m=bf16_res["yolo-master-m"]["launches"]["stem"],
+                     v0_10_launches=v10["launches"]["bf16"]["stem"],
+                     v0_10_bank_launches=v10["launches"]["bf16"]["stem_bank"],
                      accumulation_rounding=bf16_rounding,
                      stem_share_scale_m_bs16=shares["yolo-master-m predict path, bf16"]["stem_share"],
                      widths={scale: {f"{form}_in": {k: stem16_res[(scale, 16, form)][k] for k in
@@ -2637,6 +2904,7 @@ def main():
                                       **{k: {n: v for n, v in v01_train[k].items() if n != "losses"}
                                          for k in ("c_fp32", "c_bf16")}}))
     log(f"[train loop bf16 {V01}] " + json.dumps({k: v for k, v in v01_loop.items() if k != "predict_launches"}))
+    log(f"[{V10}] " + json.dumps(v10))
     log("[e2e] device ms/img, fp32 and bf16 paths in turns: " + json.dumps(
         {name: {f"bs{bs}": r["e2e"][bs] for bs in (1, 16)} for name, r in bf16_res.items()}))
     print(gpu_name_and_power(), flush=True)

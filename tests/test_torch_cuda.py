@@ -1055,3 +1055,85 @@ def test_v0_1_train_step_on_the_card_matches_the_cpu(dev):
         move = (sd_c[name] - start[name]).abs().max()
         for a, b in ((sd_g[name], sd_c[name]), (sg.ema_params[name], ref)):
             assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max() + 1e-2 * move + 1e-7, name
+
+
+def _gated_routing(picks=None, seen=None):
+    """Patches for nn/moe/gated.py: record each gated block's (top-k indices,
+    kept count) in forward order into ``seen``, or route by ``picks`` (a list
+    of those) over the block's own probabilities."""
+    from yolo_master_tpu_torch.nn.moe import gated
+
+    plain_topk, plain_keep, it, state = gated.topk_renorm, gated.keep_count, iter(picks or []), {}
+
+    def topk(probs, k):
+        w, idx = plain_topk(probs, k)
+        if picks is not None:
+            state["pick"] = next(it)
+            idx = state["pick"][0].to(probs.device)
+            w = probs.gather(1, idx)
+            w = w / (w.sum(-1, keepdim=True) + 1e-6)
+        elif seen is not None:
+            seen.append([idx.cpu()])
+        return w, idx
+
+    def keep(complexity, k):
+        own = plain_keep(complexity, k)
+        if picks is not None:
+            return torch.tensor(state["pick"][1], device=complexity.device)
+        if seen is not None:
+            seen[-1].append(float(own))
+        return own
+
+    return {"topk_renorm": topk, "keep_count": keep}
+
+
+def test_v0_10_predict_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """YOLO("yolo-master-v0_10-n").fuse() on the card and on the CPU from the
+    same weights (BN calibrated on four frames), 640 px: predict() launches the
+    stem and NMS kernels once a batch in fp32 and bf16 and gives max_det
+    detections; on two frames the card's fp32 decode lies within chip_smoke.py's
+    limits of the CPU's (5e-2 px, 1e-3 logit), and its bf16 raw head outputs,
+    routed by the CPU bf16's picks and kept counts, within 1.5x the CPU bf16's
+    rel-RMS from the CPU fp32."""
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_master_tpu_torch.nn.moe import gated
+    from yolo_master_tpu_torch.utils.fuse import current_dtype_copy
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    rng = np.random.default_rng(10)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
+    cpu = YOLO("yolo-master-v0_10-n", device="cpu")
+    calibrate_bn(cpu.model, DetectionPredictor(cpu.model, imgsz=640).preprocess(frames)[0])
+    card = YOLO("yolo-master-v0_10-n", device=dev).load_state_dict(cpu.model.state_dict()).fuse()
+    cpu.fuse()
+    kw = dict(imgsz=640, conf=0.0, iou=0.45, max_det=300)
+    for dtype in (torch.float32, torch.bfloat16):
+        fused_stem.launches = batched_greedy_nms.launches = 0
+        res = card.predict(frames[:1], batch=1, compute_dtype=dtype, **kw) + card.predict(frames, batch=4,
+                                                                                          compute_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        assert fused_stem.launches == batched_greedy_nms.launches == 2, dtype
+        assert all(len(r.boxes) == 300 and np.isfinite(r.boxes.data).all() for r in res)
+    x, _ = DetectionPredictor(cpu.model, imgsz=640).preprocess(frames[:2])
+    with torch.inference_mode():
+        g, c = card.model(x.to(dev)), cpu.model(x)
+        dg, dc = card.model.head.decode(g, raw_scores=True).cpu(), cpu.model.head.decode(c, raw_scores=True)
+    assert (dg[..., :4] - dc[..., :4]).abs().max() <= 5e-2 and (dg[..., 4:] - dc[..., 4:]).abs().max() <= 1e-3
+    seen = []
+    with monkeypatch.context() as mp, torch.inference_mode():
+        for k, v in _gated_routing(seen=seen).items():
+            mp.setattr(gated, k, v)
+        c16 = current_dtype_copy(cpu.model, torch.bfloat16)(x)
+    assert len(seen) == 3
+    with monkeypatch.context() as mp, torch.inference_mode():
+        for k, v in _gated_routing(picks=seen).items():
+            mp.setattr(gated, k, v)
+        g16 = current_dtype_copy(card.model, torch.bfloat16)(x.to(dev))
+
+    def rel_rms(a, ref):
+        return ((a.float() - ref).square().mean() / ref.square().mean()).sqrt().item()
+
+    for key in ("boxes", "scores"):
+        ref = c[key].float()
+        assert rel_rms(g16[key].cpu(), ref) <= 1.5 * rel_rms(c16[key], ref), key

@@ -271,11 +271,11 @@ def test_unported_module_names_its_roadmap_item():
 
 
 @pytest.mark.parametrize("name", ["yolo-master-seg-n", "yolo-master-cls-n", "yolo-master-world-n",
-                                  "yolo-master-dymoe-n", "yolo-master-v0_10-n",
+                                  "yolo-master-dymoe-n", "yolo-master-v0_2-n",
                                   "rtdetr-master-hgnet-l", "yolo26-master-n"])
 def test_other_model_yamls_name_their_roadmap_item(name):
-    """Every graph YAML of the JAX package beyond yolo-master.yaml has no copy in
-    the port yet: building it is refused, naming the ROADMAP item."""
+    """A graph YAML of the JAX package that the port has not copied yet: building
+    it is refused, naming the ROADMAP item."""
     with pytest.raises(FileNotFoundError, match="ROADMAP.md"):
         DetectionModel(name)
 

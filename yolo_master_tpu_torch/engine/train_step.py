@@ -364,7 +364,9 @@ def ema_blend(ema_params: Dict[str, torch.Tensor], model: torch.nn.Module, d: fl
 def _check_trainable(model: torch.nn.Module) -> None:
     from ..nn.layers import FusedStem
     from ..nn.moe import FusedESMOE
+    from ..nn.moe.gated import refuse_training
 
+    refuse_training(model)
     for m in model.modules():
         if isinstance(m, (FusedStem, FusedESMOE)):
             raise ValueError("a fused (deploy) model cannot be trained: train the unfused model")

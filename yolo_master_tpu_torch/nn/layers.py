@@ -279,15 +279,63 @@ class GroupNorm(nn.GroupNorm):
 
 
 class PlainConv(Conv2d):
-    """A bare conv2d with 'same' padding, no norm or activation, optional bias."""
+    """A bare conv2d with 'same' padding, no norm or activation, optional bias;
+    dilated, it pads ``dilation * (k - 1) // 2`` as the JAX package does."""
 
-    def __init__(self, c1, c2, k=1, s=1, g=1, bias=False):
-        super().__init__(c1, c2, k, s, autopad(k), groups=g, bias=bias)
+    def __init__(self, c1, c2, k=1, s=1, g=1, bias=False, dilation=1):
+        p = autopad(k) if dilation == 1 else dilation * (k - 1) // 2
+        super().__init__(c1, c2, k, s, p, groups=g, dilation=dilation, bias=bias)
 
 
-def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
-    """k x k average pooling with stride k over VALID windows (no padding), summed in fp32."""
-    return F.avg_pool2d(x.float(), k).to(x.dtype)
+def avg_pool(x: torch.Tensor, k: int, stride: int = None) -> torch.Tensor:
+    """k x k average pooling over VALID windows (no padding), stride k unless
+    given, as the JAX package's ``avg_pool``: the window sum in fp32, rounded to
+    x's dtype, then divided by k*k in that dtype (in bf16 with k = 3 that rounds
+    twice; with k = 2 or 4 the division is exact)."""
+    return F.avg_pool2d(x.float(), k, stride or k, divisor_override=1).to(x.dtype) / (k * k)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Nearest-neighbour upsampling by an integer factor."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (weight [out, in]) in its input's dtype, as the JAX
+    package's ``Linear`` (``x @ w.astype(x.dtype)``); the gated MoE blocks feed
+    it fp32 statistics, and a bf16 copy keeps its weights fp32."""
+
+    def forward(self, x):
+        b = self.bias
+        return F.linear(x, self.weight.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis, eps 1e-5, in its affine's dtype (fp32),
+    returned in the input's."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__(c, eps=eps)
+
+    def forward(self, x):
+        return F.layer_norm(x.to(self.weight.dtype), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
+class GlobalAvgPool(nn.Module):
+    """Spatial mean [B, C, H, W] -> [B, C, 1, 1], summed in fp32. With ``fp32``
+    the mean stays fp32 (the JAX blocks' ``mean(x.astype(float32))``), else it
+    is rounded to the input's dtype (``jnp.mean(x)``). Sits where the
+    reference's ``nn.AdaptiveAvgPool2d(1)`` sits, so the state_dict indices of
+    the layers after it are the reference's."""
+
+    def __init__(self, fp32: bool = False):
+        super().__init__()
+        self.fp32 = fp32
+
+    def forward(self, x):
+        m = x.float().mean((2, 3), keepdim=True)
+        return m if self.fp32 else m.to(x.dtype)
 
 
 class Concat(nn.Module):
@@ -311,7 +359,7 @@ class Upsample(nn.Module):
         self.scale = int(scale)
 
     def forward(self, x):
-        return F.interpolate(x, scale_factor=self.scale, mode="nearest")
+        return upsample_nearest(x, self.scale)
 
 
 class FusedStem(nn.Module):

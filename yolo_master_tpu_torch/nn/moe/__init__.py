@@ -1,11 +1,13 @@
 """MoE blocks of the ported graphs: ES_MOE (dense and sparse eval, and its fused
-deploy form) and OptimizedMOEImproved / ModularRouterExpertMoE (sparse and
-dense eval, and training)."""
+deploy form), OptimizedMOEImproved / ModularRouterExpertMoE (sparse and
+dense eval, and training) and the AdaptiveGate family (``gated.py``, eval)."""
 
 from .es_moe import ES_MOE, FusedESMOE
 from .experts import DepthwiseSeparableConv, EfficientExpertGroup
+from .gated import GATED_BLOCKS, AdaptiveGateMoE
 from .mixtures import EfficientSpatialRouter, ModularRouterExpertMoE, OptimizedMOEImproved, SimpleExpert
 from .routers import DynamicRoutingLayer
 
 __all__ = ["ES_MOE", "FusedESMOE", "DepthwiseSeparableConv", "EfficientExpertGroup", "DynamicRoutingLayer",
-           "EfficientSpatialRouter", "ModularRouterExpertMoE", "OptimizedMOEImproved", "SimpleExpert"]
+           "GATED_BLOCKS", "AdaptiveGateMoE", "EfficientSpatialRouter", "ModularRouterExpertMoE",
+           "OptimizedMOEImproved", "SimpleExpert"]

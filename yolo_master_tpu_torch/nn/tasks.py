@@ -3,8 +3,8 @@
 Counterpart of ``yolo_master_tpu/nn/tasks.py`` (``parse_model``,
 ``DetectionModel``) with the same scaling rules, over the same YAML files.
 The registry holds the modules of the yolo-master-n and yolo-master-v0_1
-graphs; any other module name raises ``KeyError`` naming the ROADMAP item that
-ports it.
+graphs and the gated blocks of yolo-master-v0_4 to v0_15; any other module
+name raises ``KeyError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -16,10 +16,10 @@ import torch.nn as nn
 
 from ..utils import find_model_yaml, guess_scale, make_divisible, yaml_load
 from .heads import Detect
-from .layers import A2C2f, ABlock, Bottleneck, C2f, C3, C3k, C3k2, Concat, Conv, DWConv, FusedStem, Upsample
+from .layers import A2C2f, ABlock, Bottleneck, C2f, C3, C3k, C3k2, Concat, Conv, DWConv, FusedStem, Linear, Upsample
 from .losses import composite_loss
 from .mixture_loss import AuxRecord
-from .moe import ES_MOE, OptimizedMOEImproved
+from .moe import ES_MOE, GATED_BLOCKS, OptimizedMOEImproved
 
 MODULE_REGISTRY = {
     "Conv": Conv,
@@ -37,11 +37,13 @@ MODULE_REGISTRY = {
     "ES_MOE": ES_MOE,
     "ModularRouterExpertMoE": OptimizedMOEImproved,
     "OptimizedMOEImproved": OptimizedMOEImproved,
+    **GATED_BLOCKS,
 }
 REPEAT_MODULES = {C2f, C3, C3k, C3k2, A2C2f}
 # c2 scales with the width and args become [c1, c2, ...]; for OptimizedMOEImproved
-# this is the JAX package's mixture rule (yolo_master_tpu/nn/tasks.py:218-226)
-SCALED_MODULES = {Conv, DWConv, Bottleneck, C2f, C3, C3k, C3k2, A2C2f, ES_MOE, OptimizedMOEImproved}
+# and the gated blocks this is the JAX package's mixture rule (yolo_master_tpu/nn/tasks.py:218-226)
+SCALED_MODULES = {Conv, DWConv, Bottleneck, C2f, C3, C3k, C3k2, A2C2f, ES_MOE, OptimizedMOEImproved,
+                  *GATED_BLOCKS.values()}
 _LITERALS = {"None": None, "True": True, "False": False, "none": None, "true": True, "false": False}
 
 
@@ -49,7 +51,7 @@ def _roadmap_item(name: str) -> str:
     if name.endswith("Detect") or name in {"Segment", "Pose", "OBB", "Classify", "SemanticSegment"}:
         return "§1.E item 13 (task heads) / §1.F item 15 (every YAML)"
     if "MoE" in name or "MOE" in name or name.startswith(("Dy", "C2fMo", "MoA", "MoT", "Latent")):
-        return "§1.D items 9-12 (v0_10 family, MoE dispatch) / §1.F item 14 (mixture modules)"
+        return "§1.F item 14 (mixture modules) / §1.D items 10-12 (MoE dispatch and tools)"
     if name in {"HGStem", "HGBlock", "AIFI", "RepC3", "RTDETRDecoder"}:
         return "§1.I item 21 (other model families)"
     return "§1.F item 15 (every YAML in cfg/models)"
@@ -130,11 +132,14 @@ def jax_module_path(name: str) -> str:
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight from ``generator``, as PyTorch's and the JAX package's
-    defaults do: convs U(+-1/sqrt(fan_in)) for weight and bias, BN identity,
-    area-attention blocks' conv weights trunc_normal(0.02)."""
+    defaults do: convs and Linears U(+-1/sqrt(fan_in)) for weight and bias, BN
+    identity, area-attention blocks' conv weights trunc_normal(0.02), and the
+    draws a module's ``seeded_init`` makes over those (the gated routers'
+    normal(0.05) and normal(0.02) projections, CrossPathGate's zeroed last
+    layer), as the JAX modules' ``init`` overrides do."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, nn.Conv2d):
+            if isinstance(mod, (nn.Conv2d, Linear)):
                 fan_in = mod.weight[0].numel()
                 bound = 1.0 / fan_in ** 0.5
                 mod.weight.uniform_(-bound, bound, generator=generator)
@@ -147,6 +152,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 for conv in mod.modules():
                     if isinstance(conv, nn.Conv2d):
                         nn.init.trunc_normal_(conv.weight, std=0.02, a=-0.04, b=0.04, generator=generator)
+            elif hasattr(mod, "seeded_init"):
+                mod.seeded_init(generator)
 
 
 class DetectionModel(nn.Module):

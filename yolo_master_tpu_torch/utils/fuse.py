@@ -20,16 +20,23 @@ import torch
 import torch.nn as nn
 from torch.utils.weak import WeakIdKeyDictionary
 
-from ..nn.layers import Conv, FusedStem, Passthrough
+from ..nn.layers import Conv, FusedStem, LayerNorm, Linear, Passthrough
+from ..nn.moe import gated
 from ..nn.moe.es_moe import ES_MOE, FusedESMOE
 from ..nn.moe.experts import DepthwiseSeparableConv
 from ..nn.moe.routers import DynamicRoutingLayer
 
 # modules whose parameters and buffers stay fp32 in a low-precision copy: the
-# BatchNorm statistics (folded in fp32 when applied), the GroupNorm affines and
-# the ES_MOE router (JAX reduces and projects them in fp32), and the kernel
-# modules, whose kernels widen their weights to fp32 as the TPU kernels do
-KEEP_FP32 = (nn.BatchNorm2d, nn.GroupNorm, DynamicRoutingLayer, FusedStem, FusedESMOE)
+# BatchNorm statistics (folded in fp32 when applied), the GroupNorm and
+# LayerNorm affines, the ES_MOE router and the gated blocks' Linears (JAX
+# reduces and projects them in fp32), and the kernel modules, whose kernels
+# widen their weights to fp32 as the TPU kernels do
+KEEP_FP32 = (nn.BatchNorm2d, nn.GroupNorm, LayerNorm, Linear, DynamicRoutingLayer, FusedStem, FusedESMOE)
+# modules whose own parameters (not their children's) stay fp32: the gated
+# family's scalars, expert prior and fused experts' affines, which JAX reads in
+# fp32 (tanh, sigmoid, the experts' normalisation) before any cast
+KEEP_FP32_OWN = (gated.AdaptiveGateMoE, gated.DualStreamGateRouter, gated.FusedExpertGroup, gated.VisualDetailGate,
+                 gated.PyramidContextMixer, gated.CrossPathGate)
 
 
 def fuse_bn(model) -> None:
@@ -98,11 +105,13 @@ def compute_dtype_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
     Every floating parameter and buffer becomes ``dtype`` (the JAX package's
     ``w.astype(x.dtype)`` of each conv, done once), except those under the
-    :data:`KEEP_FP32` modules; a :class:`FusedStem` gives its output in
+    :data:`KEEP_FP32` modules and those of the :data:`KEEP_FP32_OWN` modules
+    themselves; a :class:`FusedStem` gives its output in
     ``dtype``. ``model`` itself is left as it is.
     """
     out = copy.deepcopy(model)
     kept = {id(t) for m in out.modules() if isinstance(m, KEEP_FP32) for t in (*m.parameters(), *m.buffers())}
+    kept |= {id(t) for m in out.modules() if isinstance(m, KEEP_FP32_OWN) for t in m.parameters(recurse=False)}
     for m in out.modules():
         for t in (*m.parameters(recurse=False), *m.buffers(recurse=False)):
             if t.is_floating_point() and id(t) not in kept:

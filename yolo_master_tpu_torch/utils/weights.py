@@ -2,11 +2,17 @@
 
 :func:`state_dict_from_jax` is the inverse of
 ``yolo_master_tpu/utils/torch_import.py`` (``_torch_key`` and ``convert``)
-for the modules of the yolo-master-n and yolo-master-v0_1 graphs (ES_MOE with
-or without top_k, OptimizedMOEImproved): it maps the JAX parameter tree's
-paths to ultralytics state_dict keys and HWIO conv kernels to OIHW. A layer
-that ``pallas_esmoe_fuse`` rewrote (``{"routing", "banks"}``) maps to the
-port's :class:`~..nn.moe.es_moe.FusedESMOE`, whose banks keep the JAX layout.
+for the modules of the yolo-master-n, yolo-master-v0_1 and v0_4-v0_15 graphs
+(ES_MOE with or without top_k, OptimizedMOEImproved, the gated blocks): it
+maps the JAX parameter tree's paths to ultralytics state_dict keys, HWIO conv
+kernels to OIHW and ``Linear`` matrices [in, out] to [out, in]. The gated
+blocks' parameter-free ``nn.Sequential`` slots of the reference shift the
+indices after them (``se_gate.0`` -> ``se_gate.2``) or wrap a lone conv
+(``complexity_estimator`` -> ``complexity_estimator.1``), as in
+``yolo_master_tpu/utils/torch_import.py``; their scalars, ``expert_prior``
+and ``expert_norm_weight/bias`` keep their names and shapes. A layer that
+``pallas_esmoe_fuse`` rewrote (``{"routing", "banks"}``) maps to the port's
+:class:`~..nn.moe.es_moe.FusedESMOE`, whose banks keep the JAX layout.
 """
 
 from __future__ import annotations
@@ -19,28 +25,43 @@ import torch
 _LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias", "mean": "running_mean",
          "var": "running_var"}
 _BN_LEAVES = {"scale", "bias", "mean", "var"}
+# the reference's parameter-free Sequential slots (pooling, flatten) before the
+# gated blocks' layers: the index shift of the layers after them, and the lone
+# convs the reference wraps (their torch index)
+_SEQ_SHIFT = {"se_gate": 2, "feature_gate": 1, "refine_gate": 1, "gate_net": 2}
+_WRAPPED = {"complexity_estimator": "1", "context_gate": "0"}
 
 
 def _torch_key(path: List[str]) -> List[str]:
     """Our module path -> torch module path (the ``_torch_key`` subset of the slice)."""
     parts: List[str] = []
-    for i, seg in enumerate(path):
+    i = 0
+    while i < len(path):
+        seg = path[i]
         if seg == "layers" and i == 0:
             parts.append("model")
         elif seg == "norm_bn":
             parts.extend(["norm", "0"])
         elif seg in ("fc1", "fc2") and parts and parts[-1] == "routing":
             parts.extend(["routing_network", "0" if seg == "fc1" else "2"])
+        elif seg in _SEQ_SHIFT and i + 1 < len(path) and path[i + 1].isdigit():
+            parts.extend([seg, str(int(path[i + 1]) + _SEQ_SHIFT[seg])])
+            i += 1
+        elif seg in _WRAPPED and (i + 1 == len(path) or not path[i + 1].isdigit()):
+            parts.extend([seg, _WRAPPED[seg]])
         else:
             parts.append(seg)
+        i += 1
     return parts
 
 
-def _to_torch_layout(v: np.ndarray) -> np.ndarray:
+def _to_torch_layout(v: np.ndarray, path: List[str]) -> np.ndarray:
     if v.ndim == 4:  # HWIO -> OIHW
         return v.transpose(3, 2, 0, 1)
-    if v.ndim == 2:  # router matrix [in, out] -> 1x1 conv [out, in, 1, 1]
-        return v.T[:, :, None, None]
+    if v.ndim == 2 and path[-1] == "w":
+        if len(path) > 2 and path[-2] in ("fc1", "fc2") and path[-3] == "routing":
+            return v.T[:, :, None, None]  # ES_MOE router matrix [in, out] -> 1x1 conv [out, in, 1, 1]
+        return v.T  # Linear [in, out] -> [out, in]
     return v
 
 
@@ -61,7 +82,7 @@ def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                     arr = arr.reshape(arr.shape[0], -1, arr.shape[-1])
             else:
                 key = ".".join(_torch_key(path[:-1]) + [_LEAF.get(path[-1], path[-1])])
-                arr = _to_torch_layout(arr)
+                arr = _to_torch_layout(arr, path)
             sd[key] = torch.from_numpy(np.array(arr, order="C"))
             return
         if _BN_LEAVES <= set(node):
@@ -85,19 +106,24 @@ def calibrate_bn(model, x_nhwc: torch.Tensor) -> None:
     routed blocks (OptimizedMOEImproved) route in that pass as in eval (their
     top_k, no router noise, no expert dropout), so that the statistics are
     those the eval graph sees.
+    The gated blocks (AdaptiveGateMoE and its family, whose training is not
+    ported) run their eval forward in that pass.
     For tests and smoke runs on random weights; trained weights need none of it.
     """
-    from ..nn.moe import OptimizedMOEImproved
+    from ..nn.moe import AdaptiveGateMoE, OptimizedMOEImproved
 
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     momenta = [bn.momentum for bn in bns]
     routed = [(m, (m.noise_std, m.progressive_sparsity, m.expert_dropout_rate))
               for m in model.modules() if isinstance(m, OptimizedMOEImproved)]
+    gated = [m for m in model.modules() if isinstance(m, AdaptiveGateMoE)]
     was_training = model.training
     for bn in bns:
         bn.momentum = 1.0
     for m, _ in routed:
         m.noise_std, m.progressive_sparsity, m.expert_dropout_rate = 0.0, False, 0.0
+    for m in gated:
+        m.calibrating = True
     model.train()
     try:
         model(x_nhwc)
@@ -105,6 +131,8 @@ def calibrate_bn(model, x_nhwc: torch.Tensor) -> None:
         model.train(was_training)
         for bn, m in zip(bns, momenta):
             bn.momentum = m
+        for m in gated:
+            m.calibrating = False
         for m, saved in routed:
             m.noise_std, m.progressive_sparsity, m.expert_dropout_rate = saved
             m.aux_record = None
