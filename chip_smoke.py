@@ -7,8 +7,9 @@ Builds the port's six hand-written CUDA kernel sources from the checkout
 of the split-TF32 header that stem.cu, esmoe.cu, moe.cu and c3k2.cu share and of
 the split-bf16 header of stem.cu's bf16 forms, one nvcc each, in parallel),
 holds each kernel against its plain PyTorch version on the card, and
-drives yolo_master_tpu_torch's paths at the full width of yolo-master-n,
-yolo-master-v0_1-n and yolo-master-v0_10-n with seeded random weights. Phases:
+drives yolo_master_tpu_torch's paths (predict, val, training, the MoE
+tools) at the full width of yolo-master-n, yolo-master-v0_1-n and
+yolo-master-v0_10-n with seeded random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
   2. build the six kernel sources (c3k2.cu's and stem.cu's bf16 kernel's
@@ -122,6 +123,19 @@ yolo-master-v0_1-n and yolo-master-v0_10-n with seeded random weights. Phases:
      share and peak memory at bs 16; fuse().val() in fp32 on phase 16's kind
      of set (the NMS kernel at N=4096, metrics within 1e-3 of the CPU
      validator's); a bs-16 fp32 predict of v0_10-s and v0_10-m
+ 27. yolo-master-v0_10-n's training with phase 26's weights (the gated
+     blocks' temperature anneal, complexity gate and aux loss): one fp32 step
+     at bs 2 on the card against the CPU (phase 17's gate, the card routed by
+     the CPU's picks and kept counts); one bf16 step at bs 2 on two batches,
+     pinned to the CPU bf16's routing (phase 19's statistic); one step of
+     v0_13-n and of v0_15-n at bs 2 (router noise, soft expert dropout and
+     drop-path set to fire) whose draws equal the CPU's bit for bit; three
+     steps of bs 16 x accumulate 4 in fp32 and bf16 beside yolo-master-n's and
+     v0_1-n's (times by layer, busy share, kernels, host-to-device copies,
+     peak memory); the loop with amp at its default (phase 20's run); then the
+     MoE tools: diagnose_model and prune_moe_model on yolo-master-n (pruned,
+     fused, through predict and against the CPU), v0_10-n's
+     quantization_report and its dequantized weights through predict
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
@@ -1933,7 +1947,7 @@ def phase_v0_10_path(dev, base_run, imgs):
         out["scales"][name] = dict(launches=launches, ms_per_img=ms)
         log(f"[v0_10] {name} bs=16 fp32: launches {launches}, device {ms:.4f} ms/img")
         del y
-    return v10, out
+    return v10, out, state
 
 
 def train_batch(b: int, m: int, dev, seed: int, max_boxes: int = 8):
@@ -2065,9 +2079,11 @@ def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=No
     kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     count = sum(e.count for e in kern)
+    copies = sum(e.count for e in kern if "Memcpy HtoD" in e.key)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     log(f"[{tag}] one profiled optimizer step: wall {wall_ms:.3f} ms under the profiler, device busy "
-        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {count} kernels; top: "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {count} kernels and copies, {copies} host-to-device "
+        f"copies; top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
     require(busy_ms > 0, f"{tag}: the profile shows no device time")
     host = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU),
@@ -2078,16 +2094,20 @@ def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=No
     return y, st, dict(host_top_ms=host_ms, losses=losses, step_ms=step_ms,
                        micro_ms=[t / pol.accumulate for t in step_ms], step_no_accumulation_ms=micro_ms,
                        layers_ms=split, peak_bytes=peak, busy_ms=busy_ms, wall_ms=wall_ms,
-                       busy_share=busy_ms / wall_ms, kernels=count)
+                       busy_share=busy_ms / wall_ms, kernels=count, copies_htod=copies)
 
 
-def card_vs_cpu_step(dev, make_model, tag):
+def card_vs_cpu_step(dev, make_model, tag, pin_gated: bool = False):
     """One optimizer step at bs 2 of ``make_model(where)`` on the card against the
     same step on the CPU, from a state at step 50 of the trainer's warmup (every
     group's lr non-zero, momentum traces seeded): the loss components within
     1e-4 relative, the parameters, BN statistics and EMA after the step within
     1e-4 of each tensor's scale plus 1e-2 of its move, the updates within 5e-2
-    of their size. Returns the numbers and the two models."""
+    of their size. With ``pin_gated`` the CPU's step runs first and the card's
+    gated blocks route by its picks and kept counts (a pick may flip between
+    the two fp32 programs), and the routings that differ unpinned are counted.
+    Returns the numbers and the two models."""
+    import contextlib
     import math
 
     import torch
@@ -2096,10 +2116,10 @@ def card_vs_cpu_step(dev, make_model, tag):
 
     metrics = ("loss", "box_loss", "cls_loss", "dfl_loss", "aux_loss")
     pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
-    runs = {}
+    runs, seen, own = {}, [], []
     g = torch.Generator().manual_seed(3)
-    for where in (dev, "cpu"):
-        y = make_model(where)
+    for where in (("cpu", dev) if pin_gated else (dev, "cpu")):
+        y = make_model(where)  # built before the routing is patched: the facade's stride probe routes too
         tx = pol.build_optimizer(y.model)
         st = ts.make_train_state(y.model, tx)
         st.step = st.opt_state.count = 50
@@ -2109,8 +2129,19 @@ def card_vs_cpu_step(dev, make_model, tag):
             for name, t in sorted(st.opt_state.buffers["trace"].items()):
                 t.copy_(torch.randn(t.shape, generator=g) * 1e-3)
         before = {k: v.detach().clone() for k, v in y.model.state_dict().items() if v.is_floating_point()}
+        bn_names = {id(m): n for n, m in y.model.named_modules()}
         step = ts.make_train_step(y.model, tx)
-        st, met = step(st, train_batch(2, 8, where, seed=11))
+        batch = train_batch(2, 8, where, seed=11)
+        if pin_gated and where != "cpu":
+            with torch.no_grad(), gated_routing(seen=own):  # the card's own routing of the step's batch
+                y.model.train().forward_train(batch["images"], st.step)
+            for bn in (m for m in y.model.modules() if isinstance(m, torch.nn.BatchNorm2d)):
+                bn.running_mean.copy_(before[f"{bn_names[id(bn)]}.running_mean"].to(where))
+                bn.running_var.copy_(before[f"{bn_names[id(bn)]}.running_var"].to(where))
+        pin = (gated_routing(seen=seen) if where == "cpu" else gated_routing(picks=seen)) if pin_gated \
+            else contextlib.nullcontext()
+        with pin:
+            st, met = step(st, batch)
         runs[str(where)] = (y.model, st, {k: float(met[k]) for k in metrics}, before)
     (mg, sg, lg, bg), (mc, sc, lc, bc) = runs[str(dev)], runs["cpu"]
     loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in metrics}
@@ -2141,7 +2172,12 @@ def card_vs_cpu_step(dev, make_model, tag):
     log(f"[{tag}] largest deviations, card vs CPU (tensor, |diff|, limit): {worst}; updates: worst {k_rel} "
         f"{rel[k_rel]:.3e} of its largest move ({len(rel)} tensors moved by >= 1e-2 of the largest move, {top:.3e})")
     require(rel[k_rel] <= 5e-2, f"{tag}: the card's updates differ from the CPU's beyond 5e-2 of their size")
-    return dict(loss_rel_err=loss_err, worst=worst, update_rel_err=rel[k_rel]), {"card": mg, "cpu": mc}
+    out = dict(loss_rel_err=loss_err, worst=worst, update_rel_err=rel[k_rel])
+    if pin_gated:
+        out["routing_flips"] = routing_flips(own, seen)
+        log(f"[{tag}] the card pinned to the CPU step's routing; unpinned, {out['routing_flips']} of "
+            f"{sum(len(i) for i, _ in seen)} picks and {len(seen)} kept counts differ")
+    return out, {"card": mg, "cpu": mc}
 
 
 def phase_train(dev, state):
@@ -2200,12 +2236,15 @@ def step_gradients(model, tx, batch, dtype, step: int = 0):
     """The gradient tree (fp32 on the CPU, by parameter name) that one optimizer
     step of ``model`` in ``dtype``, at train step ``step``, hands its optimizer on
     ``batch``, and the step's metrics."""
+    import torch
+
     from yolo_master_tpu_torch.engine import train_step as ts
 
     grads, apply = {}, tx.apply
 
     def capture(m, opt_state):
-        grads.update({n: p.grad.detach().float().cpu().clone() for n, p in m.named_parameters()})
+        grads.update({n: (torch.zeros_like(p) if p.grad is None else p.grad).detach().float().cpu().clone()
+                      for n, p in m.named_parameters()})  # the gated blocks' complexity_estimator has none
         apply(m, opt_state)
 
     tx.apply = capture
@@ -2384,6 +2423,178 @@ def phase_v0_1_train(dev, state, n32, n16):
             f"{r['peak_bytes'] / 2**30:.2f} vs {ref['peak_bytes'] / 2**30:.2f} GiB; busy {r['busy_ms']:.3f} ms "
             f"({100 * r['busy_share']:.1f}%, {r['kernels']} kernels) vs {ref['busy_ms']:.3f} ms "
             f"({100 * ref['busy_share']:.1f}%, {ref['kernels']} kernels)")
+    return out
+
+
+def phase_v0_10_train(dev, state, main_state, imgs, benches):
+    """yolo-master-v0_10-n's training (the gated blocks' temperature anneal,
+    complexity gate and aux loss) with phase 26's weights (class biases at 0):
+    (a) one fp32 step at bs 2 from step 50 on the card against the CPU, phase
+    17's gate, the card routed by the CPU step's picks and kept counts (the
+    unpinned flips counted); (b) one bf16 step at bs 2 on two batches, the
+    card's routing pinned to the CPU bf16 step's, the gradient trees' rel-RMS
+    from the CPU fp32 within 1.5x the CPU bf16's (phase 19's statistic);
+    (c) one step at bs 2 of yolo-master-v0_13-n (MultiHeadRouterV3: noise and
+    soft expert dropout) and of v0_15-n (V2 noise and drop-path), seeded
+    weights, expert_dropout and drop_prob at 0.5 so that both fire: the draws
+    the card's step used equal to the CPU step's bit for bit; (d)
+    train_step_bench in fp32 and bf16 beside yolo-master-n's and v0_1-n's of
+    the same call (``benches``: phases 17, 19 and 22); (e) the training loop
+    with amp at its default (phase 20's run, resume and predict of
+    last.npz); (f) the MoE tools: diagnose_model and prune_moe_model (each
+    ES_MOE cut to its two most used experts) on yolo-master-n with the main
+    path's weights (``main_state``), the pruned model's BN calibrated anew,
+    fused through predict (stem and NMS kernels) and its decode against the
+    CPU's pruned model on the same weights; the
+    quantization_report of v0_10-n and its dequantized weights through
+    predict."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine import train_step as ts
+    from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_master_tpu_torch.nn.moe import ES_MOE, AdaptiveGateMoE
+    from yolo_master_tpu_torch.nn.moe.analysis import diagnose_model
+    from yolo_master_tpu_torch.nn.moe.pruning import prune_moe_model
+    from yolo_master_tpu_torch.nn.moe.quantize import dequantize_state_dict, quantization_report, quantize_state_dict
+    from yolo_master_tpu_torch.nn.tasks import DetectionModel
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    def make(where):
+        return train_model(state, where, name=V10)
+
+    out = {}
+    out["a"], _ = card_vs_cpu_step(dev, make, "v0_10 train a", pin_gated=True)
+
+    # (b) bf16 against the CPU's fp32 and bf16, the card pinned to the CPU bf16's routing
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
+    sums, flips = [0.0, 0.0, 0.0], 0
+    for seed in (11, 12):
+        grads, seen = {}, {}
+        for key, where, dtype in (("cpu bfloat16", "cpu", torch.bfloat16), ("cpu float32", "cpu", torch.float32),
+                                  ("cuda bfloat16 unpinned", dev, torch.bfloat16), ("cuda bfloat16", dev, torch.bfloat16)):
+            y = make(where)
+            seen[key] = []
+            pin = gated_routing(picks=seen["cpu bfloat16"]) if key == "cuda bfloat16" else gated_routing(seen=seen[key])
+            with pin:
+                g, met = step_gradients(y.model, pol.build_optimizer(y.model), train_batch(2, 8, where, seed=seed),
+                                        dtype, step=50)
+            grads[key] = torch.cat([g[n].flatten() for n in sorted(g)]).double()
+            require(all(math.isfinite(float(met[k])) for k in ("loss", "aux_loss")), f"v0_10 train (b): {key} loss")
+        flips += routing_flips(seen["cuda bfloat16 unpinned"], seen["cpu bfloat16"])
+        ref = grads["cpu float32"]
+        for i, key in enumerate(("cuda bfloat16", "cpu bfloat16")):
+            sums[i] += float(((grads[key] - ref) ** 2).sum())
+        sums[2] += float((ref ** 2).sum())
+    card, own = math.sqrt(sums[0] / sums[2]), math.sqrt(sums[1] / sums[2])
+    log(f"[v0_10 train b] bf16 at step 50, two batches of 2: gradient trees' rel-RMS from the CPU fp32, the card's "
+        f"routing pinned to the CPU bf16's: card {card:.4e}, CPU bf16 {own:.4e} (ratio {card / own:.3f}, limit 1.5); "
+        f"unpinned, {flips} of 12 picks and 6 kept counts differ between the card's bf16 and the CPU's")
+    require(0 < own < 2 and card <= 1.5 * own,
+            "v0_10 train (b): the card's bf16 gradients are further from the CPU fp32 than 1.5x the CPU bf16's")
+    out["b"] = dict(grad_rel_rms_card=card, grad_rel_rms_cpu_bf16=own, flips=flips)
+
+    # (c) the draws of v0_13-n's and v0_15-n's step on the card equal the CPU's
+    out["c"] = {}
+    for name, owner, attr in (("yolo-master-v0_13-n", "routing", "expert_dropout"),
+                              ("yolo-master-v0_15-n", "cross_gate", "drop_prob")):
+        used = {}
+        for where in (dev, "cpu"):
+            model = DetectionModel(name).to(where)
+            blocks = [m for m in model.modules() if isinstance(m, AdaptiveGateMoE)]
+            for m in blocks:
+                setattr(getattr(m, owner), attr, 0.5)
+            tx = pol.build_optimizer(model)
+            st = ts.make_train_state(model, tx)
+            st.step = 3
+            _, met = ts.make_train_step(model, tx)(st, train_batch(2, 8, where, seed=13))
+            require(float(met["finite"]) == 1.0, f"{name}: a non-finite step")
+            used[str(where)] = [torch.cat(m._draws[1], 1).cpu() for m in blocks]
+        same = all(torch.equal(a, b) for a, b in zip(used[str(dev)], used["cpu"]))
+        k = blocks[0].num_experts if owner == "routing" else None
+        fired = [bool(((d[:, k:] == 0.5).any(1) if k else (d[:, -1] == 0)).any()) for d in used["cpu"]]
+        log(f"[v0_10 train c] {name} at step 3, bs 2, {attr} 0.5: the draws of the card's step (router noise"
+            f"{', dropout factors' if k else ', drop-path scale'}, [2, columns] a block) equal the CPU's bit for bit: "
+            f"{same}; fired in blocks {fired}")
+        require(same and any(fired), f"{name}: the card's draws differ from the CPU's, or the dropout never fired")
+        out["c"][name] = dict(equal=same, fired=fired)
+
+    # (d) bs 16 x accumulate 4, three steps, in both dtypes, beside yolo-master-n's and v0_1-n's
+    for what, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        _, _, r = train_step_bench(dev, state, dtype, name=V10)
+        out[f"d_{what}"] = r
+        n, v01 = benches[f"n_{what}"], benches[f"v01_{what}"]
+        log(f"[v0_10 train d] {what}, ms per optimizer step (bs 16 x 4): v0_10-n {[round(t, 3) for t in r['step_ms']]}, "
+            f"yolo-master-n {[round(t, 3) for t in n['step_ms']]}, v0_1-n {[round(t, 3) for t in v01['step_ms']]}; "
+            f"by layer {json.dumps(r['layers_ms'])}; peak {r['peak_bytes'] / 2**30:.2f} GiB (n "
+            f"{n['peak_bytes'] / 2**30:.2f}, v0_1 {v01['peak_bytes'] / 2**30:.2f}); busy "
+            f"{100 * r['busy_share']:.1f}% (n {100 * n['busy_share']:.1f}%, v0_1 {100 * v01['busy_share']:.1f}%); "
+            f"{r['kernels']} kernels and copies, {r['copies_htod']} host-to-device copies (n {n['kernels']}, "
+            f"{n['copies_htod']}; v0_1 {v01['kernels']}, {v01['copies_htod']})")
+
+    # (e) the loop, amp at its default
+    out["e"] = phase_train_loop(dev, state, imgs, amp=True, name=V10)
+
+    # (f) the MoE tools
+    y = YOLO("yolo-master-n", device=dev).load_state_dict(main_state)
+    x4, _ = DetectionPredictor(y.model, imgsz=IMGSZ).preprocess(imgs[:4])  # NHWC, /255 (unfused)
+    before = {k: v.clone() for k, v in y.model.state_dict().items()}
+    t0 = time.perf_counter()
+    report = diagnose_model(y.model, [{"images": x4}])
+    diag_s = time.perf_counter() - t0
+    usage = {k: np.asarray(v["usage"]) for k, v in report["blocks"].items()}
+    require(set(usage) == {f"layers.{i}" for i in (3, 6, 9, 12)} and not y.model.training
+            and all(torch.equal(v, before[k]) for k, v in y.model.state_dict().items()),
+            "diagnose_model: the ES_MOE blocks' usage, or the model changed")
+    cpu = YOLO("yolo-master-n", device="cpu")
+    for yy in (y, cpu):
+        prune_moe_model(yy.model, usage, threshold=1.0, keep_top_m=2)
+        require([m.num_experts for m in yy.model.model if isinstance(m, ES_MOE)] == [2, 2, 2, 2],
+                "prune_moe_model: each ES_MOE should keep its two most used experts")
+    # random weights: cutting an expert that took a third of the mix moves every later BN's input, and the
+    # statistics calibrated for the full graph then amplify rounding without bound; the pruned graph gets its own
+    calibrate_bn(y.model, x4)
+    cpu.load_state_dict(y.model.state_dict())
+    pruned = {str(dev): y.fuse(), "cpu": cpu.fuse()}
+    reset_launches()
+    r16 = pruned[str(dev)].predict(imgs, batch=16, **KW)
+    torch.cuda.synchronize()
+    prune_launches = read_launches()
+    require(prune_launches["stem"] == 1 and prune_launches["nms"] == 1 and len(r16) == 16,
+            "the pruned model's predict did not launch the stem and NMS kernels")
+    check_detections(r16)
+    xp, _ = pruned[str(dev)]._predictor.preprocess(imgs[:2])
+    with torch.inference_mode():
+        dg = pruned[str(dev)].model.head.decode(pruned[str(dev)].model(xp), raw_scores=True).cpu()
+        dc = pruned["cpu"].model.head.decode(pruned["cpu"].model(xp.cpu()), raw_scores=True)
+    box_err, logit_err = decode_err(dg, dc)
+    log(f"[v0_10 tools] diagnose_model on yolo-master-n, 4 frames ({diag_s:.2f} s): "
+        + json.dumps({k: {"usage": [round(u, 4) for u in v['usage']], "gini": round(v['gini'], 4)}
+                      for k, v in report['blocks'].items()}) + f", collapsed {len(report['collapsed'])}; pruned to "
+        f"two experts a block, fused, predict bs 16 launches {prune_launches}; GPU vs CPU decode of the pruned model: "
+        f"box {box_err:.3e} px, logit {logit_err:.3e}")
+    require(box_err <= 5e-2 and logit_err <= 1e-3, "the pruned model's GPU and CPU decode disagree")
+    v10 = YOLO(V10, device=dev).load_state_dict(state)
+    t0 = time.perf_counter()
+    qsd = quantize_state_dict(v10.model.state_dict())
+    q_s = time.perf_counter() - t0
+    rep = quantization_report(v10.model.state_dict(), qsd)
+    v10.load_state_dict(dequantize_state_dict(qsd))
+    reset_launches()
+    rq = v10.fuse().predict(imgs, batch=16, **KW)
+    torch.cuda.synchronize()
+    q_launches = read_launches()
+    require(rep["quantized_tensors"] > 0 and rep["ratio"] < 0.5 and q_launches["nms"] == 1 and len(rq) == 16,
+            "v0_10-n's quantization report, or its dequantized predict")
+    check_detections(rq)
+    log(f"[v0_10 tools] quantization_report of v0_10-n ({q_s:.2f} s on the host): {json.dumps(rep)}; its dequantized "
+        f"weights fused through predict bs 16: launches {q_launches}")
+    out["f"] = dict(diagnose=report, diagnose_s=diag_s, prune_launches=prune_launches,
+                    prune_decode_err=(box_err, logit_err), quantization=rep, quantize_s=q_s,
+                    quantized_predict_launches=q_launches)
     return out
 
 
@@ -2771,7 +2982,7 @@ def main():
     done("bf16 paths")
     val = phase_val(dev, state)
     done("val path")
-    _, v10 = phase_v0_10_path(dev, fp32_runs["predict path"], imgs)
+    _, v10, v10_state = phase_v0_10_path(dev, fp32_runs["predict path"], imgs)
     done("v0_10 paths")
     train = phase_train(dev, state)
     done("train step")
@@ -2788,6 +2999,10 @@ def main():
     log(f"[train loop bf16 {V01}] warmup_steps, dropout_interval = {V01_LOOP_SCHEDULE} on layers 5, 8 and 11")
     v01_loop = phase_train_loop(dev, v01_state, imgs, amp=True, name=V01, schedule=V01_LOOP_SCHEDULE)
     done("v0_1 train loop")
+    v10_train = phase_v0_10_train(dev, v10_state, state, imgs,
+                                  {"n_fp32": train["b"], "n_bf16": train16["b"], "v01_fp32": v01_train["c_fp32"],
+                                   "v01_bf16": v01_train["c_bf16"]})
+    done("v0_10 training and the MoE tools")
 
     def v01_dense(xb):
         v01.model.sparse_inference = False
@@ -2834,6 +3049,8 @@ def main():
                      v0_1_train_loop_predict_launches=v01_loop["predict_launches"]["stem"],
                      v0_10_predict_launches=v10["launches"]["fp32"]["stem"],
                      v0_10_val_launches=v10["launches"]["val"]["stem"],
+                     v0_10_train_loop_predict_launches=v10_train["e"]["predict_launches"]["stem"],
+                     pruned_n_predict_launches=v10_train["f"]["prune_launches"]["stem"],
                      widths={scale: {k: stem_res[(scale, 16)][k]
                                      for k in ("ms", "plain_ms", "bound_ms", "bound_peak", "max_abs_err")}
                              for scale in STEM_WIDTHS}),
@@ -2850,6 +3067,10 @@ def main():
                      v0_1_train_loop_predict_launches=v01_loop["predict_launches"]["nms"],
                      v0_10_predict_launches={k: v10["launches"][k]["nms"] for k in ("fp32", "bf16")},
                      v0_10_val_launches=v10["launches"]["val"]["nms"],
+                     v0_10_train_loop_ema_val_launches=v10_train["e"]["launches"]["nms"],
+                     v0_10_train_loop_predict_launches=v10_train["e"]["predict_launches"]["nms"],
+                     pruned_n_predict_launches=v10_train["f"]["prune_launches"]["nms"],
+                     v0_10_quantized_predict_launches=v10_train["f"]["quantized_predict_launches"]["nms"],
                      train_loop_ema_val_b8={"shape": f"B=8 N={loop['nms_b8']['n']} max_det=300 iou=0.7, the trained "
                                                      "EMA model's val candidates", **loop["nms_b8"]},
                      val_multilabel_4096={"shape": "B=16 N=4096 max_det=300 iou=0.7, one val batch's multi-label "
@@ -2905,6 +3126,9 @@ def main():
                                          for k in ("c_fp32", "c_bf16")}}))
     log(f"[train loop bf16 {V01}] " + json.dumps({k: v for k, v in v01_loop.items() if k != "predict_launches"}))
     log(f"[{V10}] " + json.dumps(v10))
+    log(f"[{V10} train] " + json.dumps({k: ({n: v for n, v in r.items() if n not in ("losses", "predict_launches")}
+                                            if isinstance(r, dict) else r) for k, r in v10_train.items()},
+                                       default=str))
     log("[e2e] device ms/img, fp32 and bf16 paths in turns: " + json.dumps(
         {name: {f"bs{bs}": r["e2e"][bs] for bs in (1, 16)} for name, r in bf16_res.items()}))
     print(gpu_name_and_power(), flush=True)

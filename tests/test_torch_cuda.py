@@ -1057,6 +1057,67 @@ def test_v0_1_train_step_on_the_card_matches_the_cpu(dev):
             assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max() + 1e-2 * move + 1e-7, name
 
 
+def test_v0_10_train_step_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """engine/train_step.py on yolo-master-v0_10-n (the gated blocks' temperature
+    anneal, complexity gate and aux loss): one SGD step at 640, B=2, from step
+    50 on the card and on the CPU from the same weights (BN calibrated) and
+    batch, the card's routing pinned to the CPU step's picks and kept counts
+    (a pick may flip between the two fp32 programs): chip_smoke.py's phase 17
+    (a) gate (the loss components within 1e-4 relative, the parameters, BN
+    statistics and EMA after the step within 1e-4 of each tensor's scale plus
+    1e-2 of its move); then yolo-master-v0_13-n's and v0_15-n's router noise,
+    soft expert dropout and drop-path draws on the card equal to the CPU's bit
+    for bit."""
+    from yolo_master_tpu_torch.engine import train_step as ts
+    from yolo_master_tpu_torch.nn.moe import AdaptiveGateMoE, gated
+    from yolo_master_tpu_torch.nn.tasks import DetectionModel
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    rng = np.random.default_rng(6)
+    xy, wh = rng.uniform(0, 400, (2, 8, 2)), rng.uniform(24, 320, (2, 8, 2))
+    batch = {"images": torch.from_numpy(rng.random((2, 640, 640, 3), np.float32)),
+             "boxes": torch.from_numpy(np.concatenate([xy, np.minimum(xy + wh, 639)], -1).astype(np.float32)),
+             "classes": torch.from_numpy(rng.integers(0, 80, (2, 8))),
+             "mask": torch.from_numpy(np.arange(8)[None] < rng.integers(1, 9, (2, 1)))}
+    base = DetectionModel("yolo-master-v0_10-n")
+    calibrate_bn(base, batch["images"])
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
+    out, seen = {}, []
+    for where in (torch.device("cpu"), dev):
+        model = DetectionModel("yolo-master-v0_10-n")
+        model.load_state_dict(base.state_dict())
+        model.to(where)
+        tx = pol.build_optimizer(model)
+        state = ts.make_train_state(model, tx)
+        state.step = state.opt_state.count = 50
+        state.ema_updates = 50.0
+        with monkeypatch.context() as mp:
+            for k, v in _gated_routing(**({"seen": seen} if where.type == "cpu" else {"picks": seen})).items():
+                mp.setattr(gated, k, v)
+            state, met = ts.make_train_step(model, tx)(state, {k: v.to(where) for k, v in batch.items()})
+        assert float(met["finite"]) == 1.0
+        out[where.type] = (model, state, {k: float(met[k]) for k in ("loss", "box_loss", "cls_loss", "dfl_loss",
+                                                                      "aux_loss")})
+    (mg, sg, lg), (mc, sc, lc) = out["cuda"], out["cpu"]
+    for k, v in lc.items():
+        assert abs(lg[k] - v) <= 1e-4 * abs(v), (k, lg[k], v)
+    sd_g, sd_c, start = mg.state_dict(), mc.state_dict(), base.state_dict()
+    for name, ref in sc.ema_params.items():
+        move = (sd_c[name] - start[name]).abs().max()
+        for a, b in ((sd_g[name], sd_c[name]), (sg.ema_params[name], ref)):
+            assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max() + 1e-2 * move + 1e-7, name
+    for name, owner, attr in (("yolo-master-v0_13-n", "routing", "expert_dropout"),
+                              ("yolo-master-v0_15-n", "cross_gate", "drop_prob")):
+        draws = {}
+        for where in (torch.device("cpu"), dev):
+            blocks = [m for m in DetectionModel(name).modules() if isinstance(m, AdaptiveGateMoE)]
+            for m in blocks:
+                setattr(getattr(m, owner), attr, 0.5)
+                m.step = 3
+            draws[where.type] = [torch.cat(m.draws(2, where), 1) for m in blocks]
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(draws["cuda"], draws["cpu"])), name
+
+
 def _gated_routing(picks=None, seen=None):
     """Patches for nn/moe/gated.py: record each gated block's (top-k indices,
     kept count) in forward order into ``seen``, or route by ``picks`` (a list

@@ -193,6 +193,23 @@ def test_backend_switch_and_parameter_names_follow_the_reference():
 
 
 def test_a_gated_block_refuses_training():
-    m = tg.VisualEnhancedAdaptiveGateMoE(C, C, 4, 2).train()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1.C item 7"):
-        m(torch.zeros(1, C, 8, 8))
+    """Kept under its name from when training raised: a block in train mode now
+    trains, and its train-mode forward at step 0 (its output and its aux loss)
+    matches JAX's within 1e-5 on these weights (tests/test_torch_gated_train.py
+    holds every block, the gradients and the draws)."""
+    import copy
+
+    jm, p, tm, _ = module_pair("VisualEnhancedAdaptiveGateMoE-E4")
+    m = copy.deepcopy(tm).train()
+    m.jax_path, m.routing.jax_path = "m", "m.routing"
+    x = np.random.default_rng(7).standard_normal((2, 8, 8, C)).astype(np.float32)
+
+    def ref(p, x):
+        ctx = Context(training=True, step=0)
+        return jm(p, x, ctx), ctx.total_aux()
+
+    y, aux = jax.jit(ref)(p, jnp.asarray(x))
+    with torch.no_grad():
+        out = m(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert np.abs(out - np.asarray(y)).max() <= TOL
+    assert abs(float(m.aux_record.value) - float(aux)) <= TOL

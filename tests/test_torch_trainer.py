@@ -347,10 +347,17 @@ def test_refusals_name_their_roadmap_items(synth_dataset, tmp_path):  # noqa: F8
     cfg["backbone"][5][3] = [*cfg["backbone"][5][3][:3], "ghost"]  # an expert type not ported yet
     with pytest.raises(NotImplementedError, match=r"§1\.F item 14"):
         YOLO(cfg, device="cpu").train(data=synth_dataset, amp=False, workers=0, save_dir=str(tmp_path))
+    # diagnose_model reports what JAX's reports on the same weights
+    from yolo_master_tpu.nn.moe.analysis import diagnose_model as jax_diagnose_model
     from yolo_master_tpu_torch.nn.moe.analysis import diagnose_model
 
-    with pytest.raises(NotImplementedError, match=r"§1\.D item 12"):
-        diagnose_model(y.model, None, [])
+    batches = [{"images": np.random.default_rng(2).random((2, 64, 64, 3), np.float32)}]
+    jm = JaxDetectionModel(CFG_MOE)
+    params = import_state_dict(jax.eval_shape(jm.init, jax.random.PRNGKey(0)), y.model.state_dict(), strict=True)
+    rep, ref = diagnose_model(y.model, batches), jax_diagnose_model(jm, params, batches)
+    assert list(rep["blocks"]) == list(ref["blocks"]) == ["layers.2"]
+    np.testing.assert_allclose(rep["blocks"]["layers.2"]["usage"], ref["blocks"]["layers.2"]["usage"], rtol=0, atol=1e-6)
+    assert [c["block"] for c in rep["collapsed"]] == [c["block"] for c in ref["collapsed"]]
 
 
 def test_moe_stats_under_accumulation_are_the_micro_batch_mean():

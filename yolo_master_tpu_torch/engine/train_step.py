@@ -35,11 +35,13 @@ What follows the JAX package exactly, where PyTorch's own tools differ:
     the forward and the backward in bf16, the loss in fp32 and no loss scaling
     (bf16 has fp32's range), the finite guard on the fp32 loss.
 
-Routed blocks (yolo-master-v0_1's OptimizedMOEImproved) train at
-``state.step``, which every micro-batch of the step reads, as JAX's
-``step_idx``: their router noise, progressive sparsity and expert dropout
-are JAX's draws for that step (``nn/moe/mixtures.py``). Refused: fused
-models, Muon / MuSGD.
+Routed blocks (yolo-master-v0_1's OptimizedMOEImproved, the AdaptiveGate
+family of v0_4-v0_15) train at ``state.step``, which every micro-batch of
+the step reads, as JAX's ``step_idx``: their router noise, progressive
+sparsity, expert dropout, temperature anneal and drop-path are JAX's for
+that step (``nn/moe/mixtures.py``, ``nn/moe/gated.py``); each micro-batch's
+complexity gate averages over that micro-batch, as each JAX micro-step does.
+Refused: fused models, Muon / MuSGD.
 """
 
 from __future__ import annotations
@@ -68,9 +70,13 @@ def _is_router(name: str) -> bool:
     return "router" in low or "routing" in low
 
 
+def _leaf(name: str) -> str:
+    return name.rsplit(".", 1)[-1]
+
+
 def weight_decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
-    """Decay only conv and linear weights (``weight`` with ndim >= 2): :func:`make_optimizer`'s mask."""
-    return {n: n.endswith("weight") and p.ndim >= 2 for n, p in model.named_parameters()}
+    """Decay only conv and linear weights (a ``weight`` with ndim >= 2): :func:`make_optimizer`'s mask."""
+    return {n: _leaf(n) == "weight" and p.ndim >= 2 for n, p in model.named_parameters()}
 
 
 def param_group_labels(model: torch.nn.Module) -> Dict[str, str]:
@@ -80,18 +86,21 @@ def param_group_labels(model: torch.nn.Module) -> Dict[str, str]:
       (decayed, lr x ``router_lr_scale``);
     * ``decay``: weights with ndim >= 2 (conv kernels);
     * ``bias``: conv and BatchNorm biases (no decay, their own warmup lr);
-    * ``other``: the rest, BatchNorm scales (no decay).
+    * ``other``: the rest, BatchNorm scales (no decay), and the parameters
+      the gated blocks hold themselves (scalars, ``expert_prior``,
+      ``expert_norm_weight`` / ``expert_norm_bias``: JAX labels by the leaf's
+      name, and theirs are neither ``w`` nor ``b``).
 
     The JAX tree's ``w`` / ``b`` / ``scale`` leaves are the port's ``weight`` /
-    ``bias`` / BatchNorm ``weight``.
+    ``bias`` / BatchNorm ``weight``: the group is read from the name's last part.
     """
     labels = {}
     for name, p in model.named_parameters():
         if _is_router(name):
             labels[name] = "router"
-        elif name.endswith("weight") and p.ndim >= 2:
+        elif _leaf(name) == "weight" and p.ndim >= 2:
             labels[name] = "decay"
-        elif name.endswith("bias"):
+        elif _leaf(name) == "bias":
             labels[name] = "bias"
         else:
             labels[name] = "other"
@@ -364,9 +373,7 @@ def ema_blend(ema_params: Dict[str, torch.Tensor], model: torch.nn.Module, d: fl
 def _check_trainable(model: torch.nn.Module) -> None:
     from ..nn.layers import FusedStem
     from ..nn.moe import FusedESMOE
-    from ..nn.moe.gated import refuse_training
 
-    refuse_training(model)
     for m in model.modules():
         if isinstance(m, (FusedStem, FusedESMOE)):
             raise ValueError("a fused (deploy) model cannot be trained: train the unfused model")
@@ -393,8 +400,8 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
     With ``return_stats`` also ``moe_stats``: for each routed block, by its
     JAX path (:func:`moe_stats_path`), ``expert_usage`` [E] (the batch-mean
     routing weights, or probabilities) and ``balance_loss`` (ES_MOE) or
-    ``aux_loss`` (OptimizedMOEImproved), means over the micro-batches as the
-    JAX step's.
+    ``aux_loss`` (OptimizedMOEImproved; the gated blocks publish the usage
+    alone), means over the micro-batches as the JAX step's.
     """
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
@@ -439,6 +446,8 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
             if return_stats:  # summed over the micro-batches in order, then / accumulate: the JAX step's tree_map
                 for name, rec in aux.items():
                     for k, v in (("expert_usage", rec.usage), (rec.stat, rec.value.detach())):
+                        if k is None:
+                            continue
                         key = (moe_stats_path(name), k)
                         stats[key] = stats[key] + v if key in stats else v
         if accumulate > 1:

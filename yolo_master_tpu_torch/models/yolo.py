@@ -1,7 +1,7 @@
 """YOLO facade (counterpart of ``yolo_master_tpu/models/yolo.py``): detection only.
 
     YOLO("yolo-master-n").fuse().predict(images)   # fuse(pallas_stem=True), the JAX README's form, too
-    YOLO("yolo-master-v0_10-n").fuse().predict(images)   # the released EsMoE graph (v0_4-v0_15: eval only)
+    YOLO("yolo-master-v0_10-n").fuse().predict(images)   # the released EsMoE graph (any of v0_4-v0_15)
     YOLO("yolo-master-n").fuse().val(data="data.yaml", imgsz=640, batch=16)
     YOLO("yolo-master-n").train(data="data.yaml", epochs=100, batch=16, imgsz=640)
     YOLO("runs/train/best.npz").fuse().predict(images)
@@ -134,11 +134,9 @@ class YOLO:
         ``runs/multitrain``), left as it was, and ``{run name: metrics}`` is
         returned."""
         from ..engine.trainer import DetectionTrainer, MultiTrainer
-        from ..nn.moe.gated import refuse_training
 
         if self.task != "detect":
             raise NotImplementedError(f"training task '{self.task}' is not ported yet: {TASK_ITEM}")
-        refuse_training(self.model)  # the gated family (v0_4-v0_15) runs in eval only
         data = kwargs.get("data")
         if isinstance(data, (list, tuple)):
             kwargs = dict(kwargs)

@@ -9,7 +9,7 @@ allowed to poison the step.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, NamedTuple, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -20,11 +20,12 @@ DEFAULT_EMA_DECAY = 0.9
 class AuxRecord(NamedTuple):
     """One block's aux loss of a train-mode forward: the value (with its graph),
     its family, the block's expert usage (detached), and the name the JAX
-    block gives the value in its routing stats."""
+    block gives the value in its routing stats (None where it publishes only
+    the usage, as the gated blocks do)."""
     value: torch.Tensor
     family: str
     usage: torch.Tensor
-    stat: str = "balance_loss"
+    stat: Optional[str] = "balance_loss"
 
 
 def family_sums(aux: Mapping, device=None) -> torch.Tensor:

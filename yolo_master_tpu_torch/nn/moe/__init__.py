@@ -1,6 +1,8 @@
 """MoE blocks of the ported graphs: ES_MOE (dense and sparse eval, and its fused
 deploy form), OptimizedMOEImproved / ModularRouterExpertMoE (sparse and
-dense eval, and training) and the AdaptiveGate family (``gated.py``, eval)."""
+dense eval, and training) and the AdaptiveGate family (``gated.py``, eval and
+training); the MoE tools: ``pruning.py``, ``quantize.py`` and
+``analysis.py``."""
 
 from .es_moe import ES_MOE, FusedESMOE
 from .experts import DepthwiseSeparableConv, EfficientExpertGroup

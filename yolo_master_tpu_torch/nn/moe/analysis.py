@@ -4,9 +4,8 @@ usage tracking, collapse detection, routing history and its HTML dashboard
 utils/routing_interpreter.py). numpy only.
 
 All consumers read the train step's ``moe_stats`` (block path ->
-{"expert_usage": [E], ...}, ``engine/train_step.py``). ``diagnose_model``
-needs the usage collection of ``nn/moe/pruning.py``, which is not ported yet
-(ROADMAP.md §1.D item 12).
+{"expert_usage": [E], ...}, ``engine/train_step.py``); ``diagnose_model``
+reads the usage of ``nn/moe/pruning.py:collect_usage_stats``'s pass.
 """
 
 from __future__ import annotations
@@ -102,11 +101,23 @@ class RoutingHistory:
         return str(csv_path)
 
 
-def diagnose_model(model, params, batches, max_batches: int = 8) -> dict:
-    """One-call MoE health report (reference analysis.py:432 diagnose_model):
-    needs ``nn/moe/pruning.py``'s usage collection, not ported yet."""
-    raise NotImplementedError("diagnose_model needs nn/moe/pruning.py, which is not ported yet: "
-                              "ROADMAP.md §1.D item 12 (MoE tools)")
+def diagnose_model(model, batches, max_batches: int = 8) -> dict:
+    """One-call MoE health report (reference analysis.py:432 diagnose_model): each
+    MoE block's usage over ``batches`` (train-mode forwards at step 0, the model
+    left as it was), its Gini and share summary, and the blocks whose routing
+    collapsed. The JAX function's ``params`` argument has no counterpart: the
+    model holds its weights."""
+    from .pruning import collect_usage_stats
+
+    usage = collect_usage_stats(model, batches, max_batches)
+    tracker = ExpertUsageTracker()
+    tracker.totals = {k: np.asarray(v) for k, v in usage.items()}
+    tracker.counts = {k: 1 for k in usage}
+    collapse = RoutingCollapseDetector().check(usage)
+    report = {"blocks": tracker.summary(), "collapsed": collapse}
+    if collapse:
+        LOGGER.warning(f"routing collapse detected in {len(collapse)} blocks")
+    return report
 
 
 def render_dashboard(history: "RoutingHistory | str", out_path: str | None = None) -> str:

@@ -57,6 +57,7 @@ class ES_MOE(nn.Module):  # noqa: N801 - the graph YAMLs' module name
         if max_kernel_size % 2 == 0:
             max_kernel_size -= 1
         out_channels = out_channels or in_channels
+        self.in_channels, self.out_channels, self.max_kernel_size = in_channels, out_channels, max_kernel_size
         self.num_experts = num_experts
         self.top_k = top_k
         self.use_sparse_inference = use_sparse_inference

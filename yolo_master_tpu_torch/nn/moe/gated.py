@@ -1,5 +1,5 @@
-"""The AdaptiveGate MoE family, v0_4 to v0_15, in eval (counterpart of
-``yolo_master_tpu/nn/moe/gated.py``). VisualEnhancedAdaptiveGateMoE is the
+"""The AdaptiveGate MoE family, v0_4 to v0_15, in eval and in training
+(counterpart of ``yolo_master_tpu/nn/moe/gated.py``). VisualEnhancedAdaptiveGateMoE is the
 block of the released EsMoE checkpoints (yolo-master-v0_10).
 
 One block, :class:`AdaptiveGateMoE`, and its hooks carry the family:
@@ -40,24 +40,54 @@ parameter-free modules hold the reference's ``nn.Sequential`` slots
 as a parameter and no forward reads, is left out, as the JAX importer leaves
 it over.
 
-Only eval is ported: a block in training mode raises, naming the ROADMAP item
-that brings the training (the temperature anneal, the aux loss, the routers'
-noise and soft expert dropout, v0_15's drop-path). ``calibrate_bn`` runs the
-eval forward with its BatchNorms on batch statistics (``calibrating``).
+Training follows the JAX blocks at the optimizer step ``step``
+(``DetectionModel.forward_train`` sets it on every block and router) and the
+JAX module paths ``jax_path`` (``layers.5`` for the block at ``model.5``,
+``layers.5.routing`` for its router), which key the draws as JAX's
+``_path_key`` does (``nn/moe/mixtures.py:path_key``):
+
+  * the router's temperature cosine-anneals from ``initial_temperature`` to
+    ``final_temperature`` over ``anneal_steps`` (2000), floored at 0.1 (eval:
+    ``final_temperature``);
+  * V2 and V3 routers add ``normal(path_key(router, step), [B, E]) * noise_std
+    * clip(1 - step / 1000, 0, 1)`` to their logits after the prior, before
+    the +-30 clip;
+  * V3's soft expert dropout: ``k1, k2 = split(path_key(router, step + 1))``;
+    where ``uniform(k1, [B, 1]) < expert_dropout``, the top-k slot
+    ``randint(k2, [B, 1], 0, top_k)`` keeps half its weight, before the
+    weights are renormalised;
+  * v0_15's drop-path: where ``uniform(path_key(block, step + 2), [B, 1, 1, 1])
+    < drop_prob`` the projection branch is 0, elsewhere scaled by 1 / (1 -
+    drop_prob), after ``bn`` and before the residual add;
+  * the aux loss (``moe_aux_loss`` on the router's probabilities and logits,
+    the top-k picks counted before the complexity gate zeroes any, with the
+    entropy term), published as ``aux_record`` with the usage mean(probs).
+
+The draws are made on the host (``utils/jax_random.py``, JAX's threefry bit
+for bit) once per step and batch size, and reach the block's device in one
+copy; every micro-batch of a step draws the same, as in JAX.
+``calibrate_bn`` runs the eval forward with its BatchNorms on batch
+statistics (``calibrating``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...utils import jax_random
 from ..layers import (BN_EPS, BN_MOMENTUM, BatchNorm2d, GlobalAvgPool, GroupNorm, LayerNorm, Linear, PlainConv,
                       avg_pool, get_safe_groups, upsample_nearest)
+from ..mixture_loss import AuxRecord
+from .losses import moe_aux_loss
+from .mixtures import path_key
 
 LOGIT_CLAMP = 30.0
-TRAINING_ITEM = ("ROADMAP.md §1.C item 7 (the gated family's training: the temperature anneal, the aux loss, "
-                 "the routers' noise and expert dropout, v0_15's drop-path)")
+NOISE_DECAY_STEPS = 1000  # the V2/V3 router noise decays linearly to 0 over these steps
 
 
 def topk_renorm(probs: torch.Tensor, k: int):
@@ -84,6 +114,24 @@ def _scalar(value: float) -> nn.Parameter:
     return nn.Parameter(torch.tensor(float(value)))
 
 
+def noise_decay(step: int) -> np.float32:
+    """clip(1 - step / 1000, 0, 1) in float32, as JAX's compiled step computes it:
+    step times the float32 reciprocal of 1000, the multiply-subtract fused."""
+    f32 = np.float32
+    d = jax_random.fma32(-f32(step), f32(1) / f32(NOISE_DECAY_STEPS), f32(1))
+    return f32(np.clip(d, f32(0), f32(1)))
+
+
+def anneal_temperature(step: int, initial: float, final: float, anneal_steps: int) -> float:
+    """The cosine anneal ``max(final + (initial - final) * (1 + cos(pi * clip(step /
+    anneal_steps, 0, 1))) / 2, 0.1)`` in float32 (XLA's cos may differ from this
+    one by an ulp; the picks do not depend on the temperature)."""
+    f32 = np.float32
+    progress = np.clip(f32(step) * (f32(1) / f32(anneal_steps)), f32(0), f32(1))
+    cos_val = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * progress))
+    return float(np.maximum(f32(final) + (f32(initial) - f32(final)) * cos_val, f32(0.1)))
+
+
 # ---------------------------------------------------------------------------
 # Routers
 # ---------------------------------------------------------------------------
@@ -105,9 +153,13 @@ class ZeroCostRouter(nn.Module):
     def logits(self, x):
         return torch.softmax(self.router(_channel_stats(x)).float(), -1)
 
-    def forward(self, x, temperature=None):
+    def forward(self, x, temperature=None, draws=None):
+        """Eval: (w, idx). With ``draws`` (training; this router draws nothing)
+        also the probabilities and the logits the aux loss reads."""
         logits = (self.logits(x) / (temperature or self.temperature)).clamp(-LOGIT_CLAMP, LOGIT_CLAMP)
-        return topk_renorm(torch.softmax(logits, -1), self.top_k)
+        probs = torch.softmax(logits, -1)
+        w, idx = topk_renorm(probs, self.top_k)
+        return (w, idx) if draws is None else (w, idx, probs, logits)
 
 
 class UltraLightRouter(ZeroCostRouter):
@@ -132,28 +184,47 @@ class DualStreamGateRouter(nn.Module):
             PlainConv(in_channels, reduced, 1), GroupNorm(reduced, 4), nn.SiLU(),
             PlainConv(reduced, num_experts, 1, bias=True))
         self.alpha = _scalar(0.5)
+        self.step = 0  # the optimizer step of a train-mode forward (DetectionModel.forward_train sets it)
+        self.jax_path = ""  # the JAX module path keying the draws (DetectionModel sets it)
 
     def seeded_init(self, generator):
         self.global_fc.weight.normal_(0.0, 0.05, generator=generator)
+
+    def host_draws(self, batch: int) -> np.ndarray:
+        """This step's draws of the router, [batch, columns] float32 on the host (none here);
+        the block copies them to its device and passes them as ``draws``."""
+        return np.zeros((batch, 0), np.float32)
 
     def _local_logits(self, x):
         if x.shape[2] > self.pool_scale and x.shape[3] > self.pool_scale:
             x = avg_pool(x, self.pool_scale)
         return self.local_conv(x).float().mean((2, 3))
 
-    def fused_logits(self, x):
+    def fused_logits(self, x, draws=None):
         alpha = torch.sigmoid(self.alpha)
         g = self.global_fc(_channel_stats(x))
         return (alpha * g + (1 - alpha) * self._local_logits(x)).clamp(-LOGIT_CLAMP, LOGIT_CLAMP)
 
-    def forward(self, x, temperature=None):
+    def _train_topk(self, probs, draws):
+        return topk_renorm(probs, self.top_k)
+
+    def forward(self, x, temperature=None, draws=None):
+        """Eval: (w, idx). With ``draws`` (training: the columns of :meth:`host_draws`
+        on x's device) the logits take the router's noise and the weights its
+        dropout, and (w, idx, probs, logits) are returned, the logits those the
+        aux loss reads (before the temperature)."""
         t = temperature if temperature is not None else self.temperature
-        return topk_renorm(torch.softmax(self.fused_logits(x) / t, -1), self.top_k)
+        if draws is None:
+            return topk_renorm(torch.softmax(self.fused_logits(x) / t, -1), self.top_k)
+        logits = self.fused_logits(x, draws)
+        probs = torch.softmax(logits / t, -1)
+        w, idx = self._train_topk(probs, draws)
+        return w, idx, probs, logits
 
 
 class DualStreamGateRouterV2(DualStreamGateRouter):
     """v0_11's router: LayerNorm on the statistics and a learned per-expert
-    prior. Its decaying train-time noise is not ported (eval only)."""
+    prior; in training, the decaying noise (module docstring)."""
 
     def __init__(self, in_channels, num_experts, top_k, temperature=1.0, local_reduction=16, pool_scale=4,
                  noise_std=0.1):
@@ -162,19 +233,31 @@ class DualStreamGateRouterV2(DualStreamGateRouter):
         self.noise_std_init = noise_std
         self.expert_prior = nn.Parameter(torch.zeros(num_experts))
 
-    def fused_logits(self, x):
+    def host_draws(self, batch: int) -> np.ndarray:
+        """The noise [batch, E], already scaled: normal(path_key(jax_path, step)) * noise_std * decay."""
+        if self.noise_std_init <= 0:
+            return np.zeros((batch, 0), np.float32)
+        return jax_random.normal_scaled(path_key(self.jax_path, self.step), (batch, self.num_experts),
+                                        self.noise_std_init, noise_decay(self.step))
+
+    def _noisy(self, logits, draws):
+        if draws is not None and self.noise_std_init > 0:
+            logits = logits + draws[:, :self.num_experts]
+        return logits.clamp(-LOGIT_CLAMP, LOGIT_CLAMP)
+
+    def fused_logits(self, x, draws=None):
         alpha = torch.sigmoid(self.alpha)
         g = self.global_fc(self.stat_norm(_channel_stats(x)))
         logits = alpha * g + (1 - alpha) * self._local_logits(x) + self.expert_prior[None]
-        return logits.clamp(-LOGIT_CLAMP, LOGIT_CLAMP)
+        return self._noisy(logits, draws)
 
 
 class MultiHeadRouterV3(DualStreamGateRouterV2):
     """v0_13's router: the normalised statistics split into ``num_heads``
     slices, each with its own projection, mixed by sigmoid(head_alpha)
     (normalised) around a full-statistics projection ``global_proj`` weighted by
-    sigmoid(global_weight), then V2's local stream and prior. Its soft expert
-    dropout is train-only and not ported."""
+    sigmoid(global_weight), then V2's local stream and prior; in training,
+    V2's noise and the soft expert dropout (module docstring)."""
 
     def __init__(self, in_channels, num_experts, top_k, temperature=1.0, local_reduction=16, pool_scale=4,
                  noise_std=0.1, num_heads=4, expert_dropout=0.1):
@@ -194,7 +277,31 @@ class MultiHeadRouterV3(DualStreamGateRouterV2):
             h.weight.normal_(0.0, 0.02, generator=generator)
         self.global_proj.weight.normal_(0.0, 0.02, generator=generator)
 
-    def fused_logits(self, x):
+    def dropout_draws(self, batch: int):
+        """(drop [batch, 1] bool, slot [batch, 1] int32) of the soft expert dropout at this step."""
+        k1, k2 = jax_random.split(path_key(self.jax_path, self.step + 1))
+        drop = jax_random.uniform(k1, (batch, 1)) < np.float32(self.expert_dropout)
+        return drop, jax_random.randint(k2, (batch, 1), 0, self.top_k)
+
+    def _drops(self) -> bool:
+        return self.expert_dropout > 0 and self.top_k > 1
+
+    def host_draws(self, batch: int) -> np.ndarray:
+        """V2's noise columns, then the dropout's factor on each top-k slot [batch, k]: 0.5 on the dropped slot."""
+        cols = [super().host_draws(batch)]
+        if self._drops():
+            drop, slot = self.dropout_draws(batch)
+            cols.append(np.where(drop & (np.arange(self.top_k)[None] == slot), np.float32(0.5), np.float32(1)))
+        return np.concatenate(cols, 1).astype(np.float32)
+
+    def _train_topk(self, probs, draws):
+        _, idx = topk_renorm(probs, self.top_k)  # the picks; JAX's weights are the raw top-k probabilities
+        w = probs.gather(1, idx)
+        if self._drops():
+            w = w * draws[:, -self.top_k:]
+        return w / (w.sum(-1, keepdim=True) + 1e-6), idx
+
+    def fused_logits(self, x, draws=None):
         stats = self.stat_norm(_channel_stats(x))
         hw = torch.sigmoid(self.head_alpha)
         hw = hw / (hw.sum() + 1e-6)
@@ -207,7 +314,7 @@ class MultiHeadRouterV3(DualStreamGateRouterV2):
             logits = logits + (1 - gw) * hw[i] * h(chunks[:, i])
         alpha = torch.sigmoid(self.alpha)
         logits = alpha * logits + (1 - alpha) * self._local_logits(x) + self.expert_prior[None]
-        return logits.clamp(-LOGIT_CLAMP, LOGIT_CLAMP)
+        return self._noisy(logits, draws)
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +528,7 @@ class AdaptiveGateMoE(nn.Module):
     ``_post_mix`` and ``_pre_residual``."""
 
     router_cls = DualStreamGateRouter
+    anneal_steps = 2000
 
     def __init__(self, in_channels, out_channels, num_experts=4, top_k=2, split_ratio=0.5, num_groups=8,
                  initial_temperature=1.0, final_temperature=0.5, balance_loss_coeff=1.0, router_z_loss_coeff=1.0,
@@ -439,6 +547,10 @@ class AdaptiveGateMoE(nn.Module):
         self.shuffle_groups = 1
         self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval forward, BN on batch statistics
         self.detail_gate = None
+        self.jax_path = ""  # the JAX module path keying the draws (DetectionModel sets it)
+        self.step = 0  # the optimizer step of a train-mode forward (DetectionModel.forward_train sets it)
+        self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
+        self._draws: Optional[tuple] = None  # (key, this step's draws on the device): draws()
 
         se_hidden = max(in_channels // 4, 4)
         self.se_gate = nn.Sequential(GlobalAvgPool(fp32=True), nn.Flatten(), Linear(in_channels, se_hidden, bias=False),
@@ -454,6 +566,37 @@ class AdaptiveGateMoE(nn.Module):
         self.complexity_estimator = nn.Sequential(GlobalAvgPool(), PlainConv(self.dynamic_channels, 1, 1, bias=True))
         self.proj = PlainConv(out_channels, out_channels, 1)
         self.bn = GroupNorm(out_channels, num_groups)
+
+    def temperature(self) -> float:
+        """The router's temperature in training at ``self.step`` (module docstring)."""
+        return anneal_temperature(self.step, self.initial_temperature, self.final_temperature, self.anneal_steps)
+
+    def host_draws(self, batch: int) -> np.ndarray:
+        """This step's draws of the block itself, [batch, columns] float32 (none here)."""
+        return np.zeros((batch, 0), np.float32)
+
+    def draws(self, batch: int, device):
+        """(the router's draws, the block's own) of this step, made on the host and
+        copied to ``device`` in one copy, once per step and batch size (and anew
+        after a change to a setting they depend on)."""
+        r = self.routing
+        key = (self.step, batch, str(device), self.jax_path, r.jax_path,
+               getattr(r, "noise_std_init", 0.0), getattr(r, "expert_dropout", 0.0), r.top_k,
+               getattr(getattr(self, "cross_gate", None), "drop_prob", 0.0))
+        if self._draws is None or self._draws[0] != key:
+            r.step = self.step
+            router = r.host_draws(batch)
+            host = np.concatenate([router, self.host_draws(batch)], 1)
+            t = torch.from_numpy(np.ascontiguousarray(host, np.float32)).to(device)
+            self._draws = (key, (t[:, :router.shape[1]], t[:, router.shape[1]:]))
+        return self._draws[1]
+
+    def _publish_aux(self, probs, logits, idx):
+        """The aux loss of this forward, the top-k picks counted before the complexity gate."""
+        keep = torch.zeros_like(probs, dtype=torch.bool).scatter_(1, idx, True)
+        aux = moe_aux_loss(probs, logits, keep, self.num_experts, balance_coeff=self.balance_loss_coeff,
+                           z_coeff=self.router_z_loss_coeff, entropy_coeff=self.entropy_loss_coeff)
+        self.aux_record = AuxRecord(aux, "moe", probs.mean(0).detach(), None)
 
     def _se_split(self, x):
         gate = torch.sigmoid(self.se_gate(x)).to(x.dtype)[:, :, None, None]
@@ -486,22 +629,28 @@ class AdaptiveGateMoE(nn.Module):
     def _post_mix(self, out):
         return out
 
-    def _pre_residual(self, out):
+    def _pre_residual(self, out, own_draws=None):
         return out
 
     def forward(self, x):
-        if self.training and not self.calibrating:
-            raise NotImplementedError(f"{type(self).__name__} in training is not ported yet: {TRAINING_ITEM}")
+        train = self.training and not self.calibrating
+        router_draws, own_draws = self.draws(x.shape[0], x.device) if train else (None, None)
         xs, xd = self._se_split(x)
         if self.detail_gate is not None:
             xd = self.detail_gate(xd)
         out_static = self.static_net(xs)
         complexity = self._complexity(xd)
-        w, idx = self.routing(xd, temperature=self.final_temperature)
+        if train:
+            w, idx, probs, logits = self.routing(xd, temperature=self.temperature(), draws=router_draws)
+        else:
+            w, idx = self.routing(xd, temperature=self.final_temperature)
         w = self._complexity_gate(w, complexity)
         out_dynamic = self.fused_experts(xd, w, idx)
         out = self._post_mix(self._channel_shuffle(self._fuse_paths(out_static, out_dynamic)))
-        return self._pre_residual(self.bn(self.proj(out))) + x
+        out = self._pre_residual(self.bn(self.proj(out)), own_draws) + x
+        if train:
+            self._publish_aux(probs, logits, idx)
+        return out
 
 
 class FusedAdaptiveGateMoE(AdaptiveGateMoE):
@@ -659,8 +808,8 @@ class DiversifiedExpertMoE(OptimalHybridGateMoE):
 
 
 class GatedFusionMoE(OptimalHybridGateMoE):
-    """v0_15: v0_12 with the CrossPathGate fusion in place of the concat. Its
-    drop-path on the projection residual is train-only (not ported)."""
+    """v0_15: v0_12 with the CrossPathGate fusion in place of the concat; in
+    training, the drop-path on the projection branch (module docstring)."""
 
     def __init__(self, in_channels, out_channels, num_experts=4, top_k=2, split_ratio=0.5, num_groups=8,
                  initial_temperature=1.2, final_temperature=0.5, balance_loss_coeff=1.0, router_z_loss_coeff=1.0,
@@ -674,17 +823,27 @@ class GatedFusionMoE(OptimalHybridGateMoE):
     def _fuse_paths(self, out_static, out_dynamic):
         return self.cross_gate(out_static, out_dynamic)
 
+    def drop_path_scale(self, batch: int) -> np.ndarray:
+        """[batch] float32: 0 where uniform(path_key(jax_path, step + 2), [batch, 1, 1, 1])
+        < drop_prob, else float32(1 / (1 - drop_prob))."""
+        dp = self.cross_gate.drop_prob
+        u = jax_random.uniform(path_key(self.jax_path, self.step + 2), (batch, 1, 1, 1)).reshape(batch)
+        drop = u < np.float32(dp)
+        return np.where(drop, np.float32(0), np.float32(1.0 / (1.0 - dp)))
+
+    def host_draws(self, batch: int) -> np.ndarray:
+        if self.cross_gate.drop_prob <= 0:
+            return np.zeros((batch, 0), np.float32)
+        return self.drop_path_scale(batch)[:, None]
+
+    def _pre_residual(self, out, own_draws=None):
+        if own_draws is None or self.cross_gate.drop_prob <= 0:
+            return out
+        return out * own_draws[:, 0, None, None, None].to(out.dtype)
+
 
 GATED_BLOCKS = {c.__name__: c for c in (
     AdaptiveGateMoE, FusedAdaptiveGateMoE, HybridAdaptiveGateMoE, HybridAdaptiveGateMoEv2,
     LowRankHybridAdaptiveGateMoE, RefinedLowRankHybridAdaptiveGateMoE, ContextRefinedLowRankHybridAdaptiveGateMoE,
     VisualEnhancedAdaptiveGateMoE, DetailAwareLowRankHybridAdaptiveGateMoE, OptimalHybridGateMoE,
     MultiHeadRouterMoE, DiversifiedExpertMoE, GatedFusionMoE)}
-
-
-def refuse_training(model) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, if ``model`` holds a gated block."""
-    for m in model.modules():
-        if isinstance(m, AdaptiveGateMoE):
-            raise NotImplementedError(f"training a model with {type(m).__name__} blocks is not ported yet: "
-                                      f"{TRAINING_ITEM}")

@@ -243,10 +243,12 @@ class DetectionModel(nn.Module):
         return self.head.decode(self.forward(x_nhwc))
 
     def forward_train(self, x_nhwc: torch.Tensor, step: int = 0) -> Tuple[dict, Dict[str, AuxRecord]]:
-        """Train-mode forward at optimizer step ``step`` (the routed blocks'
-        draws, progressive sparsity and expert dropout read it, as the JAX
-        ``Context.step``): (the head's training dict, the aux records of the
-        blocks that publish one, keyed by module path in forward order). The
+        """Train-mode forward at optimizer step ``step``, set on every module that
+        reads it (the routed blocks' draws, progressive sparsity and expert
+        dropout; the gated blocks' and their routers' temperature, noise,
+        expert dropout and drop-path), as the JAX ``Context.step``): (the
+        head's training dict, the aux records of the blocks that publish one,
+        keyed by module path in forward order). The
         caller puts the model in train mode (BatchNorm on batch statistics).
         bf16 images run the fp32 parameters in bf16 through each op's cast, as
         JAX's ``forward_train`` on ``images.astype(compute_dtype)``; the head's
@@ -256,6 +258,7 @@ class DetectionModel(nn.Module):
         publishers = [(name, m) for name, m in self.named_modules() if hasattr(m, "aux_record")]
         for _, m in publishers:
             m.aux_record = None
+        for m in self.modules():
             if hasattr(m, "step"):
                 m.step = int(step)
         preds = self.forward(x_nhwc)

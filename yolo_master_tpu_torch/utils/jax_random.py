@@ -5,10 +5,11 @@ port draws what ``jax.random`` draws from the same key.
     key = fold_in(PRNGKey(seed), step)
     normal(key, (B, E))       # jax.random.normal(key, (B, E)), float32
     permutation(fold_in(key, 1), E)
+    randint(key, (B, 1), 0, k)  # jax.random.randint, int32
 
 Keys are ``uint32 [2]`` arrays, as ``jax.random.key_data`` gives them. The
-integer parts (keys, ``fold_in``, ``split``, ``random_bits``, ``uniform`` and
-``permutation``) are bit for bit JAX's. ``normal`` is ``sqrt(2) *
+integer parts (keys, ``fold_in``, ``split``, ``random_bits``, ``uniform``,
+``randint`` and ``permutation``) are bit for bit JAX's. ``normal`` is ``sqrt(2) *
 erfinv(u)`` on JAX's uniform ``u`` in (-1, 1), with the single-precision
 erfinv that XLA's CPU backend emits (Giles' polynomial on ``w =
 -log1p(-u^2)``, with XLA's log1p: Cephes' rational below |x| = sqrt(2) - 1,
@@ -191,6 +192,16 @@ def normal(key: np.ndarray, shape: Union[int, Sequence[int]]) -> np.ndarray:
     return np.float32(np.sqrt(2)) * erfinv(u)
 
 
+def normal_scaled(key: np.ndarray, shape: Union[int, Sequence[int]], const: float, scale=1.0) -> np.ndarray:
+    """``normal(key, shape) * const * scale`` (``const`` a Python float, ``scale`` a
+    float32 scalar) as XLA compiles that product: the constant factors folded
+    into one, ``float32(sqrt(2)) * float32(const)``, times ``scale``, times
+    ``erfinv(u)``. (Rounded in that order, a third of the values differ from
+    ``normal(...) * const * scale`` by an ulp.)"""
+    u = uniform(key, shape, np.nextafter(np.float32(-1), np.float32(0)), 1.0)
+    return erfinv(u) * (np.float32(scale) * (np.float32(np.sqrt(2)) * np.float32(const)))
+
+
 def permutation(key: np.ndarray, n: int) -> np.ndarray:
     """``jax.random.permutation(key, n)`` (int32): ceil(3 ln n / ln(2^32 - 1))
     rounds, each splitting the key and stably sorting by 32 random bits."""
@@ -200,3 +211,24 @@ def permutation(key: np.ndarray, n: int) -> np.ndarray:
         key, sub = split(key)
         x = x[np.argsort(random_bits(sub, n), kind="stable")]
     return x
+
+
+def randint(key: np.ndarray, shape: Union[int, Sequence[int]], minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 bounds: two sets of
+    32 random bits from the key's split, ``higher`` and ``lower``, folded into
+    ``span = maxval - minval`` (1 where maxval <= minval) as ``((higher % span) *
+    m + lower % span) % span`` with ``m = (2^16 % span)^2 % span``, the product
+    and the sum wrapping in uint32, plus minval (int32)."""
+    shape = _shape(shape)
+    lo, hi = int(minval), int(maxval)
+    for v in (lo, hi):
+        if not -2**31 <= v < 2**31:
+            raise OverflowError(f"bound {v} is outside int32's range (JAX without x64)")
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = _U32(1) if hi <= lo else _U32((hi - lo) & _MASK32)
+    multiplier = _U32(2**16) % span
+    with np.errstate(over="ignore"):
+        multiplier = (multiplier * multiplier) % span
+        offset = ((higher % span) * multiplier + lower % span) % span
+    return (np.int64(lo) + offset.astype(np.int64)).astype(np.int32)

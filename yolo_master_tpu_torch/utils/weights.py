@@ -106,8 +106,8 @@ def calibrate_bn(model, x_nhwc: torch.Tensor) -> None:
     routed blocks (OptimizedMOEImproved) route in that pass as in eval (their
     top_k, no router noise, no expert dropout), so that the statistics are
     those the eval graph sees.
-    The gated blocks (AdaptiveGateMoE and its family, whose training is not
-    ported) run their eval forward in that pass.
+    The gated blocks (AdaptiveGateMoE and its family) run their eval forward
+    in that pass (no temperature anneal, noise, expert dropout or drop-path).
     For tests and smoke runs on random weights; trained weights need none of it.
     """
     from ..nn.moe import AdaptiveGateMoE, OptimizedMOEImproved
