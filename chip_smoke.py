@@ -8,8 +8,8 @@ of the split-TF32 header that stem.cu, esmoe.cu, moe.cu and c3k2.cu share and of
 the split-bf16 header of stem.cu's bf16 forms, one nvcc each, in parallel),
 holds each kernel against its plain PyTorch version on the card, and
 drives yolo_master_tpu_torch's paths (predict, val, training, the MoE
-tools) at the full width of yolo-master-n, yolo-master-v0_1-n and
-yolo-master-v0_10-n with seeded random weights. Phases:
+tools) at the full width of yolo-master-n, yolo-master-v0_1-n,
+yolo-master-v0_10-n and yolo26-master-n with seeded random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
   2. build the six kernel sources (c3k2.cu's and stem.cu's bf16 kernel's
@@ -136,6 +136,19 @@ yolo-master-v0_10-n with seeded random weights. Phases:
      MoE tools: diagnose_model and prune_moe_model on yolo-master-n (pruned,
      fused, through predict and against the CPU), v0_10-n's
      quantization_report and its dequantized weights through predict
+ 28. (run after phase 26) yolo26-master-n, the NMS-free end2end generation
+     (A2C2fMoE of 4/8/16 experts at layers 4, 6, 8, SPPF, C2PSA, the attn
+     C3k2, the one2one head at reg_max 1; plain PyTorch but for the stem),
+     phase 9's recipe: fuse().predict(...) at batch 1 and 16 in fp32 and bf16
+     (the stem kernel and its bank, no NMS launch; max_det fixed-shape
+     detections); GPU vs CPU decode at the fixed limits with both programs'
+     routing recorded (the card pinned to the CPU's where a pick differs); the
+     card's bf16 one2one head outputs, pinned to the CPU bf16's routing, within
+     1.5x the CPU bf16's rel-RMS from the CPU fp32; device ms/img of both
+     dtypes beside yolo-master-n's in turns, the busy share and peak memory at
+     bs 16; fuse().val() in fp32 on phase 16's kind of set (no NMS, metrics
+     within 1e-3 of the CPU validator's); a bs-16 fp32 predict of
+     yolo26-master-s and -m
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
@@ -195,6 +208,7 @@ VAL_METRICS = ("precision", "recall", "mAP50", "mAP50-95")
 TRAIN_IMAGES, TRAIN_VAL_IMAGES = 64, 16  # the train loop phase's synthetic set
 V01 = "yolo-master-v0_1-n"
 V10 = "yolo-master-v0_10-n"
+Y26 = "yolo26-master-n"
 V01_STEP_SCHEDULE = (2, 2)  # phase 22's warmup_steps, dropout_interval: steps 2 and 50 drop experts
 V01_LOOP_SCHEDULE = (1, 1)  # phase 23's: the loop's second optimizer step (step 1) drops experts
 RESUME_REL_TOL_BF16 = 1e-4  # the bf16 loop's resumed epoch 2 against the run's: measured 1.6e-8 (PERF.md §7)
@@ -1950,6 +1964,249 @@ def phase_v0_10_path(dev, base_run, imgs):
     return v10, out, state
 
 
+class moe_routing:
+    """Within this context every OptimizedMOEImproved block (nn/moe/mixtures.py)
+    records its [B, E] top-k mask into ``seen``, in forward order, or, given
+    ``picks`` (such a list), routes by them over its own probabilities."""
+
+    def __init__(self, seen=None, picks=None):
+        self.seen, self.picks = seen, picks
+
+    def __enter__(self):
+        from yolo_master_tpu_torch.nn.moe import mixtures as tmix
+
+        self.plain = tmix.process_logits
+        tmix.process_logits = (routing_pinned(self.picks) if self.picks is not None
+                               else routing_recorder(self.plain, self.seen))
+        return self
+
+    def __exit__(self, *exc):
+        from yolo_master_tpu_torch.nn.moe import mixtures as tmix
+
+        tmix.process_logits = self.plain
+
+
+def mask_flips(a, b) -> int:
+    """(sample, block) top-k sets that differ between two recorded [B, E] masks."""
+    return sum(int((x != y).any(1).sum()) for x, y in zip(a, b))
+
+
+def phase_yolo26_path(dev, base_run, imgs):
+    """yolo26-master-n, the NMS-free end2end generation (A2C2fMoE of 4, 8 and 16
+    experts, top-2, at layers 4, 6, 8; SPPF, C2PSA, the attn C3k2 and the
+    one2one head at reg_max 1; plain PyTorch but for the stem kernel), seeded
+    weights with BN calibrated on four frames, as the main path:
+    fuse().predict() at batch 1 and 16 in fp32 and bf16 (the stem kernel and
+    its bank, no NMS launch; max_det fixed-shape detections); GPU vs CPU decode
+    at the fixed limits, fp32, with the routing recorded on both and the
+    card's pinned to the CPU's where a pick flips; the card's bf16 one2one head
+    outputs, pinned to the CPU bf16's routing, within 1.5x the CPU bf16's
+    rel-RMS from the CPU fp32; device ms/img of both dtypes beside
+    yolo-master-n's in turns, the busy share and peak memory at bs 16; val() in
+    fp32 on write_val_set's images (the stem once a batch, no NMS, metrics
+    within VAL_METRIC_TOL of the CPU's); and a bs-16 fp32 predict of
+    yolo26-master-s and -m."""
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved
+    from yolo_master_tpu_torch.utils.fuse import compute_dtype_copy
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    bf16 = torch.bfloat16
+
+    def calibrated(name, where):
+        y = YOLO(name, device=where)
+        x_cal, _ = DetectionPredictor(y.model, imgsz=IMGSZ).preprocess(imgs[:4])
+        calibrate_bn(y.model, x_cal)
+        return y
+
+    y26 = calibrated(Y26, dev)
+    blocks = [m for m in y26.model.modules() if isinstance(m, OptimizedMOEImproved)]
+    require([(m.num_experts, m.top_k) for m in blocks] == [(e, 2) for e in (4, 4, 8, 8, 16, 16)],
+            "yolo26-master-n's MoE blocks (two a layer at 4, 6, 8)")
+    require(y26.model.head.end2end and y26.model.head.reg_max == 1, "yolo26-master-n's end2end head")
+    state = {k: v.detach().clone() for k, v in y26.model.state_dict().items()}
+    cpu = YOLO(Y26, device="cpu").load_state_dict(state)
+    y26.fuse()
+    cpu.fuse()
+    out = {"launches": {}, "e2e": {}, "flips": {}}
+    preds = {}
+    x16 = None
+    for name, dt in (("fp32", torch.float32), ("bf16", bf16)):
+        reset_launches()
+        r1 = y26.predict(imgs[0], batch=1, compute_dtype=dt, **KW)
+        r16 = y26.predict(imgs, batch=16, compute_dtype=dt, **KW)
+        torch.cuda.synchronize()
+        launches = out["launches"][name] = read_launches()
+        log(f"[yolo26] predict {name} bs1 + bs16 launches: {launches}")
+        require(launches["stem"] == 2 and launches["stem_bank"] == 1 and launches["nms"] == 0,
+                f"the yolo26 {name} path: the stem kernel twice, its bank once, and no NMS")
+        require(len(r1) == 1 and len(r16) == 16, "yolo26 result counts")
+        check_detections(r1 + r16)
+        preds[name] = y26._predictor
+        x16 = x16 if x16 is not None else preds[name].preprocess(imgs)[0]
+        with torch.inference_mode():
+            det = preds[name].run(x16)
+        require(tuple(det["boxes"].shape) == (16, KW["max_det"], 4) and bool(det["valid"].all()),
+                f"yolo26 {name}: {KW['max_det']} fixed-shape detections an image")
+    log(f"[yolo26] image 0 top: {np.round(r1[0].boxes.data[0], 2).tolist()}")
+
+    # attention's product with V at layer 4's shape (6,400 keys, two heads of 32): one cuBLAS product
+    # against nn/layers.py:attend's chunked sum, each against fp64, on the card and on the CPU
+    from yolo_master_tpu_torch.nn.layers import attend
+
+    gen = torch.Generator().manual_seed(3)
+    q, k = (torch.randn(2, 6400, 2, 32, generator=gen, dtype=torch.float64) for _ in range(2))
+    v = 8 * torch.rand(2, 6400, 2, 32, generator=gen, dtype=torch.float64)  # values of one sign, as after a SiLU
+    exact = attend(q, k, v, 32 ** -0.5)
+
+    def one_product(q, k, v):
+        a = torch.softmax(torch.einsum("bnhd,bmhd->bhnm", q * 32 ** -0.5, k), -1)
+        return torch.einsum("bhnm,bmhd->bnhd", a, v)
+
+    acc = {f"{name} {where}": (fn(*(t.float().to(where) for t in (q, k, v))).double().cpu() - exact).abs().max().item()
+           for name, fn in (("one product", one_product), ("attend", lambda q, k, v: attend(q, k, v, 32 ** -0.5)))
+           for where in (dev, "cpu")}
+    log("[yolo26] attention at 6,400 keys, max |fp32 - fp64|: " + ", ".join(f"{k} {v:.3e}" for k, v in acc.items()))
+    require(acc[f"attend {dev}"] < acc[f"one product {dev}"], "the chunked product is no closer to fp64 on the card")
+    out["attention_fp32_err"] = acc
+
+    # GPU vs CPU, fp32: the routing of both recorded, the card pinned to the CPU's where one flips
+    x = x16[:BF16_FRAMES]
+    seen_gpu, seen_cpu = [], []
+    cpu64 = copy.deepcopy(cpu.model).double()  # outside inference mode: the expert banks read version counters
+    with torch.inference_mode():
+        with moe_routing(seen=seen_gpu):
+            full_gpu = y26.model.head.decode(y26.model(x[:2]), raw_scores=True).cpu()
+        with moe_routing(seen=seen_cpu):
+            full_cpu = cpu.model.head.decode(cpu.model(x[:2].cpu()), raw_scores=True)
+        with moe_routing(picks=seen_cpu):
+            full_cpu64 = cpu64.head.decode(cpu64(x[:2].cpu()), raw_scores=True)
+        out["flips"]["fp32"] = mask_flips(seen_gpu, seen_cpu)
+        if out["flips"]["fp32"]:
+            with moe_routing(picks=seen_cpu):
+                full_gpu = y26.model.head.decode(y26.model(x[:2]), raw_scores=True).cpu()
+    box_err, logit_err = decode_err(full_gpu, full_cpu)
+    box_noise, logit_noise = decode_err(full_cpu, full_cpu64)
+    log(f"[yolo26] GPU vs CPU decode (xyxy), all {full_gpu.shape[1]} anchors: box max err {box_err:.3e} px, logit "
+        f"max err {logit_err:.3e}; routings that differ between the two fp32 programs: {out['flips']['fp32']} of "
+        f"{2 * len(blocks)} (pinned where they do); CPU fp32 vs fp64 noise: box {box_noise:.3e} px, logit "
+        f"{logit_noise:.3e}; largest |box| {full_cpu[..., :4].abs().max().item():.1f} px")
+    require(box_err <= 5e-2 and logit_err <= 1e-3, "yolo26 GPU and CPU decode disagree beyond 5e-2 px / 1e-3")
+    out["decode_err"] = (box_err, logit_err)
+    out["cpu_fp64_noise"] = (box_noise, logit_noise)
+
+    # bf16: the card's copy pinned to the CPU bf16 copy's routing, against the CPU fp32
+    cpu16 = compute_dtype_copy(cpu.model, bf16)
+    seen16, seen_g16 = [], []
+    with torch.inference_mode():
+        c32 = cpu.model(x.cpu())
+        with moe_routing(seen=seen16):
+            c16 = cpu16(x.cpu())
+        with moe_routing(seen=seen_g16):
+            preds["bf16"].model(x)
+        with moe_routing(picks=seen16):
+            g16 = preds["bf16"].model(x)
+    out["flips"]["bf16"] = mask_flips(seen_g16, seen16)
+    stats = {}
+    for key in ("boxes", "scores"):
+        gpu, own = rel_rms(g16[key].float().cpu(), c32[key]), rel_rms(c16[key].float(), c32[key])
+        stats[key] = (gpu, own)
+        require(bool(torch.isfinite(g16[key]).all()) and 0 < own and gpu <= 1.5 * own,
+                f"yolo26 bf16: GPU {key} rel-RMS {gpu} from CPU fp32, more than 1.5x the CPU bf16's {own}")
+    log(f"[yolo26] bf16, {BF16_FRAMES} frames, the card pinned to the CPU bf16's routing "
+        f"({out['flips']['bf16']} of {BF16_FRAMES * len(blocks)} picks differ unpinned), rel-RMS from the CPU "
+        f"fp32 one2one head outputs: box GPU {stats['boxes'][0]:.4e} (CPU bf16 {stats['boxes'][1]:.4e}), class "
+        f"logits GPU {stats['scores'][0]:.4e} (CPU bf16 {stats['scores'][1]:.4e})")
+    out["bf16_rel_rms"] = stats
+
+    # device ms/img, uint8 batch on the card -> detections: yolo26 fp32 and bf16 beside yolo-master-n, in turns
+    for bs in (1, 16):
+        xb = x16[:bs]
+        runs = {"yolo-master-n": [], "fp32": [], "bf16": []}
+        for name in ("yolo-master-n", "fp32", "bf16", "bf16", "fp32", "yolo-master-n"):
+            run = base_run if name == "yolo-master-n" else preds[name].run
+            runs[name].append(cuda_ms(lambda: run(xb), reps=10, warmup=2) / bs)
+        out["e2e"][bs] = {k: statistics.median(v) for k, v in runs.items()}
+        log(f"[e2e] bs={bs}: device ms/img, yolo-master-n fp32 {[round(t, 4) for t in runs['yolo-master-n']]}, "
+            f"yolo26-master-n fp32 {[round(t, 4) for t in runs['fp32']]}, bf16 {[round(t, 4) for t in runs['bf16']]}")
+    out["profile"], out["peak_gib"] = {}, {}
+    for name in ("fp32", "bf16"):
+        wall_ms, dev_us, count = profile_kernels(preds[name].run, x16)
+        busy_ms = sum(dev_us.values()) / 1e3
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        preds[name].run(x16)
+        torch.cuda.synchronize()
+        out["peak_gib"][name] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["profile"][name] = dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms, kernels=count,
+                                    stem_ms=ports_kernels(dev_us)["stem_kernel"] / 1e3)
+        log(f"[yolo26] {name} bs=16 under torch.profiler: wall {wall_ms:.3f} ms/batch, device busy {busy_ms:.3f} "
+            f"ms/batch ({100 * busy_ms / wall_ms:.1f}%), {count:.0f} kernels/batch, peak memory of a batch "
+            f"{out['peak_gib'][name]:.3f} GiB; top: " + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+
+    # val, fp32: the set of the val phase, labelled from the card's own detections (class biases at 0)
+    root = Path(tempfile.mkdtemp(prefix=".val_set_", dir=Path(__file__).resolve().parent))
+    try:
+        yaml_path = write_val_set(root, VAL_IMAGES)
+
+        def facade(where):
+            y = YOLO(Y26, device=where).load_state_dict(state)
+            with torch.no_grad():
+                for branch in (*y.model.head.cv3, *y.model.head.one2one_cv3):
+                    branch[-1].bias.zero_()
+            return y.fuse()
+
+        gpu_v, cpu_v = facade(dev), facade("cpu")
+        label_from_detections(gpu_v.model, yaml_path)
+        val_kw = dict(data=str(yaml_path), imgsz=IMGSZ, batch=VAL_BATCH)
+        reset_launches()
+        m = gpu_v.val(**val_kw)
+        torch.cuda.synchronize()
+        launches = out["launches"]["val"] = read_launches()
+        n_batches = math.ceil(VAL_IMAGES / VAL_BATCH)
+        m_cpu = cpu_v.val(**val_kw)
+        diff = {k: abs(m[k] - m_cpu[k]) for k in VAL_METRICS}
+        log(f"[yolo26] val fp32: launches {launches}; {m['images']} images, P {m['precision']:.6f} R "
+            f"{m['recall']:.6f} mAP50 {m['mAP50']:.6f} mAP50-95 {m['mAP50-95']:.6f}; |card - CPU| "
+            f"{json.dumps(diff)}; speed {json.dumps(m['speed'])} ms/img")
+        require(launches["stem"] == n_batches and launches["nms"] == 0,
+                "the yolo26 val: the stem kernel once a batch and no NMS")
+        # real matches, not 0 against 0: mAP50, since the NMS-free head keeps its near-duplicates, which on
+        # random weights outrank most matches (mAP50-95 0.0465 on the CPU, where v0_10-n's exceeds 0.05)
+        require(m["images"] == VAL_IMAGES and max(diff.values()) <= VAL_METRIC_TOL and m_cpu["mAP50"] > 0.05,
+                f"yolo26 val: the card's metrics differ from the CPU validator's beyond {VAL_METRIC_TOL}")
+        out["val"] = dict(metrics={k: m[k] for k in VAL_METRICS}, diff=diff, speed=m["speed"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the other two scales, bs 16 in fp32
+    out["scales"] = {}
+    for name in ("yolo26-master-s", "yolo26-master-m"):
+        y = calibrated(name, dev).fuse()
+        reset_launches()
+        r16 = y.predict(imgs, batch=16, **KW)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        require(launches["stem"] == 1 and launches["nms"] == 0 and len(r16) == 16,
+                f"{name}: the stem kernel once at bs 16, no NMS")
+        check_detections(r16)
+        ms = cuda_ms(lambda: y._predictor.run(x16), reps=5, warmup=2) / 16
+        out["scales"][name] = dict(launches=launches, ms_per_img=ms)
+        log(f"[yolo26] {name} bs=16 fp32: launches {launches}, device {ms:.4f} ms/img")
+        del y
+    return out
+
+
 def train_batch(b: int, m: int, dev, seed: int, max_boxes: int = 8):
     """A seeded synthetic train batch at IMGSZ in the train step's layout: uniform-noise
     images [b, IMGSZ, IMGSZ, 3] in 0..1, up to ``max_boxes`` boxes an image (xyxy px,
@@ -2984,6 +3241,8 @@ def main():
     done("val path")
     _, v10, v10_state = phase_v0_10_path(dev, fp32_runs["predict path"], imgs)
     done("v0_10 paths")
+    y26 = phase_yolo26_path(dev, fp32_runs["predict path"], imgs)
+    done("yolo26 paths")
     train = phase_train(dev, state)
     done("train step")
     loop = phase_train_loop(dev, state, imgs)
@@ -3049,6 +3308,9 @@ def main():
                      v0_1_train_loop_predict_launches=v01_loop["predict_launches"]["stem"],
                      v0_10_predict_launches=v10["launches"]["fp32"]["stem"],
                      v0_10_val_launches=v10["launches"]["val"]["stem"],
+                     yolo26_predict_launches=y26["launches"]["fp32"]["stem"],
+                     yolo26_bank_launches=y26["launches"]["fp32"]["stem_bank"],
+                     yolo26_val_launches=y26["launches"]["val"]["stem"],
                      v0_10_train_loop_predict_launches=v10_train["e"]["predict_launches"]["stem"],
                      pruned_n_predict_launches=v10_train["f"]["prune_launches"]["stem"],
                      widths={scale: {k: stem_res[(scale, 16)][k]
@@ -3067,6 +3329,8 @@ def main():
                      v0_1_train_loop_predict_launches=v01_loop["predict_launches"]["nms"],
                      v0_10_predict_launches={k: v10["launches"][k]["nms"] for k in ("fp32", "bf16")},
                      v0_10_val_launches=v10["launches"]["val"]["nms"],
+                     yolo26_predict_launches={k: y26["launches"][k]["nms"] for k in ("fp32", "bf16")},
+                     yolo26_val_launches=y26["launches"]["val"]["nms"],
                      v0_10_train_loop_ema_val_launches=v10_train["e"]["launches"]["nms"],
                      v0_10_train_loop_predict_launches=v10_train["e"]["predict_launches"]["nms"],
                      pruned_n_predict_launches=v10_train["f"]["prune_launches"]["nms"],
@@ -3099,6 +3363,8 @@ def main():
                      launches_scale_m=bf16_res["yolo-master-m"]["launches"]["stem"],
                      v0_10_launches=v10["launches"]["bf16"]["stem"],
                      v0_10_bank_launches=v10["launches"]["bf16"]["stem_bank"],
+                     yolo26_launches=y26["launches"]["bf16"]["stem"],
+                     yolo26_bank_launches=y26["launches"]["bf16"]["stem_bank"],
                      accumulation_rounding=bf16_rounding,
                      stem_share_scale_m_bs16=shares["yolo-master-m predict path, bf16"]["stem_share"],
                      widths={scale: {f"{form}_in": {k: stem16_res[(scale, 16, form)][k] for k in
@@ -3126,6 +3392,7 @@ def main():
                                          for k in ("c_fp32", "c_bf16")}}))
     log(f"[train loop bf16 {V01}] " + json.dumps({k: v for k, v in v01_loop.items() if k != "predict_launches"}))
     log(f"[{V10}] " + json.dumps(v10))
+    log(f"[{Y26}] " + json.dumps(y26))
     log(f"[{V10} train] " + json.dumps({k: ({n: v for n, v in r.items() if n not in ("losses", "predict_launches")}
                                             if isinstance(r, dict) else r) for k, r in v10_train.items()},
                                        default=str))

@@ -1198,3 +1198,79 @@ def test_v0_10_predict_on_the_card_matches_the_cpu(dev, monkeypatch):
     for key in ("boxes", "scores"):
         ref = c[key].float()
         assert rel_rms(g16[key].cpu(), ref) <= 1.5 * rel_rms(c16[key], ref), key
+
+
+def _moe_routing(picks=None, seen=None):
+    """A process_logits for nn/moe/mixtures.py that records each
+    OptimizedMOEImproved block's [B, E] top-k mask in forward order into
+    ``seen``, or routes by ``picks`` (a list of those) over the block's own
+    probabilities, renormalised."""
+    from yolo_master_tpu_torch.nn.moe import mixtures
+
+    plain, it = mixtures.process_logits, iter(picks or [])
+
+    def routing(logits, top_k, noise=None):
+        w, probs, logits = plain(logits, top_k, noise)
+        if picks is not None:
+            w = probs * next(it).to(probs.device)
+            w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+        elif seen is not None:
+            seen.append((w > 0).cpu())
+        return w, probs, logits
+
+    return routing
+
+
+def test_yolo26_predict_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """YOLO("yolo26-master-n").fuse() on the card and on the CPU from the same
+    weights (BN calibrated on four frames), 640 px: predict() launches the
+    stem kernel once a batch in fp32 and bf16 and no NMS, and gives max_det
+    fixed-shape detections; on two frames the card's fp32 decode, routed by the
+    CPU's picks, lies within chip_smoke.py's limits of the CPU's (5e-2 px,
+    1e-3 logit), and its bf16 one2one head outputs, routed by the CPU bf16's
+    picks, within 1.5x the CPU bf16's rel-RMS from the CPU fp32."""
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_master_tpu_torch.nn.moe import mixtures
+    from yolo_master_tpu_torch.utils.fuse import current_dtype_copy
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    rng = np.random.default_rng(11)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
+    cpu = YOLO("yolo26-master-n", device="cpu")
+    calibrate_bn(cpu.model, DetectionPredictor(cpu.model, imgsz=640).preprocess(frames)[0])
+    card = YOLO("yolo26-master-n", device=dev).load_state_dict(cpu.model.state_dict()).fuse()
+    cpu.fuse()
+    kw = dict(imgsz=640, conf=0.0, max_det=300)
+    for dtype in (torch.float32, torch.bfloat16):
+        fused_stem.launches = batched_greedy_nms.launches = 0
+        res = card.predict(frames[:1], batch=1, compute_dtype=dtype, **kw) + card.predict(frames, batch=4,
+                                                                                          compute_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        assert fused_stem.launches == 2 and batched_greedy_nms.launches == 0, dtype
+        assert all(len(r.boxes) == 300 and np.isfinite(r.boxes.data).all() for r in res)
+    x, _ = DetectionPredictor(cpu.model, imgsz=640).preprocess(frames[:2])
+    seen = []
+    with monkeypatch.context() as mp, torch.inference_mode():
+        mp.setattr(mixtures, "process_logits", _moe_routing(seen=seen))
+        c = cpu.model(x)
+        dc = cpu.model.head.decode(c, raw_scores=True)
+    with monkeypatch.context() as mp, torch.inference_mode():
+        mp.setattr(mixtures, "process_logits", _moe_routing(picks=seen))
+        dg = card.model.head.decode(card.model(x.to(dev)), raw_scores=True).cpu()
+    assert len(seen) == 6
+    assert (dg[..., :4] - dc[..., :4]).abs().max() <= 5e-2 and (dg[..., 4:] - dc[..., 4:]).abs().max() <= 1e-3
+    seen16 = []
+    with monkeypatch.context() as mp, torch.inference_mode():
+        mp.setattr(mixtures, "process_logits", _moe_routing(seen=seen16))
+        c16 = current_dtype_copy(cpu.model, torch.bfloat16)(x)
+    with monkeypatch.context() as mp, torch.inference_mode():
+        mp.setattr(mixtures, "process_logits", _moe_routing(picks=seen16))
+        g16 = current_dtype_copy(card.model, torch.bfloat16)(x.to(dev))
+
+    def rel_rms(a, ref):
+        return ((a.float() - ref).square().mean() / ref.square().mean()).sqrt().item()
+
+    for key in ("boxes", "scores"):
+        ref = c[key].float()
+        assert rel_rms(g16[key].cpu(), ref) <= 1.5 * rel_rms(c16[key], ref), key

@@ -264,7 +264,7 @@ def test_decode_topk_matches_jax_with_tied_anchors():
 
 
 def test_unported_module_names_its_roadmap_item():
-    cfg = {"nc": 80, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "SPPF", [16, 5]]],
+    cfg = {"nc": 80, "backbone": [[-1, 1, "Conv", [16, 3, 2]], [-1, 1, "RepC3", [16]]],
            "head": [[[-1], 1, "Detect", ["nc"]]]}
     with pytest.raises(KeyError, match="ROADMAP.md"):
         parse_model(cfg)
@@ -272,7 +272,7 @@ def test_unported_module_names_its_roadmap_item():
 
 @pytest.mark.parametrize("name", ["yolo-master-seg-n", "yolo-master-cls-n", "yolo-master-world-n",
                                   "yolo-master-dymoe-n", "yolo-master-v0_2-n",
-                                  "rtdetr-master-hgnet-l", "yolo26-master-n"])
+                                  "rtdetr-master-hgnet-l", "yolo26-master-moa-mot-n"])
 def test_other_model_yamls_name_their_roadmap_item(name):
     """A graph YAML of the JAX package that the port has not copied yet: building
     it is refused, naming the ROADMAP item."""

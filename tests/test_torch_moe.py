@@ -307,8 +307,17 @@ def test_optimized_moe_matches_jax_sparse_and_dense(cin, cout, e, hw):
 
 
 def test_optimized_moe_refuses_unported_types():
+    """Every expert and router type builds and runs in eval (held against JAX
+    in tests/test_torch_yolo26.py); the train step refuses a block of the
+    types whose training is not held against JAX yet, naming its ROADMAP
+    item; an unknown type is a ValueError."""
+    from yolo_master_tpu_torch.engine.train_step import make_train_step
+
     for kw in ({"expert_type": "ghost"}, {"router_type": "local"}):
+        block = OptimizedMOEImproved(32, 32, **kw).eval()
+        with torch.no_grad():
+            assert block(torch.rand(2, 32, 8, 8)).shape == (2, 32, 8, 8)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            OptimizedMOEImproved(32, 32, **kw)
+            make_train_step(torch.nn.Sequential(block))
     with pytest.raises(ValueError):
         OptimizedMOEImproved(32, 32, expert_type="nope")

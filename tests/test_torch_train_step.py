@@ -300,15 +300,18 @@ def test_param_group_labels_match_jax_for_yolo_master_n():
 
 
 def test_refusals_name_their_roadmap_items():
-    """A routed block with an expert type that is not ported (the ghost,
-    inverted and spatial experts), a fused model, a compute dtype other than
-    fp32 and bf16, and the Muon optimizers are refused, naming what is
-    missing; yolo-master-v0_1 itself trains (tests/test_torch_moe_train*.py)."""
+    """A routed block with an expert type whose training is not ported (the
+    ghost, inverted and spatial experts), yolo26-master (its end2end loss), a
+    fused model, a compute dtype other than fp32 and bf16, and the Muon
+    optimizers are refused, naming what is missing; yolo-master-v0_1 itself
+    trains (tests/test_torch_moe_train*.py)."""
     from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved
 
     for expert in ("ghost", "inverted", "spatial"):
         with pytest.raises(NotImplementedError, match=r"§1\.F item 14"):
-            OptimizedMOEImproved(32, 32, expert_type=expert)
+            ts.make_train_step(torch.nn.Sequential(OptimizedMOEImproved(32, 32, expert_type=expert)))
+    with pytest.raises(NotImplementedError, match=r"§1\.F item 15"):
+        ts.make_train_step(DetectionModel("yolo26-master-n"))
     ts.make_train_step(DetectionModel("yolo-master-v0_1-n"))
     from yolo_master_tpu_torch.utils.fuse import fuse_bn
 

@@ -4,6 +4,9 @@ Host: letterbox (``data/letterbox.py``) -> BGR->RGB -> uint8 NHWC for a model
 whose layer 0 takes uint8 (``YOLO.fuse()``), else float /255. Device: forward
 -> ``Detect.decode_topk`` -> batched NMS, with no host round trip between
 them. Host: boxes back to the original image -> ``engine/results.py:Results``.
+An end2end (NMS-free) head takes no NMS: forward -> ``Detect.decode`` ->
+``Detect.postprocess_end2end`` -> :func:`end2end_detections` (the JAX
+predictor's graph; ``iou``, ``max_nms`` and ``agnostic_nms`` do not apply).
 
 ``compute_dtype=torch.bfloat16`` runs the forward on a bf16 copy of the model
 (``utils/fuse.py:compute_dtype_copy``), kept while the model stays as it was
@@ -51,6 +54,23 @@ def expand_source(source) -> List[tuple]:
     return [(str(Path(source)), load_image(source))]
 
 
+def end2end_detections(out: torch.Tensor, conf: float, class_mask: Optional[torch.Tensor] = None) -> dict:
+    """An end2end head's [B, k, 6] selection (``Detect.postprocess_end2end``:
+    xyxy box, score, class; best first) -> the fixed-shape detections that NMS
+    gives elsewhere: ``valid`` where the score exceeds ``conf``, scores 0 and
+    classes -1 where not valid, as the JAX predictor does. With ``class_mask``
+    the detections of other classes are dropped after the selection, as the
+    upstream end2end postprocess does (the JAX predictor ignores ``classes``
+    here), and the valid ones move to the front in their order."""
+    valid = out[..., 4] > conf
+    if class_mask is not None:
+        valid = valid & (class_mask[out[..., 5].long()] > 0)
+        order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)
+        out, valid = out.gather(1, order[..., None].expand_as(out)), valid.gather(1, order)
+    return {"boxes": out[..., :4], "scores": out[..., 4] * valid, "classes": torch.where(valid, out[..., 5], -1.0),
+            "valid": valid}
+
+
 class DetectionPredictor:
     def __init__(self, model, names: Optional[Dict[int, str]] = None, imgsz=640, conf: float = 0.25,
                  iou: float = 0.45, max_det: int = 300, max_nms: int = 2048, agnostic_nms: bool = False,
@@ -90,6 +110,9 @@ class DetectionPredictor:
         model = self.model
         preds = model(x)
         head = model.head
+        if head.end2end:
+            return end2end_detections(head.postprocess_end2end(head.decode(preds), self.max_det), self.conf,
+                                      self.class_mask)
         if self.class_mask is None:
             # top-k-first: choosing anchors on the max class logit commutes with
             # the sigmoid, and single-label NMS only reads the top max_nms

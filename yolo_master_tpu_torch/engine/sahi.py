@@ -51,6 +51,9 @@ class SparseSAHIPredictor:
                  overlap_ratio: float = 0.2, objectness_threshold: float = 0.15, conf: float = 0.25,
                  iou: float = 0.45, max_det: int = 300, use_cw_nms: bool = True, sigma: float = 0.1,
                  tile_batch: int = 8):
+        if model.head.end2end:  # its decode gives xyxy boxes, which the gate and the merge would read as xywh
+            raise NotImplementedError("SAHI over an end2end (NMS-free) head is not ported "
+                                      "(ROADMAP.md §1.G item 16, §3)")
         self.model = model
         self.device = next(model.parameters()).device
         self.names = names or {}

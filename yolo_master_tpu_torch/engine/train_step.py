@@ -371,14 +371,22 @@ def ema_blend(ema_params: Dict[str, torch.Tensor], model: torch.nn.Module, d: fl
 
 
 def _check_trainable(model: torch.nn.Module) -> None:
+    from ..nn.heads import Detect
     from ..nn.layers import FusedStem
-    from ..nn.moe import FusedESMOE
+    from ..nn.moe import FusedESMOE, OptimizedMOEImproved
 
     for m in model.modules():
         if isinstance(m, (FusedStem, FusedESMOE)):
             raise ValueError("a fused (deploy) model cannot be trained: train the unfused model")
         if isinstance(getattr(m, "bn", None), torch.nn.Identity):
             raise ValueError("a model with BatchNorm folded (fuse_bn) cannot be trained: train the unfused model")
+        if isinstance(m, OptimizedMOEImproved) and (m.expert_type, m.router_type) != ("simple", "efficient"):
+            raise NotImplementedError(f"training an OptimizedMOEImproved of '{m.expert_type}' experts and the "
+                                      f"'{m.router_type}' router is not ported yet: it comes with yolo26-master's "
+                                      "training (ROADMAP.md §1.F item 14, §1.C item 7)")
+        if isinstance(m, Detect) and m.end2end:
+            raise NotImplementedError("the end2end (one2one) loss, yolo26-master's training, is not ported yet "
+                                      "(ROADMAP.md §1.F item 15)")
 
 
 def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp: Optional[dict] = None,

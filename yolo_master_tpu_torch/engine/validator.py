@@ -19,6 +19,12 @@ greedy matching at 10 IoU thresholds and ``ap_per_class`` (``utils/metrics.py``)
 and with ``save_json`` COCO-format rows (80 COCO classes mapped to the sparse
 ids 1-90).
 
+An end2end (NMS-free) head's detections are the predictor's graph at the
+validator's conf and ``max_det``: ``forward_predict`` (xyxy boxes) ->
+``Detect.postprocess_end2end`` -> ``engine/predictor.py:end2end_detections``,
+with no NMS, as the upstream end2end validator does. (The JAX validator feeds
+that xyxy decode to its NMS, which reads xywh.)
+
 ``compute_dtype=torch.bfloat16`` runs the forward on the model's current bf16
 copy (``utils/fuse.py:current_dtype_copy``), as the predictor does; decode,
 NMS and matching stay fp32.
@@ -45,7 +51,7 @@ from ..ops.nms import non_max_suppression
 from ..utils.coco import COCO80_TO_COCO91
 from ..utils.fuse import current_dtype_copy
 from ..utils.metrics import DetMetrics
-from .predictor import COMPUTE_DTYPES
+from .predictor import COMPUTE_DTYPES, end2end_detections
 
 LOGGER = logging.getLogger(__name__)
 
@@ -89,8 +95,11 @@ class DetectionValidator:
     def run(self, x: torch.Tensor) -> dict:
         """Input batch on the device -> fixed-shape detections (device tensors)."""
         model = self.model
-        return non_max_suppression(model.forward_predict(x), nc=model.nc, conf_thres=self.conf,
-                                   iou_thres=self.iou, max_det=self.max_det, max_nms=self.max_nms, multi_label=True)
+        decoded = model.forward_predict(x)
+        if model.head.end2end:
+            return end2end_detections(model.head.postprocess_end2end(decoded, self.max_det), self.conf)
+        return non_max_suppression(decoded, nc=model.nc, conf_thres=self.conf, iou_thres=self.iou,
+                                   max_det=self.max_det, max_nms=self.max_nms, multi_label=True)
 
     # -- the loop --------------------------------------------------------------
     def __call__(self) -> Dict[str, float]:

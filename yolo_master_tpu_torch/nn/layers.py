@@ -1,10 +1,12 @@
 """Core blocks of the YOLO-Master backbone and neck, as ``torch.nn`` modules.
 
 Counterpart of ``yolo_master_tpu/nn/layers.py`` for the modules of the
-yolo-master-n detection graph. Activations are NCHW tensors in
-``torch.channels_last`` memory (the JAX package's NHWC, viewed as NCHW);
-conv weights are OIHW. Module and parameter names follow the ultralytics
-state_dict (``cv1.conv.weight``, ``cv1.bn.running_mean``, ``m.0.cv2...``), so
+yolo-master and yolo26-master detection graphs (SPPF and the PSA
+attention family: Attention, PSABlock, C2PSA, C3k2's ``attn`` form).
+Activations are NCHW tensors in ``torch.channels_last`` memory (the JAX
+package's NHWC, viewed as NCHW); conv weights are OIHW. Module and parameter
+names follow the ultralytics state_dict (``cv1.conv.weight``,
+``cv1.bn.running_mean``, ``m.0.cv2...``), so
 ``yolo_master_tpu/utils/torch_import.py:import_state_dict`` maps them onto the
 JAX parameter tree one to one.
 
@@ -171,15 +173,65 @@ class C2f(nn.Module):
 
 
 class C3k2(C2f):
-    """C2f whose inner blocks are C3k (``c3k``) or Bottleneck."""
+    """C2f whose inner blocks are C3k (``c3k``), Bottleneck, or with ``attn`` a
+    Bottleneck followed by a :class:`PSABlock` of ``max(c // 64, 1)`` heads
+    (``attn`` wins over ``c3k``, as in the JAX package)."""
 
     def __init__(self, c1, c2, n=1, c3k=False, e=0.5, attn=False, g=1, shortcut=True):
-        if attn:
-            raise NotImplementedError("C3k2(attn=True) needs PSABlock, not ported yet "
-                                      "(ROADMAP.md §1.F item 15, every YAML in cfg/models)")
         super().__init__(c1, c2, n, shortcut, g, e)
-        self.m = nn.ModuleList(
-            C3k(self.c, self.c, 2, shortcut, g) if c3k else Bottleneck(self.c, self.c, shortcut, g) for _ in range(n))
+
+        def inner():
+            if attn:
+                return nn.Sequential(Bottleneck(self.c, self.c, shortcut, g),
+                                     PSABlock(self.c, attn_ratio=0.5, num_heads=max(self.c // 64, 1)))
+            return C3k(self.c, self.c, 2, shortcut, g) if c3k else Bottleneck(self.c, self.c, shortcut, g)
+
+        self.m = nn.ModuleList(inner() for _ in range(n))
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling, fast: cv1 (no activation), then ``n`` chained
+    k x k max pools (stride 1, 'same' padding by -inf, as the JAX package's
+    ``max_pool``), every map concatenated into cv2."""
+
+    def __init__(self, c1, c2, k=5, n=3, shortcut=False):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1, act=False)
+        self.cv2 = Conv(c_ * (n + 1), c2, 1, 1)
+        self.k, self.n = k, n
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = [self.cv1(x)]
+        for _ in range(self.n):
+            y.append(F.max_pool2d(y[-1], self.k, 1, self.k // 2))
+        out = self.cv2(torch.cat(y, 1))
+        return out + x if self.add else out
+
+
+ATTN_KEY_CHUNK = 1024  # keys a partial product of an fp32 attention's probabilities with V takes (attend)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v over tokens: q, k, v [B, N, heads, d] -> [B, N,
+    heads, d]. The logits are a plain product in the activation dtype and the
+    softmax reduces in fp32, rounded back to that dtype, as the JAX package
+    does. In fp32, past ``ATTN_KEY_CHUNK`` keys the product of the
+    probabilities with V sums the keys in chunks of that many, adding the
+    partial products in fp32: one cuBLAS product over 6,400 keys
+    (yolo26-master's P3 at 640 px) lands about 10x as far from fp64 as the
+    CPU's, and the chunks bring it to twice the CPU's (``chip_smoke.py``'s
+    yolo26 phase prints both). The same sum, rounded more closely."""
+    attn = torch.einsum("bnhd,bmhd->bhnm", q * scale, k)
+    attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
+    n_keys = k.shape[1]
+    if n_keys <= ATTN_KEY_CHUNK or q.dtype != torch.float32:
+        return torch.einsum("bhnm,bmhd->bnhd", attn, v)
+    vt = v.transpose(1, 2)  # [B, heads, N, d]
+    out = sum(torch.matmul(attn[..., s:s + ATTN_KEY_CHUNK], vt[:, :, s:s + ATTN_KEY_CHUNK])
+              for s in range(0, n_keys, ATTN_KEY_CHUNK))
+    return out.transpose(1, 2)
 
 
 class AAttn(nn.Module):
@@ -188,7 +240,8 @@ class AAttn(nn.Module):
 
     Tokens are the row-major pixels; the area split reshapes them to
     ``[B*area, N/area, ...]`` (H*W must divide by ``area``). Logits are plain
-    matmuls and the softmax reduces in fp32, as the JAX package does.
+    matmuls and the softmax reduces in fp32, as the JAX package does
+    (:func:`attend`).
     """
 
     def __init__(self, dim: int, num_heads: int, area: int = 1):
@@ -209,9 +262,7 @@ class AAttn(nn.Module):
         qkv = self.qkv(x).flatten(2).transpose(1, 2)  # [B, N, 3*ahd], row-major tokens
         bq, nq = B * self.area, N // self.area
         q, k, v = qkv.reshape(bq, nq, nh, 3, hd).unbind(3)  # [bq, nq, nh, hd] each
-        attn = torch.einsum("bnhd,bmhd->bhnm", q * (hd ** -0.5), k)
-        attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-        o = torch.einsum("bhnm,bmhd->bnhd", attn, v)
+        o = attend(q, k, v, hd ** -0.5)
 
         def to_map(t):  # [bq, nq, nh, hd] -> [B, ahd, H, W] channels_last
             return t.reshape(B, H, W, ahd).permute(0, 3, 1, 2)
@@ -234,20 +285,22 @@ class ABlock(nn.Module):
 
 
 class A2C2f(nn.Module):
-    """Area-attention C2f."""
+    """Area-attention C2f: each of the ``n`` inner blocks is two attention blocks
+    of ``c_ // 32`` heads (``block(c_)``, :class:`ABlock` unless given), or a
+    C3k without ``a2``."""
 
-    def __init__(self, c1, c2, n=1, a2=True, area=1, residual=False, mlp_ratio=2.0, e=0.5, g=1, shortcut=True):
+    def __init__(self, c1, c2, n=1, a2=True, area=1, residual=False, mlp_ratio=2.0, e=0.5, g=1, shortcut=True,
+                 block=None):
         super().__init__()
         c_ = int(c2 * e)
         if c_ % 32:
-            raise ValueError("A2C2f hidden dim must be a multiple of 32")
+            raise ValueError(f"{type(self).__name__} hidden dim must be a multiple of 32")
+        block = block or (lambda c: ABlock(c, c // 32, mlp_ratio, area))
         self.cv1 = Conv(c1, c_, 1, 1)
         self.cv2 = Conv((1 + n) * c_, c2, 1)
         self.gamma = nn.Parameter(0.01 * torch.ones(c2)) if a2 and residual else None
         self.m = nn.ModuleList(
-            nn.Sequential(*(ABlock(c_, c_ // 32, mlp_ratio, area) for _ in range(2))) if a2
-            else C3k(c_, c_, 2, shortcut, g)
-            for _ in range(n))
+            nn.Sequential(block(c_), block(c_)) if a2 else C3k(c_, c_, 2, shortcut, g) for _ in range(n))
 
     def forward(self, x):
         ys = [self.cv1(x)]
@@ -257,6 +310,73 @@ class A2C2f(nn.Module):
         if self.gamma is not None:
             return x + self.gamma.to(y.dtype).view(1, -1, 1, 1) * y
         return y
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over every pixel of the map (the PSA family),
+    plus a 3x3 depthwise positional conv on V.
+
+    ``qkv``'s channels are head-major, ``[heads, 2 * key_dim + head_dim]``, each
+    head's slice q, then k, then v, as the JAX package reshapes them; V and the
+    output go back to the map head-major. Logits are plain matmuls in the
+    activation dtype and the softmax reduces in fp32 (:func:`attend`).
+    """
+
+    def __init__(self, dim, num_heads=8, attn_ratio=0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim ** -0.5
+        self.qkv = Conv(dim, dim + 2 * self.key_dim * num_heads, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        nh, kd = self.num_heads, self.key_dim
+        qkv = self.qkv(x).flatten(2).transpose(1, 2).reshape(B, H * W, nh, 2 * kd + self.head_dim)
+        q, k, v = qkv.split((kd, kd, self.head_dim), -1)  # [B, N, nh, *] each
+        o = attend(q, k, v, self.scale)
+
+        def to_map(t):  # [B, N, nh, hd] -> [B, C, H, W] channels_last, head-major channels
+            return t.reshape(B, H, W, C).permute(0, 3, 1, 2)
+
+        return self.proj(to_map(o) + self.pe(to_map(v)))
+
+
+class PSABlock(nn.Module):
+    """x + attn(x), then x + ffn(x) (without ``shortcut``, each stage's output alone)."""
+
+    def __init__(self, c, attn_ratio=0.5, num_heads=4, shortcut=True):
+        super().__init__()
+        self.attn = Attention(c, num_heads=num_heads, attn_ratio=attn_ratio)
+        self.ffn = nn.Sequential(Conv(c, c * 2, 1), Conv(c * 2, c, 1, act=False))
+        self.add = shortcut
+
+    def forward(self, x):
+        y = self.attn(x)
+        x = x + y if self.add else y
+        y = self.ffn(x)
+        return x + y if self.add else y
+
+
+class C2PSA(nn.Module):
+    """CSP wrapper around ``n`` PSABlocks of ``c // 64`` heads (1 below 64
+    channels) on the second half of cv1's output."""
+
+    def __init__(self, c1, c2, n=1, e=0.5):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError(f"C2PSA needs c1 == c2, got {c1} and {c2}")
+        self.c = int(c1 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c1, 1)
+        self.m = nn.Sequential(*(PSABlock(self.c, 0.5, self.c // 64 if self.c >= 64 else 1) for _ in range(n)))
+
+    def forward(self, x):
+        a, b = self.cv1(x).split((self.c, self.c), 1)
+        return self.cv2(torch.cat([a, self.m(b)], 1))
 
 
 def get_safe_groups(channels: int, groups: int = 8) -> int:

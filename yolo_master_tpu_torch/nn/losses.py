@@ -99,7 +99,8 @@ def composite_loss(preds: Dict, hw_shapes, strides, gt_bboxes, gt_classes, gt_ma
                    dfl_gain: float = 1.5, moe_gain: float = 0.01, end2end: bool = False) -> LossBreakdown:
     """The one2many branch's detection loss (top-10 assignment) plus ``moe_gain * aux_total``."""
     if end2end:
-        raise NotImplementedError("the end2end (one2one) loss is not ported yet (ROADMAP.md §1.F item 15)")
+        raise NotImplementedError("the end2end (one2one) loss, yolo26-master's training, is not ported yet "
+                                  "(ROADMAP.md §1.F item 15)")
     lb = detection_loss(preds["one2many"], hw_shapes, strides, gt_bboxes, gt_classes, gt_mask, nc=nc,
                         reg_max=reg_max, box_gain=box_gain, cls_gain=cls_gain, dfl_gain=dfl_gain, tal_topk=10)
     aux = moe_gain * aux_total

@@ -7,8 +7,16 @@ yolo-master-v0_1 (counterpart of ``yolo_master_tpu/nn/moe/mixtures.py``).
 
 Sparse eval (the model's ``sparse_inference`` switch on, as by default, and
 top_k below the expert count) runs only the selected experts
-(``nn/moe/dispatch.py``); otherwise every expert runs, masked by w. Only the
-``simple`` expert and the ``efficient`` router of v0_1 are ported.
+(``nn/moe/dispatch.py``); otherwise every expert runs, masked by w. Every
+expert type (``simple``, ``ghost``, ``inverted``, ``spatial``) and router type
+(``efficient``, ``local``, ``adaptive``) of the JAX block is here; none has a
+part of its own that differs in training, but only the ``simple`` experts and
+the ``efficient`` router are held against JAX in training so far, and the
+train step refuses the others (``engine/train_step.py``).
+
+:class:`ABlockMoE` is an area-attention block whose MLP is this block (no
+residual of its own), and :class:`A2C2fMoE` the A2C2f of such blocks: the
+mixture of yolo26-master.
 
 Training follows the JAX block at the optimizer step ``step``
 (``DetectionModel.forward_train`` sets it) and the block's JAX module path
@@ -32,6 +40,7 @@ runs in training, masked by w, as JAX computes them.
 
 from __future__ import annotations
 
+import math
 import zlib
 from typing import Optional, Tuple
 
@@ -41,13 +50,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...utils import jax_random
-from ..layers import BN_EPS, BN_MOMENTUM, BatchNorm2d, GroupNorm, PlainConv, avg_pool
+from ..layers import A2C2f, AAttn, BN_EPS, BN_MOMENTUM, BatchNorm2d, GlobalAvgPool, GroupNorm, PlainConv, avg_pool
 from ..mixture_loss import AuxRecord
 from .dispatch import expert_bank, gather_dispatch, top_k_from_weights
 from .losses import moe_aux_loss
 from .routers import LOGIT_CLAMP
-
-_UNPORTED = "ROADMAP.md §1.F item 14 (mixture modules)"
 
 
 class SimpleExpert(nn.Module):
@@ -80,6 +87,97 @@ class SimpleExpert(nn.Module):
         y = torch.matmul(sel["conv.3.weight"].flatten(3).to(x.dtype), y)  # [B, K, O, HW]
         y = norm(y, self.conv[4], sel["conv.4.weight"], sel["conv.4.bias"])
         return y.reshape(b, kk, -1, h, w)
+
+
+def _gathered_sequential(seq: nn.Sequential, sel: dict, prefix: str, y: torch.Tensor) -> torch.Tensor:
+    """``seq`` (PlainConv, GroupNorm and SiLU layers) with the parameters of
+    expert (b, k), for gathered banks ``sel`` [B, K, ...] named
+    ``{prefix}.{index}.{weight, bias}``, on y [B*K, C, H, W] (x[b] repeated K
+    times): each conv is one grouped conv over the B*K experts, each GroupNorm
+    normalises each (b, k) map and applies its own affine, in the affine's
+    dtype, as :class:`~..layers.GroupNorm`."""
+    n = y.shape[0]
+    for i, layer in enumerate(seq):
+        if isinstance(layer, nn.Conv2d):
+            w = sel[f"{prefix}.{i}.weight"].flatten(0, 2).to(y.dtype)  # [B*K*O, C/g, kh, kw]
+            out = F.conv2d(y.reshape(1, -1, *y.shape[2:]), w, None, layer.stride, layer.padding, layer.dilation,
+                           layer.groups * n)
+            y = out.reshape(n, -1, *out.shape[2:])
+            if layer.bias is not None:
+                y = y + sel[f"{prefix}.{i}.bias"].flatten(0, 1).to(y.dtype)[..., None, None]
+        elif isinstance(layer, nn.GroupNorm):
+            weight, bias = (sel[f"{prefix}.{i}.{k}"].flatten(0, 1)[..., None, None] for k in ("weight", "bias"))
+            y = (F.group_norm(y.to(weight.dtype), layer.num_groups, eps=layer.eps) * weight + bias).to(y.dtype)
+        else:
+            y = layer(y)
+    return y
+
+
+def _repeat_k(sel: dict, x: torch.Tensor) -> torch.Tensor:
+    """x [B, C, H, W] -> [B*K, C, H, W], x[b] once for each of the K gathered experts."""
+    kk = next(iter(sel.values())).shape[1]
+    return x.unsqueeze(1).expand(x.shape[0], kk, *x.shape[1:]).flatten(0, 1)
+
+
+class SpatialExpert(nn.Module):
+    """1x1 expand -> GN -> SiLU -> 3x3 depthwise -> GN -> SiLU -> 1x1 project -> GN."""
+
+    def __init__(self, c1, c2, expand_ratio=2.0, num_groups=8, kernel_size=3):
+        super().__init__()
+        hid = int(c1 * expand_ratio)
+        self.conv = nn.Sequential(PlainConv(c1, hid, 1), GroupNorm(hid, num_groups), nn.SiLU(),
+                                  PlainConv(hid, hid, kernel_size, g=hid), GroupNorm(hid, num_groups), nn.SiLU(),
+                                  PlainConv(hid, c2, 1), GroupNorm(c2, num_groups))
+
+    def forward(self, x):
+        return self.conv(x)
+
+    def forward_gathered(self, sel, x):
+        """Expert (b, k) on sample b: x [B, C, H, W] -> [B, K, O, H, W]."""
+        return _gathered_sequential(self.conv, sel, "conv", _repeat_k(sel, x)).unflatten(0, (x.shape[0], -1))
+
+
+class InvertedResidualExpert(SpatialExpert):
+    """:class:`SpatialExpert` with a ``kernel_size`` depthwise conv, plus x when C_in == C_out."""
+
+    def __init__(self, c1, c2, expand_ratio=2.0, kernel_size=3, num_groups=8):
+        super().__init__(c1, c2, expand_ratio, num_groups, kernel_size)
+        self.add = c1 == c2
+
+    def forward(self, x):
+        y = self.conv(x)
+        return x + y if self.add else y
+
+    def forward_gathered(self, sel, x):
+        y = super().forward_gathered(sel, x)
+        return x.unsqueeze(1) + y if self.add else y
+
+
+class GhostExpert(nn.Module):
+    """A primary conv (GN, SiLU) and a cheap 3x3 depthwise op on its output
+    (GN, SiLU), concatenated and cut to ``c2`` channels."""
+
+    def __init__(self, c1, c2, kernel_size=3, ratio=2, num_groups=8):
+        super().__init__()
+        self.c2 = c2
+        init_c = math.ceil(c2 / ratio)
+        new_c = init_c * (ratio - 1)
+        self.primary_conv = nn.Sequential(PlainConv(c1, init_c, kernel_size), GroupNorm(init_c, num_groups), nn.SiLU())
+        self.cheap_operation = nn.Sequential(PlainConv(init_c, new_c, 3, g=init_c), GroupNorm(new_c, num_groups),
+                                             nn.SiLU())
+
+    def forward(self, x):
+        x1 = self.primary_conv(x)
+        return torch.cat([x1, self.cheap_operation(x1)], 1)[:, :self.c2]
+
+    def forward_gathered(self, sel, x):
+        x1 = _gathered_sequential(self.primary_conv, sel, "primary_conv", _repeat_k(sel, x))
+        y = torch.cat([x1, _gathered_sequential(self.cheap_operation, sel, "cheap_operation", x1)], 1)
+        return y[:, :self.c2].unflatten(0, (x.shape[0], -1))
+
+
+EXPERT_TYPES = {"simple": SimpleExpert, "ghost": GhostExpert, "inverted": InvertedResidualExpert,
+                "spatial": SpatialExpert}
 
 
 class _SpatialRouterNet(nn.Sequential):
@@ -145,6 +243,34 @@ class EfficientSpatialRouter(nn.Module):
         return self.router(x).float().mean((2, 3))
 
 
+class LocalRoutingLayer(EfficientSpatialRouter):
+    """Router over the input average-pooled 2x (when H exceeds 2), spatial-mean logits."""
+
+    def __init__(self, c1, num_experts, reduction=8):
+        super().__init__(c1, num_experts, reduction, pool_scale=2)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[2] > self.pool_scale:
+            x = avg_pool(x, self.pool_scale)
+        return self.router(x).float().mean((2, 3))
+
+
+class AdaptiveRoutingLayer(nn.Module):
+    """Router over the spatial mean of the input (in its dtype): 1x1 conv -> BN
+    -> SiLU -> 1x1 conv -> BN, logits in fp32."""
+
+    def __init__(self, c1, num_experts, reduction=8):
+        super().__init__()
+        self.pool = GlobalAvgPool()
+        self.router = _SpatialRouterNet(c1, max(c1 // reduction, 8), num_experts, first_k=1)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        return self.router(self.pool(x)).flatten(1).float()
+
+
+ROUTER_TYPES = {"efficient": EfficientSpatialRouter, "local": LocalRoutingLayer, "adaptive": AdaptiveRoutingLayer}
+
+
 class OptimizedMOEImproved(nn.Module):
     """Pluggable-router MoE with an always-on shared expert (also registered as
     ``ModularRouterExpertMoE``), with the JAX constructor's arguments and
@@ -159,16 +285,13 @@ class OptimizedMOEImproved(nn.Module):
         super().__init__()
         if not 1 <= top_k <= num_experts:
             raise ValueError(f"top_k must be in [1, {num_experts}], got {top_k}")
-        if expert_type not in ("simple", "ghost", "inverted", "spatial"):
+        if expert_type not in EXPERT_TYPES:
             raise ValueError(f"unknown expert_type '{expert_type}'")
-        if router_type not in ("efficient", "local", "adaptive"):
+        if router_type not in ROUTER_TYPES:
             raise ValueError(f"unknown router_type '{router_type}'")
-        if expert_type != "simple":
-            raise NotImplementedError(f"expert_type '{expert_type}' is not ported yet: {_UNPORTED}")
-        if router_type != "efficient":
-            raise NotImplementedError(f"router_type '{router_type}' is not ported yet: {_UNPORTED}")
         self.in_channels, self.out_channels = in_channels, out_channels
         self.num_experts, self.top_k = num_experts, top_k
+        self.expert_type, self.router_type = expert_type, router_type
         self.noise_std = noise_std
         self.balance_loss_coeff = balance_loss_coeff
         self.router_z_loss_coeff = router_z_loss_coeff
@@ -183,8 +306,9 @@ class OptimizedMOEImproved(nn.Module):
         self.step = 0  # the optimizer step of a train-mode forward (DetectionModel.forward_train sets it)
         self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
         self._draws: Optional[tuple] = None  # (key, [B + 1, E] noise and keep mask, any drop): draws()
-        self.routing = EfficientSpatialRouter(in_channels, num_experts)
-        self.experts = nn.ModuleList(SimpleExpert(in_channels, out_channels, expand_ratio=expert_expand_ratio)
+        self.routing = ROUTER_TYPES[router_type](in_channels, num_experts)
+        kwargs = {"ratio": int(expert_expand_ratio)} if expert_type == "ghost" else {"expand_ratio": expert_expand_ratio}
+        self.experts = nn.ModuleList(EXPERT_TYPES[expert_type](in_channels, out_channels, **kwargs)
                                      for _ in range(num_experts))
         self.shared_expert = nn.Sequential(PlainConv(in_channels, out_channels, 1),
                                            BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM), nn.SiLU())
@@ -249,3 +373,28 @@ class OptimizedMOEImproved(nn.Module):
 
 
 ModularRouterExpertMoE = OptimizedMOEImproved
+
+
+class ABlockMoE(nn.Module):
+    """x + attn(x), then x + moe(x): an area-attention block whose MLP is an
+    :class:`OptimizedMOEImproved` with ``mlp_ratio`` as its experts' expansion,
+    progressive sparsity and no residual of its own."""
+
+    def __init__(self, dim, num_heads, mlp_ratio=1.2, area=1, num_experts=4, top_k=2, expert_type="simple"):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads=num_heads, area=area)
+        self.mlp = OptimizedMOEImproved(dim, dim, num_experts=num_experts, top_k=top_k, expert_type=expert_type,
+                                        expert_expand_ratio=mlp_ratio, progressive_sparsity=True, add_residual=False)
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2fMoE(A2C2f):
+    """:class:`~..layers.A2C2f` whose attention blocks are :class:`ABlockMoE` (the C3k form without ``a2``)."""
+
+    def __init__(self, c1, c2, n=1, a2=True, area=1, residual=False, mlp_ratio=2.0, e=0.5, g=1, shortcut=True,
+                 num_experts=4, top_k=2, expert_type="simple"):
+        super().__init__(c1, c2, n, a2, area, residual, mlp_ratio, e, g, shortcut,
+                         block=lambda c: ABlockMoE(c, c // 32, mlp_ratio, area, num_experts, top_k, expert_type))

@@ -2,9 +2,9 @@
 
 Counterpart of ``yolo_master_tpu/nn/tasks.py`` (``parse_model``,
 ``DetectionModel``) with the same scaling rules, over the same YAML files.
-The registry holds the modules of the yolo-master-n and yolo-master-v0_1
-graphs and the gated blocks of yolo-master-v0_4 to v0_15; any other module
-name raises ``KeyError`` naming the ROADMAP item that ports it.
+The registry holds the modules of the yolo-master, yolo-master-v0_1 and
+yolo26-master graphs and the gated blocks of yolo-master-v0_4 to v0_15; any
+other module name raises ``KeyError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -16,10 +16,11 @@ import torch.nn as nn
 
 from ..utils import find_model_yaml, guess_scale, make_divisible, yaml_load
 from .heads import Detect
-from .layers import A2C2f, ABlock, Bottleneck, C2f, C3, C3k, C3k2, Concat, Conv, DWConv, FusedStem, Linear, Upsample
+from .layers import (A2C2f, ABlock, Bottleneck, C2f, C2PSA, C3, C3k, C3k2, Concat, Conv, DWConv, FusedStem, Linear,
+                     SPPF, Upsample)
 from .losses import composite_loss
 from .mixture_loss import AuxRecord
-from .moe import ES_MOE, GATED_BLOCKS, OptimizedMOEImproved
+from .moe import ES_MOE, GATED_BLOCKS, A2C2fMoE, OptimizedMOEImproved
 
 MODULE_REGISTRY = {
     "Conv": Conv,
@@ -29,7 +30,10 @@ MODULE_REGISTRY = {
     "C3": C3,
     "C3k": C3k,
     "C3k2": C3k2,
+    "SPPF": SPPF,
+    "C2PSA": C2PSA,
     "A2C2f": A2C2f,
+    "A2C2fMoE": A2C2fMoE,
     "Concat": Concat,
     "Upsample": Upsample,
     "nn.Upsample": Upsample,
@@ -39,11 +43,12 @@ MODULE_REGISTRY = {
     "OptimizedMOEImproved": OptimizedMOEImproved,
     **GATED_BLOCKS,
 }
-REPEAT_MODULES = {C2f, C3, C3k, C3k2, A2C2f}
-# c2 scales with the width and args become [c1, c2, ...]; for OptimizedMOEImproved
-# and the gated blocks this is the JAX package's mixture rule (yolo_master_tpu/nn/tasks.py:218-226)
-SCALED_MODULES = {Conv, DWConv, Bottleneck, C2f, C3, C3k, C3k2, A2C2f, ES_MOE, OptimizedMOEImproved,
-                  *GATED_BLOCKS.values()}
+REPEAT_MODULES = {C2f, C3, C3k, C3k2, C2PSA, A2C2f, A2C2fMoE}
+# c2 scales with the width and args become [c1, c2, ...]; for the MoE blocks this is the
+# JAX package's mixture rule (yolo_master_tpu/nn/tasks.py:218-227): A2C2fMoE takes n as A2C2f
+# does, but none of A2C2f's scale rules
+SCALED_MODULES = {Conv, DWConv, Bottleneck, C2f, C3, C3k, C3k2, SPPF, C2PSA, A2C2f, A2C2fMoE, ES_MOE,
+                  OptimizedMOEImproved, *GATED_BLOCKS.values()}
 _LITERALS = {"None": None, "True": True, "False": False, "none": None, "true": True, "false": False}
 
 
@@ -65,8 +70,7 @@ def parse_model(cfg: dict, ch: int = 3, scale: Optional[str] = None) -> Tuple[nn
     nc = cfg.get("nc", 80)
     scales = cfg.get("scales")
     reg_max = cfg.get("reg_max", 16)
-    if cfg.get("end2end", False):
-        raise NotImplementedError("end2end (NMS-free) heads are not ported yet (ROADMAP.md §1.F item 15)")
+    end2end = bool(cfg.get("end2end", False))
     depth, width, max_channels = cfg.get("depth_multiple", 1.0), cfg.get("width_multiple", 1.0), float("inf")
     if scales:
         scale = scale or next(iter(scales))
@@ -100,11 +104,13 @@ def parse_model(cfg: dict, ch: int = 3, scale: Optional[str] = None) -> Tuple[nn
                 legacy = False
                 if scale and scale in "lx":
                     args.extend((True, 1.2))
+            if m is A2C2fMoE:
+                legacy = False
         elif m is Concat:
             c2 = sum(channels[x] for x in f)
             args = []
         elif m is Detect:
-            args = [*args, reg_max, False, [channels[x] for x in f]]
+            args = [*args, reg_max, end2end, [channels[x] for x in f]]
             kwargs = {"legacy": legacy}
             c2 = None
         elif m is Upsample:
@@ -239,7 +245,7 @@ class DetectionModel(nn.Module):
         return self._forward_graph(x_nhwc)
 
     def forward_predict(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        """Decoded [B, A, 4+nc]: xywh boxes in input pixels and sigmoid scores."""
+        """Decoded [B, A, 4+nc]: xywh boxes (xyxy for an end2end head) in input pixels and sigmoid scores."""
         return self.head.decode(self.forward(x_nhwc))
 
     def forward_train(self, x_nhwc: torch.Tensor, step: int = 0) -> Tuple[dict, Dict[str, AuxRecord]]:
@@ -277,6 +283,6 @@ class DetectionModel(nn.Module):
         lb = composite_loss(preds, preds["hw_shapes"], self.head.strides, batch["boxes"], batch["classes"],
                             batch["mask"], nc=self.nc, aux_total=aux_total, reg_max=self.head.reg_max,
                             box_gain=hyp.get("box", 7.5), cls_gain=hyp.get("cls", 0.5), dfl_gain=hyp.get("dfl", 1.5),
-                            moe_gain=hyp.get("moe", 0.01))
+                            moe_gain=hyp.get("moe", 0.01), end2end=self.head.end2end)
         return lb.total, {"loss": lb.total, "box_loss": lb.box, "cls_loss": lb.cls, "dfl_loss": lb.dfl,
                           "aux_loss": lb.aux}

@@ -2,8 +2,10 @@
 
 :func:`state_dict_from_jax` is the inverse of
 ``yolo_master_tpu/utils/torch_import.py`` (``_torch_key`` and ``convert``)
-for the modules of the yolo-master-n, yolo-master-v0_1 and v0_4-v0_15 graphs
-(ES_MOE with or without top_k, OptimizedMOEImproved, the gated blocks): it
+for the modules of the yolo-master-n, yolo-master-v0_1, v0_4-v0_15 and
+yolo26-master graphs (ES_MOE with or without top_k, OptimizedMOEImproved and
+A2C2fMoE, the gated blocks, the PSA family, the end2end head's ``one2one_*``
+branches, A2C2f's ``gamma``): it
 maps the JAX parameter tree's paths to ultralytics state_dict keys, HWIO conv
 kernels to OIHW and ``Linear`` matrices [in, out] to [out, in]. The gated
 blocks' parameter-free ``nn.Sequential`` slots of the reference shift the
