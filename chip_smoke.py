@@ -9,7 +9,8 @@ the split-bf16 header of stem.cu's bf16 forms, one nvcc each, in parallel),
 holds each kernel against its plain PyTorch version on the card, and
 drives yolo_master_tpu_torch's paths (predict, val, training, the MoE
 tools) at the full width of yolo-master-n, yolo-master-v0_1-n,
-yolo-master-v0_10-n and yolo26-master-n with seeded random weights. Phases:
+yolo-master-v0_10-n, yolo26-master-n, -latent-n and -moa-mot-n with seeded
+random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
   2. build the six kernel sources (c3k2.cu's and stem.cu's bf16 kernel's
@@ -76,7 +77,7 @@ yolo-master-v0_10-n and yolo26-master-n with seeded random weights. Phases:
      CPU's own fused-vs-unfused and fp32-vs-fp64 differences; bf16 decoded
      outputs within 1.5x the CPU bf16's rel-RMS from the CPU fp32
  17. the train step (engine/train_step.py) of yolo-master-n at 640, fp32: one
-     step at bs 2 on the card against the CPU; three steps of bs 16 x
+     step at bs 2 on the card against the CPU; two timed steps of bs 16 x
      accumulate 4 (times, peak memory, a profiled step); the EMA model's val()
  18. the training loop, YOLO("yolo-master-n").train(data=..., epochs=2,
      batch=16, imgsz=640, amp=False, workers=4, save_period=1, close_mosaic=1),
@@ -89,7 +90,7 @@ yolo-master-v0_10-n and yolo26-master-n with seeded random weights. Phases:
  19. the train step in bf16 (compute_dtype=torch.bfloat16, the trainer's
      default): one step at bs 2 on the card against the CPU's fp32 and bf16
      steps, on two batches (the gradient trees' rel-RMS from the CPU fp32
-     within 1.5x the CPU bf16's); three steps of bs 16 x accumulate 4 (times by layer, peak memory,
+     within 1.5x the CPU bf16's); two timed steps of bs 16 x accumulate 4 (times by layer, peak memory,
      a profiled step) beside phase 17's fp32 numbers
  20. the training loop with amp at its default (bf16): phase 18's run, resume
      and predict of last.npz (fp32 weights), in bf16
@@ -101,8 +102,8 @@ yolo-master-v0_10-n and yolo26-master-n with seeded random weights. Phases:
      card against the CPU (phase 17's gate), the draws of the card's step
      equal to the CPU's bit for bit; one bf16 step at bs 2 on two batches with
      the card's routing pinned to the CPU bf16's picks (phase 19's statistic),
-     and the unpinned picks' flips counted; three steps of bs 16 x accumulate
-     4 in fp32 and bf16 (times by layer, peak memory, a profiled step) beside
+     and the unpinned picks' flips counted; two timed steps of bs 16 x
+     accumulate 4 in fp32 and bf16 (times by layer, peak memory, a profiled step) beside
      yolo-master-n's
  23. the training loop of yolo-master-v0_1-n with amp at its default (bf16),
      warmup_steps 1 and dropout_interval 1: phase 20's run, resume and
@@ -129,7 +130,7 @@ yolo-master-v0_10-n and yolo26-master-n with seeded random weights. Phases:
      the CPU's picks and kept counts); one bf16 step at bs 2 on two batches,
      pinned to the CPU bf16's routing (phase 19's statistic); one step of
      v0_13-n and of v0_15-n at bs 2 (router noise, soft expert dropout and
-     drop-path set to fire) whose draws equal the CPU's bit for bit; three
+     drop-path set to fire) whose draws equal the CPU's bit for bit; two timed
      steps of bs 16 x accumulate 4 in fp32 and bf16 beside yolo-master-n's and
      v0_1-n's (times by layer, busy share, kernels, host-to-device copies,
      peak memory); the loop with amp at its default (phase 20's run); then the
@@ -149,6 +150,27 @@ yolo-master-v0_10-n and yolo26-master-n with seeded random weights. Phases:
      bs 16; fuse().val() in fp32 on phase 16's kind of set (no NMS, metrics
      within 1e-3 of the CPU validator's); a bs-16 fp32 predict of
      yolo26-master-s and -m
+ 29. (run after phase 27) yolo26-master-n's training with phase 28's weights
+     (the end2end dual-assignment loss, L1 at reg_max 1; the six routed
+     blocks' noise, annealed k and expert dropout, warmup_steps 2 and
+     dropout_interval 2): one fp32 step at bs 2 from step 50 on the card
+     against the CPU (phase 17's gate, the card pinned to the CPU's picks
+     where one flips), the draws bit for bit; two timed steps of bs 16 x
+     accumulate 4 in fp32 and bf16 (times by layer, layer 4's share of a
+     micro-batch, busy share, launches and copies, peak memory, a profiled
+     step) beside yolo-master-n's and v0_1-n's; the loop with amp at its
+     default (phase 20's run; the EMA's val through the end2end validator, no
+     NMS) and MultiTrainer (phase 21's run)
+ 30. (run after phase 28) yolo26-master-latent-n (LatentMixture before each
+     head scale) and yolo26-master-moa-mot-n (C2fMoA at P3, C2fMoT at P4 and
+     P5), their zero-initialised mixture parts set non-zero
+     (utils/weights.py:wake_mixtures): phase 28's recipe for each (predict at
+     batch 1 and 16 in fp32 and bf16: the stem kernel and its bank, no NMS,
+     max_det fixed-shape detections; GPU vs CPU decode at the fixed limits,
+     bf16 by rel-RMS, the routing pinned where it flips, MoT's kept experts
+     included; device ms/img beside yolo26-master-n's in turns, busy share and
+     peak memory at bs 16; val() on 16 images, metrics within 1e-3 of the CPU
+     validator's)
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
@@ -211,12 +233,16 @@ V10 = "yolo-master-v0_10-n"
 Y26 = "yolo26-master-n"
 V01_STEP_SCHEDULE = (2, 2)  # phase 22's warmup_steps, dropout_interval: steps 2 and 50 drop experts
 V01_LOOP_SCHEDULE = (1, 1)  # phase 23's: the loop's second optimizer step (step 1) drops experts
+BENCH_STEPS = 2  # timed optimizer steps of train_step_bench (the first of them cold)
 RESUME_REL_TOL_BF16 = 1e-4  # the bf16 loop's resumed epoch 2 against the run's: measured 1.6e-8 (PERF.md §7)
 VAL_METRIC_TOL = 1e-3  # the card's validator vs the CPU's: tests/test_torch_validator.py:METRIC_TOL (port vs JAX)
 
 
+T_START = time.perf_counter()  # log lines carry the seconds since the script started
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def gpu_name_and_power() -> str:
@@ -1991,78 +2017,83 @@ def mask_flips(a, b) -> int:
     return sum(int((x != y).any(1).sum()) for x, y in zip(a, b))
 
 
+class mot_routing:
+    """Within this context every MoT router (nn/mot.py) records its [B, E, H, W]
+    kept-expert mask into ``seen``, in forward order, or, given ``picks`` (such
+    a list), keeps those experts over its own probabilities, renormalised."""
+
+    def __init__(self, seen=None, picks=None):
+        self.seen, self.picks = seen, picks
+
+    def __enter__(self):
+        from yolo_master_tpu_torch.nn import mot as tmot
+
+        self.plain = plain = tmot.MoTRouter.forward
+        it = iter(self.picks or [])
+
+        def forward(mod, x):
+            w, probs, logits = plain(mod, x)
+            if self.picks is not None:
+                w = probs * next(it).to(probs.device)
+                w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
+            else:
+                self.seen.append((w > 0).cpu())
+            return w, probs, logits
+
+        tmot.MoTRouter.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from yolo_master_tpu_torch.nn import mot as tmot
+
+        tmot.MoTRouter.forward = self.plain
+
+
+class e2e_routing:
+    """moe_routing and mot_routing together: ``seen`` (or ``picks``) is a dict
+    {"moe": list, "mot": list} of the routed blocks' masks in forward order."""
+
+    def __init__(self, seen=None, picks=None):
+        rec = seen if picks is None else picks
+        self.parts = [moe_routing(**{("seen" if picks is None else "picks"): rec["moe"]}),
+                      mot_routing(**{("seen" if picks is None else "picks"): rec["mot"]})]
+
+    def __enter__(self):
+        for p in self.parts:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self.parts):
+            p.__exit__(*exc)
+
+
+def routings():
+    return {"moe": [], "mot": []}
+
+
+def e2e_flips(a, b) -> int:
+    """(sample, block) top-k sets of the MoE blocks and (sample, pixel, router) kept sets of MoT that differ."""
+    return mask_flips(a["moe"], b["moe"]) + mask_flips(a["mot"], b["mot"])
+
+
 def phase_yolo26_path(dev, base_run, imgs):
     """yolo26-master-n, the NMS-free end2end generation (A2C2fMoE of 4, 8 and 16
     experts, top-2, at layers 4, 6, 8; SPPF, C2PSA, the attn C3k2 and the
     one2one head at reg_max 1; plain PyTorch but for the stem kernel), seeded
     weights with BN calibrated on four frames, as the main path:
-    fuse().predict() at batch 1 and 16 in fp32 and bf16 (the stem kernel and
-    its bank, no NMS launch; max_det fixed-shape detections); GPU vs CPU decode
-    at the fixed limits, fp32, with the routing recorded on both and the
-    card's pinned to the CPU's where a pick flips; the card's bf16 one2one head
-    outputs, pinned to the CPU bf16's routing, within 1.5x the CPU bf16's
-    rel-RMS from the CPU fp32; device ms/img of both dtypes beside
-    yolo-master-n's in turns, the busy share and peak memory at bs 16; val() in
-    fp32 on write_val_set's images (the stem once a batch, no NMS, metrics
-    within VAL_METRIC_TOL of the CPU's); and a bs-16 fp32 predict of
-    yolo26-master-s and -m."""
-    import math
-    import shutil
-    import tempfile
-    from pathlib import Path
-
-    import numpy as np
+    phase_end2end_path beside yolo-master-n (``base_run``), the attention's
+    fp32 error at layer 4's 6,400 keys, and a bs-16 fp32 predict of
+    yolo26-master-s and -m. Returns the numbers, the calibrated weights and the
+    fp32 and bf16 predictors."""
     import torch
 
-    from yolo_master_tpu_torch import YOLO
-    from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
-    from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved
-    from yolo_master_tpu_torch.utils.fuse import compute_dtype_copy
-    from yolo_master_tpu_torch.utils.weights import calibrate_bn
-
-    bf16 = torch.bfloat16
-
-    def calibrated(name, where):
-        y = YOLO(name, device=where)
-        x_cal, _ = DetectionPredictor(y.model, imgsz=IMGSZ).preprocess(imgs[:4])
-        calibrate_bn(y.model, x_cal)
-        return y
-
-    y26 = calibrated(Y26, dev)
-    blocks = [m for m in y26.model.modules() if isinstance(m, OptimizedMOEImproved)]
-    require([(m.num_experts, m.top_k) for m in blocks] == [(e, 2) for e in (4, 4, 8, 8, 16, 16)],
-            "yolo26-master-n's MoE blocks (two a layer at 4, 6, 8)")
-    require(y26.model.head.end2end and y26.model.head.reg_max == 1, "yolo26-master-n's end2end head")
-    state = {k: v.detach().clone() for k, v in y26.model.state_dict().items()}
-    cpu = YOLO(Y26, device="cpu").load_state_dict(state)
-    y26.fuse()
-    cpu.fuse()
-    out = {"launches": {}, "e2e": {}, "flips": {}}
-    preds = {}
-    x16 = None
-    for name, dt in (("fp32", torch.float32), ("bf16", bf16)):
-        reset_launches()
-        r1 = y26.predict(imgs[0], batch=1, compute_dtype=dt, **KW)
-        r16 = y26.predict(imgs, batch=16, compute_dtype=dt, **KW)
-        torch.cuda.synchronize()
-        launches = out["launches"][name] = read_launches()
-        log(f"[yolo26] predict {name} bs1 + bs16 launches: {launches}")
-        require(launches["stem"] == 2 and launches["stem_bank"] == 1 and launches["nms"] == 0,
-                f"the yolo26 {name} path: the stem kernel twice, its bank once, and no NMS")
-        require(len(r1) == 1 and len(r16) == 16, "yolo26 result counts")
-        check_detections(r1 + r16)
-        preds[name] = y26._predictor
-        x16 = x16 if x16 is not None else preds[name].preprocess(imgs)[0]
-        with torch.inference_mode():
-            det = preds[name].run(x16)
-        require(tuple(det["boxes"].shape) == (16, KW["max_det"], 4) and bool(det["valid"].all()),
-                f"yolo26 {name}: {KW['max_det']} fixed-shape detections an image")
-    log(f"[yolo26] image 0 top: {np.round(r1[0].boxes.data[0], 2).tolist()}")
-
-    # attention's product with V at layer 4's shape (6,400 keys, two heads of 32): one cuBLAS product
-    # against nn/layers.py:attend's chunked sum, each against fp64, on the card and on the CPU
     from yolo_master_tpu_torch.nn.layers import attend
 
+    out, state, preds = phase_end2end_path(dev, Y26, {"yolo-master-n": base_run}, imgs, blocks=6, mot_routers=0,
+                                           min_map50=0.05)
+    # attention's product with V at layer 4's shape (6,400 keys, two heads of 32): one cuBLAS product
+    # against nn/layers.py:attend's chunked sum, each against fp64, on the card and on the CPU
     gen = torch.Generator().manual_seed(3)
     q, k = (torch.randn(2, 6400, 2, 32, generator=gen, dtype=torch.float64) for _ in range(2))
     v = 8 * torch.rand(2, 6400, 2, 32, generator=gen, dtype=torch.float64)  # values of one sign, as after a SiLU
@@ -2079,88 +2110,189 @@ def phase_yolo26_path(dev, base_run, imgs):
     require(acc[f"attend {dev}"] < acc[f"one product {dev}"], "the chunked product is no closer to fp64 on the card")
     out["attention_fp32_err"] = acc
 
+    # the other two scales, bs 16 in fp32
+    x16, _ = preds["fp32"].preprocess(imgs)
+    out["scales"] = {}
+    for name in ("yolo26-master-s", "yolo26-master-m"):
+        y = calibrated_yolo(name, dev, imgs).fuse()
+        reset_launches()
+        r16 = y.predict(imgs, batch=16, **KW)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        require(launches["stem"] == 1 and launches["nms"] == 0 and len(r16) == 16,
+                f"{name}: the stem kernel once at bs 16, no NMS")
+        check_detections(r16)
+        ms = cuda_ms(lambda: y._predictor.run(x16), reps=5, warmup=2) / 16
+        out["scales"][name] = dict(launches=launches, ms_per_img=ms)
+        log(f"[yolo26] {name} bs=16 fp32: launches {launches}, device {ms:.4f} ms/img")
+        del y
+    return out, state, preds
+
+
+def calibrated_yolo(name, where, imgs, wake: bool = False):
+    """YOLO(name) on ``where``, seeded, (``wake``: wake_mixtures) with BN calibrated on four frames."""
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    y = YOLO(name, device=where)
+    if wake:
+        from yolo_master_tpu_torch.utils.weights import wake_mixtures
+
+        wake_mixtures(y.model)
+    x_cal, _ = DetectionPredictor(y.model, imgsz=IMGSZ).preprocess(imgs[:4])
+    calibrate_bn(y.model, x_cal)
+    return y
+
+
+def phase_end2end_path(dev, name, base_runs, imgs, blocks: int, mot_routers: int, wake: bool = False,
+                       val_images: int = VAL_IMAGES, min_map50: float = 0.0):
+    """An end2end (NMS-free) graph, ``name``, with seeded weights (``wake``:
+    the mixtures' zero-initialised parts set non-zero, utils/weights.py:
+    wake_mixtures) and BN calibrated on
+    four frames, as the main path: fuse().predict() at batch 1 and 16 in fp32
+    and bf16 (the stem kernel and its bank, no NMS launch; max_det fixed-shape
+    detections); GPU vs CPU decode at the fixed limits, fp32, with the routing
+    (``blocks`` OptimizedMOEImproved blocks, ``mot_routers`` MoT routers)
+    recorded on both and the card's pinned to the CPU's where a pick flips;
+    the card's bf16 one2one head outputs, pinned to the CPU bf16's routing,
+    within 1.5x the CPU bf16's rel-RMS from the CPU fp32; device ms/img of both
+    dtypes beside ``base_runs`` ({label: run}) in turns, the busy share and
+    peak memory at bs 16; val() in fp32 on write_val_set's ``val_images``
+    images (the stem once a batch, no NMS, metrics within VAL_METRIC_TOL of
+    the CPU's, mAP50 above ``min_map50``). Returns (numbers, weights, {dtype:
+    predictor})."""
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.nn import mot as tmot
+    from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved
+    from yolo_master_tpu_torch.utils.fuse import compute_dtype_copy
+
+    bf16 = torch.bfloat16
+    tag = "yolo26" if name == Y26 else name
+    y26 = calibrated_yolo(name, dev, imgs, wake=wake)
+    moe = [m for m in y26.model.modules() if isinstance(m, OptimizedMOEImproved)]
+    n_mot = sum(isinstance(m, tmot.MoTRouter) for m in y26.model.modules())
+    require(len(moe) == blocks and n_mot == mot_routers, f"{name}: {len(moe)} MoE blocks and {n_mot} MoT routers")
+    require(y26.model.head.end2end and y26.model.head.reg_max == 1, f"{name}'s end2end head")
+    state = {k: v.detach().clone() for k, v in y26.model.state_dict().items()}
+    cpu = YOLO(name, device="cpu").load_state_dict(state)
+    y26.fuse()
+    cpu.fuse()
+    out = {"launches": {}, "e2e": {}, "flips": {}}
+    preds = {}
+    x16 = None
+    for dname, dt in (("fp32", torch.float32), ("bf16", bf16)):
+        reset_launches()
+        r1 = y26.predict(imgs[0], batch=1, compute_dtype=dt, **KW)
+        r16 = y26.predict(imgs, batch=16, compute_dtype=dt, **KW)
+        torch.cuda.synchronize()
+        launches = out["launches"][dname] = read_launches()
+        log(f"[{tag}] predict {dname} bs1 + bs16 launches: {launches}")
+        require(launches["stem"] == 2 and launches["stem_bank"] == 1 and launches["nms"] == 0,
+                f"the {name} {dname} path: the stem kernel twice, its bank once, and no NMS")
+        require(len(r1) == 1 and len(r16) == 16, f"{name} result counts")
+        check_detections(r1 + r16)
+        preds[dname] = y26._predictor
+        x16 = x16 if x16 is not None else preds[dname].preprocess(imgs)[0]
+        with torch.inference_mode():
+            det = preds[dname].run(x16)
+        require(tuple(det["boxes"].shape) == (16, KW["max_det"], 4) and bool(det["valid"].all()),
+                f"{name} {dname}: {KW['max_det']} fixed-shape detections an image")
+    log(f"[{tag}] image 0 top: {np.round(r1[0].boxes.data[0], 2).tolist()}")
+
     # GPU vs CPU, fp32: the routing of both recorded, the card pinned to the CPU's where one flips
     x = x16[:BF16_FRAMES]
-    seen_gpu, seen_cpu = [], []
+    seen_gpu, seen_cpu = routings(), routings()
     cpu64 = copy.deepcopy(cpu.model).double()  # outside inference mode: the expert banks read version counters
     with torch.inference_mode():
-        with moe_routing(seen=seen_gpu):
+        with e2e_routing(seen=seen_gpu):
             full_gpu = y26.model.head.decode(y26.model(x[:2]), raw_scores=True).cpu()
-        with moe_routing(seen=seen_cpu):
+        with e2e_routing(seen=seen_cpu):
             full_cpu = cpu.model.head.decode(cpu.model(x[:2].cpu()), raw_scores=True)
-        with moe_routing(picks=seen_cpu):
+        with e2e_routing(picks=seen_cpu):
             full_cpu64 = cpu64.head.decode(cpu64(x[:2].cpu()), raw_scores=True)
-        out["flips"]["fp32"] = mask_flips(seen_gpu, seen_cpu)
+        out["flips"]["fp32"] = e2e_flips(seen_gpu, seen_cpu)
         if out["flips"]["fp32"]:
-            with moe_routing(picks=seen_cpu):
+            with e2e_routing(picks=seen_cpu):
                 full_gpu = y26.model.head.decode(y26.model(x[:2]), raw_scores=True).cpu()
     box_err, logit_err = decode_err(full_gpu, full_cpu)
     box_noise, logit_noise = decode_err(full_cpu, full_cpu64)
-    log(f"[yolo26] GPU vs CPU decode (xyxy), all {full_gpu.shape[1]} anchors: box max err {box_err:.3e} px, logit "
-        f"max err {logit_err:.3e}; routings that differ between the two fp32 programs: {out['flips']['fp32']} of "
-        f"{2 * len(blocks)} (pinned where they do); CPU fp32 vs fp64 noise: box {box_noise:.3e} px, logit "
-        f"{logit_noise:.3e}; largest |box| {full_cpu[..., :4].abs().max().item():.1f} px")
-    require(box_err <= 5e-2 and logit_err <= 1e-3, "yolo26 GPU and CPU decode disagree beyond 5e-2 px / 1e-3")
+    log(f"[{tag}] GPU vs CPU decode (xyxy), all {full_gpu.shape[1]} anchors: box max err {box_err:.3e} px, logit "
+        f"max err {logit_err:.3e}; routings that differ between the two fp32 programs: {out['flips']['fp32']} "
+        f"(MoE: of {2 * blocks} (sample, block) picks; MoT: (sample, pixel, router) kept sets) (pinned where they "
+        f"do); CPU fp32 vs fp64 noise: box {box_noise:.3e} px, logit {logit_noise:.3e}; largest |box| "
+        f"{full_cpu[..., :4].abs().max().item():.1f} px")
+    require(box_err <= 5e-2 and logit_err <= 1e-3, f"{name} GPU and CPU decode disagree beyond 5e-2 px / 1e-3")
     out["decode_err"] = (box_err, logit_err)
     out["cpu_fp64_noise"] = (box_noise, logit_noise)
 
     # bf16: the card's copy pinned to the CPU bf16 copy's routing, against the CPU fp32
     cpu16 = compute_dtype_copy(cpu.model, bf16)
-    seen16, seen_g16 = [], []
+    seen16, seen_g16 = routings(), routings()
     with torch.inference_mode():
         c32 = cpu.model(x.cpu())
-        with moe_routing(seen=seen16):
+        with e2e_routing(seen=seen16):
             c16 = cpu16(x.cpu())
-        with moe_routing(seen=seen_g16):
+        with e2e_routing(seen=seen_g16):
             preds["bf16"].model(x)
-        with moe_routing(picks=seen16):
+        with e2e_routing(picks=seen16):
             g16 = preds["bf16"].model(x)
-    out["flips"]["bf16"] = mask_flips(seen_g16, seen16)
+    out["flips"]["bf16"] = e2e_flips(seen_g16, seen16)
     stats = {}
     for key in ("boxes", "scores"):
         gpu, own = rel_rms(g16[key].float().cpu(), c32[key]), rel_rms(c16[key].float(), c32[key])
         stats[key] = (gpu, own)
         require(bool(torch.isfinite(g16[key]).all()) and 0 < own and gpu <= 1.5 * own,
-                f"yolo26 bf16: GPU {key} rel-RMS {gpu} from CPU fp32, more than 1.5x the CPU bf16's {own}")
-    log(f"[yolo26] bf16, {BF16_FRAMES} frames, the card pinned to the CPU bf16's routing "
-        f"({out['flips']['bf16']} of {BF16_FRAMES * len(blocks)} picks differ unpinned), rel-RMS from the CPU "
-        f"fp32 one2one head outputs: box GPU {stats['boxes'][0]:.4e} (CPU bf16 {stats['boxes'][1]:.4e}), class "
-        f"logits GPU {stats['scores'][0]:.4e} (CPU bf16 {stats['scores'][1]:.4e})")
+                f"{name} bf16: GPU {key} rel-RMS {gpu} from CPU fp32, more than 1.5x the CPU bf16's {own}")
+    log(f"[{tag}] bf16, {BF16_FRAMES} frames, the card pinned to the CPU bf16's routing "
+        f"({out['flips']['bf16']} picks or kept sets differ unpinned), rel-RMS from the CPU fp32 one2one head "
+        f"outputs: box GPU {stats['boxes'][0]:.4e} (CPU bf16 {stats['boxes'][1]:.4e}), class logits GPU "
+        f"{stats['scores'][0]:.4e} (CPU bf16 {stats['scores'][1]:.4e})")
     out["bf16_rel_rms"] = stats
 
-    # device ms/img, uint8 batch on the card -> detections: yolo26 fp32 and bf16 beside yolo-master-n, in turns
+    # device ms/img, uint8 batch on the card -> detections: both dtypes beside the base runs, in turns
     for bs in (1, 16):
         xb = x16[:bs]
-        runs = {"yolo-master-n": [], "fp32": [], "bf16": []}
-        for name in ("yolo-master-n", "fp32", "bf16", "bf16", "fp32", "yolo-master-n"):
-            run = base_run if name == "yolo-master-n" else preds[name].run
-            runs[name].append(cuda_ms(lambda: run(xb), reps=10, warmup=2) / bs)
+        runs = {**{k: [] for k in base_runs}, "fp32": [], "bf16": []}
+        order = [*base_runs, "fp32", "bf16", "bf16", "fp32", *reversed(list(base_runs))]
+        for key in order:
+            run = base_runs[key] if key in base_runs else preds[key].run
+            runs[key].append(cuda_ms(lambda: run(xb), reps=5, warmup=2) / bs)
         out["e2e"][bs] = {k: statistics.median(v) for k, v in runs.items()}
-        log(f"[e2e] bs={bs}: device ms/img, yolo-master-n fp32 {[round(t, 4) for t in runs['yolo-master-n']]}, "
-            f"yolo26-master-n fp32 {[round(t, 4) for t in runs['fp32']]}, bf16 {[round(t, 4) for t in runs['bf16']]}")
+        log(f"[e2e] bs={bs}: device ms/img, " + ", ".join(f"{k} {[round(t, 4) for t in v]}" for k, v in runs.items()
+                                                          if k in base_runs)
+            + f", {name} fp32 {[round(t, 4) for t in runs['fp32']]}, bf16 {[round(t, 4) for t in runs['bf16']]}")
     out["profile"], out["peak_gib"] = {}, {}
-    for name in ("fp32", "bf16"):
-        wall_ms, dev_us, count = profile_kernels(preds[name].run, x16)
+    for dname in ("fp32", "bf16"):
+        wall_ms, dev_us, count = profile_kernels(preds[dname].run, x16)
         busy_ms = sum(dev_us.values()) / 1e3
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        preds[name].run(x16)
+        preds[dname].run(x16)
         torch.cuda.synchronize()
-        out["peak_gib"][name] = torch.cuda.max_memory_allocated(dev) / 2**30
-        out["profile"][name] = dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms, kernels=count,
-                                    stem_ms=ports_kernels(dev_us)["stem_kernel"] / 1e3)
-        log(f"[yolo26] {name} bs=16 under torch.profiler: wall {wall_ms:.3f} ms/batch, device busy {busy_ms:.3f} "
+        out["peak_gib"][dname] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["profile"][dname] = dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms, kernels=count,
+                                     stem_ms=ports_kernels(dev_us)["stem_kernel"] / 1e3)
+        log(f"[{tag}] {dname} bs=16 under torch.profiler: wall {wall_ms:.3f} ms/batch, device busy {busy_ms:.3f} "
             f"ms/batch ({100 * busy_ms / wall_ms:.1f}%), {count:.0f} kernels/batch, peak memory of a batch "
-            f"{out['peak_gib'][name]:.3f} GiB; top: " + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+            f"{out['peak_gib'][dname]:.3f} GiB; top: " + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
 
-    # val, fp32: the set of the val phase, labelled from the card's own detections (class biases at 0)
+    # val, fp32: write_val_set's images, labelled from the card's own detections (class biases at 0)
     root = Path(tempfile.mkdtemp(prefix=".val_set_", dir=Path(__file__).resolve().parent))
     try:
-        yaml_path = write_val_set(root, VAL_IMAGES)
+        yaml_path = write_val_set(root, val_images)
 
         def facade(where):
-            y = YOLO(Y26, device=where).load_state_dict(state)
+            y = YOLO(name, device=where).load_state_dict(state)
             with torch.no_grad():
                 for branch in (*y.model.head.cv3, *y.model.head.one2one_cv3):
                     branch[-1].bias.zero_()
@@ -2173,37 +2305,41 @@ def phase_yolo26_path(dev, base_run, imgs):
         m = gpu_v.val(**val_kw)
         torch.cuda.synchronize()
         launches = out["launches"]["val"] = read_launches()
-        n_batches = math.ceil(VAL_IMAGES / VAL_BATCH)
+        n_batches = math.ceil(val_images / VAL_BATCH)
         m_cpu = cpu_v.val(**val_kw)
         diff = {k: abs(m[k] - m_cpu[k]) for k in VAL_METRICS}
-        log(f"[yolo26] val fp32: launches {launches}; {m['images']} images, P {m['precision']:.6f} R "
+        log(f"[{tag}] val fp32: launches {launches}; {m['images']} images, P {m['precision']:.6f} R "
             f"{m['recall']:.6f} mAP50 {m['mAP50']:.6f} mAP50-95 {m['mAP50-95']:.6f}; |card - CPU| "
             f"{json.dumps(diff)}; speed {json.dumps(m['speed'])} ms/img")
         require(launches["stem"] == n_batches and launches["nms"] == 0,
-                "the yolo26 val: the stem kernel once a batch and no NMS")
-        # real matches, not 0 against 0: mAP50, since the NMS-free head keeps its near-duplicates, which on
-        # random weights outrank most matches (mAP50-95 0.0465 on the CPU, where v0_10-n's exceeds 0.05)
-        require(m["images"] == VAL_IMAGES and max(diff.values()) <= VAL_METRIC_TOL and m_cpu["mAP50"] > 0.05,
-                f"yolo26 val: the card's metrics differ from the CPU validator's beyond {VAL_METRIC_TOL}")
+                f"the {name} val: the stem kernel once a batch and no NMS")
+        # real matches, not 0 against 0 (yolo26-master-n's NMS-free head keeps its near-duplicates, which on
+        # random weights outrank most matches: mAP50-95 0.0465 on the CPU, where v0_10-n's exceeds 0.05)
+        require(m["images"] == val_images and max(diff.values()) <= VAL_METRIC_TOL and m_cpu["mAP50"] > min_map50,
+                f"{name} val: the card's metrics differ from the CPU validator's beyond {VAL_METRIC_TOL}, or mAP50 "
+                f"{m_cpu['mAP50']} is not above {min_map50}")
         out["val"] = dict(metrics={k: m[k] for k in VAL_METRICS}, diff=diff, speed=m["speed"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out, state, preds
 
-    # the other two scales, bs 16 in fp32
-    out["scales"] = {}
-    for name in ("yolo26-master-s", "yolo26-master-m"):
-        y = calibrated(name, dev).fuse()
-        reset_launches()
-        r16 = y.predict(imgs, batch=16, **KW)
-        torch.cuda.synchronize()
-        launches = read_launches()
-        require(launches["stem"] == 1 and launches["nms"] == 0 and len(r16) == 16,
-                f"{name}: the stem kernel once at bs 16, no NMS")
-        check_detections(r16)
-        ms = cuda_ms(lambda: y._predictor.run(x16), reps=5, warmup=2) / 16
-        out["scales"][name] = dict(launches=launches, ms_per_img=ms)
-        log(f"[yolo26] {name} bs=16 fp32: launches {launches}, device {ms:.4f} ms/img")
-        del y
+
+VARIANTS = ("yolo26-master-latent-n", "yolo26-master-moa-mot-n")
+VARIANT_VAL_IMAGES = 16  # the phase's val set: one batch (phases 16 and 28 wrap a last batch)
+
+
+def phase_yolo26_variants(dev, y26_preds, imgs):
+    """yolo26-master-latent-n (a LatentMixture before each scale of the head,
+    over two or three inputs) and yolo26-master-moa-mot-n (C2fMoA at P3,
+    C2fMoT at P4 and P5; plain C3k2 in the backbone), their zero-initialised
+    mixture parts set non-zero (utils/weights.py:wake_mixtures): phase_end2end_path for each,
+    beside yolo26-master-n's fp32 and bf16 predictors in turns, val on
+    VARIANT_VAL_IMAGES images."""
+    bases = {f"{Y26} fp32": y26_preds["fp32"].run, f"{Y26} bf16": y26_preds["bf16"].run}
+    out = {}
+    for name, blocks, mot in ((VARIANTS[0], 6, 0), (VARIANTS[1], 0, 3)):
+        out[name], _, _ = phase_end2end_path(dev, name, bases, imgs, blocks=blocks, mot_routers=mot, wake=True,
+                                             val_images=VARIANT_VAL_IMAGES)
     return out
 
 
@@ -2233,8 +2369,9 @@ def train_model(state, where, head_bias_zero: bool = True, name: str = "yolo-mas
 
     y = YOLO(name, device=where).load_state_dict(state)
     if head_bias_zero:
+        head = y.model.head
         with torch.no_grad():
-            for branch in y.model.head.cv3:
+            for branch in (*head.cv3, *(head.one2one_cv3 if head.end2end else ())):
                 branch[-1].bias.zero_()
     if schedule is not None:
         for m in routed_blocks(y.model):
@@ -2249,14 +2386,14 @@ def routed_blocks(model):
 
 
 def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=None):
-    """Three optimizer steps of ``name`` at 640, bs 16 x accumulate 4 (nbs 64),
+    """BENCH_STEPS timed optimizer steps of ``name`` at 640, bs 16 x accumulate 4 (nbs 64),
     max_gt 128, in ``dtype``, from ``state`` (class biases at 0; ``schedule`` on
     the routed blocks, train_model): finite
     losses, the EMA counted, BN statistics moved, ms per optimizer step and per
     micro-batch (CUDA events), peak memory; one bs-16 step without accumulation;
     one bs-16 micro-batch by layer (forward, loss + TAL, backward, optimizer +
-    EMA); one profiled optimizer step (busy share, top kernels). Returns the
-    model, the state and the numbers."""
+    EMA); one profiled optimizer step (busy share, top kernels and host ops,
+    profile_sums). Returns the model, the state and the numbers."""
     import math
 
     import torch
@@ -2273,12 +2410,12 @@ def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=No
     tx = pol.build_optimizer(y.model)
     st = ts.make_train_state(y.model, tx)
     step = ts.make_train_step(y.model, tx, accumulate=pol.accumulate, compute_dtype=dtype)
-    batches = [train_batch(16 * pol.accumulate, 128, dev, seed=20 + i) for i in range(4)]
+    batches = [train_batch(16 * pol.accumulate, 128, dev, seed=20 + i) for i in range(BENCH_STEPS + 1)]
     bn_before = {k: v.clone() for k, v in y.model.state_dict().items() if k.endswith("running_mean")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
-    for i in range(3):
+    for i in range(BENCH_STEPS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         st, met = step(st, batches[i])
@@ -2288,27 +2425,27 @@ def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=No
         losses.append({k: float(met[k]) for k in (*metrics, "finite")})
     peak = torch.cuda.max_memory_allocated()
     moved = sum(not torch.equal(v, bn_before[k]) for k, v in y.model.state_dict().items() if k in bn_before)
-    log(f"[{tag}] {name}, 640, {what}, bs 16 x accumulate 4, max_gt 128, three steps: losses {losses}; ms per "
+    log(f"[{tag}] {name}, 640, {what}, bs 16 x accumulate 4, max_gt 128, {BENCH_STEPS} steps: losses {losses}; ms per "
         f"optimizer step {[round(t, 3) for t in step_ms]} (CUDA events), per micro-batch "
         f"{[round(t / pol.accumulate, 3) for t in step_ms]}; peak memory {peak / 2**30:.2f} GiB; "
         f"{moved} of {len(bn_before)} BN running means moved")
     require(all(math.isfinite(r[k]) for r in losses for k in metrics) and all(r["finite"] == 1.0 for r in losses),
             f"{tag}: a non-finite loss")
-    require(st.ema_updates == 3 and st.step == 3 and st.opt_state.count == 3, f"{tag}: the counters")
+    require(st.ema_updates == st.step == st.opt_state.count == BENCH_STEPS, f"{tag}: the counters")
     require(moved == len(bn_before), f"{tag}: BN statistics did not move")
     # one micro-batch alone (forward, loss, backward) and the optimizer + EMA alone
-    mb = {k: v[:16] for k, v in batches[3].items()}
+    mb = {k: v[:16] for k, v in batches[-1].items()}
     micro = ts.make_train_step(y.model, tx, compute_dtype=dtype)  # accumulate 1: a micro-batch, its step
-    micro_ms = cuda_ms(lambda: micro(st, mb), reps=3, warmup=1)
+    micro_ms = cuda_ms(lambda: micro(st, mb), reps=2, warmup=1)
     log(f"[{tag}] one bs-16 step without accumulation (forward, loss, backward, optimizer, EMA): "
-        f"{micro_ms:.3f} ms (CUDA events, median of 3)")
+        f"{micro_ms:.3f} ms (CUDA events, median of 2)")
     # the step's layers on one bs-16 micro-batch, CUDA events between them: the train-mode forward,
-    # the loss (TAL included), backward, and the optimizer with the EMA (median of 3 after one untimed)
+    # the loss (TAL included), backward, and the optimizer with the EMA (median of 2 after one untimed)
     hyp = {"box": 7.5, "cls": 0.5, "dfl": 1.5, "moe": 0.01}
     names = ("forward", "loss + TAL", "backward", "optimizer + EMA")
     split = {k: [] for k in names}
     y.model.train()
-    for _ in range(4):
+    for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
         preds, aux = y.model.forward_train(mb["images"].to(dtype), st.step)
@@ -2330,40 +2467,40 @@ def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=No
     # one profiled optimizer step: busy share and top kernels
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st, _ = step(st, batches[3])
+        st, _ = step(st, batches[-1])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    count = sum(e.count for e in kern)
-    copies = sum(e.count for e in kern if "Memcpy HtoD" in e.key)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    device, host = profile_sums(prof)
+    busy_ms = sum(us for us, _ in device.values()) / 1e3
+    count = sum(n for _, n in device.values())
+    copies = sum(n for k, (_, n) in device.items() if "Memcpy HtoD" in k)
+    top = sorted(device.items(), key=lambda kv: -kv[1][0])[:8]
     log(f"[{tag}] one profiled optimizer step: wall {wall_ms:.3f} ms under the profiler, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {count} kernels and copies, {copies} host-to-device "
         f"copies; top: "
-        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
+        + "; ".join(f"{k[:60]} {us / 1e3:.3f} ms" for k, (us, _) in top))
     require(busy_ms > 0, f"{tag}: the profile shows no device time")
-    host = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU),
-                  key=lambda e: -e.self_cpu_time_total)[:8]
-    host_ms = {e.key: round(e.self_cpu_time_total / 1e3, 3) for e in host}
+    host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
+    host_ms = {k: round(us / 1e3, 3) for k, (us, _) in host}
     log(f"[{tag}] the profiled step's host: top ops by self CPU ms (calls): "
-        + "; ".join(f"{e.key} {e.self_cpu_time_total / 1e3:.3f} ({e.count})" for e in host))
+        + "; ".join(f"{k} {us / 1e3:.3f} ({n})" for k, (us, n) in host))
     return y, st, dict(host_top_ms=host_ms, losses=losses, step_ms=step_ms,
                        micro_ms=[t / pol.accumulate for t in step_ms], step_no_accumulation_ms=micro_ms,
                        layers_ms=split, peak_bytes=peak, busy_ms=busy_ms, wall_ms=wall_ms,
                        busy_share=busy_ms / wall_ms, kernels=count, copies_htod=copies)
 
 
-def card_vs_cpu_step(dev, make_model, tag, pin_gated: bool = False):
+def card_vs_cpu_step(dev, make_model, tag, pin=None, flips=None):
     """One optimizer step at bs 2 of ``make_model(where)`` on the card against the
     same step on the CPU, from a state at step 50 of the trainer's warmup (every
     group's lr non-zero, momentum traces seeded): the loss components within
     1e-4 relative, the parameters, BN statistics and EMA after the step within
     1e-4 of each tensor's scale plus 1e-2 of its move, the updates within 5e-2
-    of their size. With ``pin_gated`` the CPU's step runs first and the card's
-    gated blocks route by its picks and kept counts (a pick may flip between
-    the two fp32 programs), and the routings that differ unpinned are counted.
-    Returns the numbers and the two models."""
+    of their size. With ``pin`` (a routing context: gated_routing, moe_routing)
+    the CPU's step runs first and the card's routed blocks route by its picks
+    (and kept counts; a pick may flip between the two fp32 programs), and the
+    routings that differ unpinned are counted by ``flips``. Returns the numbers
+    and the two models."""
     import contextlib
     import math
 
@@ -2375,7 +2512,7 @@ def card_vs_cpu_step(dev, make_model, tag, pin_gated: bool = False):
     pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
     runs, seen, own = {}, [], []
     g = torch.Generator().manual_seed(3)
-    for where in (("cpu", dev) if pin_gated else (dev, "cpu")):
+    for where in (("cpu", dev) if pin else (dev, "cpu")):
         y = make_model(where)  # built before the routing is patched: the facade's stride probe routes too
         tx = pol.build_optimizer(y.model)
         st = ts.make_train_state(y.model, tx)
@@ -2389,15 +2526,14 @@ def card_vs_cpu_step(dev, make_model, tag, pin_gated: bool = False):
         bn_names = {id(m): n for n, m in y.model.named_modules()}
         step = ts.make_train_step(y.model, tx)
         batch = train_batch(2, 8, where, seed=11)
-        if pin_gated and where != "cpu":
-            with torch.no_grad(), gated_routing(seen=own):  # the card's own routing of the step's batch
+        if pin and where != "cpu":
+            with torch.no_grad(), pin(seen=own):  # the card's own routing of the step's batch
                 y.model.train().forward_train(batch["images"], st.step)
             for bn in (m for m in y.model.modules() if isinstance(m, torch.nn.BatchNorm2d)):
                 bn.running_mean.copy_(before[f"{bn_names[id(bn)]}.running_mean"].to(where))
                 bn.running_var.copy_(before[f"{bn_names[id(bn)]}.running_var"].to(where))
-        pin = (gated_routing(seen=seen) if where == "cpu" else gated_routing(picks=seen)) if pin_gated \
-            else contextlib.nullcontext()
-        with pin:
+        routing = (pin(seen=seen) if where == "cpu" else pin(picks=seen)) if pin else contextlib.nullcontext()
+        with routing:
             st, met = step(st, batch)
         runs[str(where)] = (y.model, st, {k: float(met[k]) for k in metrics}, before)
     (mg, sg, lg, bg), (mc, sc, lc, bc) = runs[str(dev)], runs["cpu"]
@@ -2430,10 +2566,10 @@ def card_vs_cpu_step(dev, make_model, tag, pin_gated: bool = False):
         f"{rel[k_rel]:.3e} of its largest move ({len(rel)} tensors moved by >= 1e-2 of the largest move, {top:.3e})")
     require(rel[k_rel] <= 5e-2, f"{tag}: the card's updates differ from the CPU's beyond 5e-2 of their size")
     out = dict(loss_rel_err=loss_err, worst=worst, update_rel_err=rel[k_rel])
-    if pin_gated:
-        out["routing_flips"] = routing_flips(own, seen)
-        log(f"[{tag}] the card pinned to the CPU step's routing; unpinned, {out['routing_flips']} of "
-            f"{sum(len(i) for i, _ in seen)} picks and {len(seen)} kept counts differ")
+    if pin:
+        out["routing_flips"] = flips(own, seen)
+        log(f"[{tag}] the card pinned to the CPU step's routing; unpinned, {out['routing_flips']} routings differ "
+            f"({len(seen)} routed calls)")
     return out, {"card": mg, "cpu": mc}
 
 
@@ -2441,7 +2577,7 @@ def phase_train(dev, state):
     """The train step (engine/train_step.py) on yolo-master-n at 640, fp32:
     (a) one optimizer step at bs 2 on the card against the same step on the CPU,
     from a state at step 50 of the warmup (every group's lr non-zero, momentum
-    traces seeded); (b) three optimizer steps of bs 16 x accumulate 4 (nbs 64),
+    traces seeded); (b) two timed optimizer steps of bs 16 x accumulate 4 (nbs 64),
     max_gt 128: finite losses, the EMA counted, BN statistics moved, times, peak
     memory and one profiled step; (c) the EMA weights loaded into a model,
     fused, and validated on a synthetic set: the stem and NMS kernels launch."""
@@ -2457,7 +2593,7 @@ def phase_train(dev, state):
     # (a) card against CPU, one optimizer step
     out["a"], _ = card_vs_cpu_step(dev, lambda where: train_model(state, where), "train a")
 
-    # (b) the slice at full width: bs 16 x accumulate 4, three optimizer steps
+    # (b) the slice at full width: bs 16 x accumulate 4, two timed optimizer steps and a profiled one
     y, st, out["b"] = train_step_bench(dev, state, torch.float32)
 
     # (c) the EMA weights to the kernels: a fused model of them through val()
@@ -2478,7 +2614,7 @@ def phase_train(dev, state):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     n_batches = math.ceil(VAL_IMAGES / VAL_BATCH)
-    log(f"[train c] val of the EMA model after three steps (fused): launches {launches}; {m['images']} images, "
+    log(f"[train c] val of the EMA model after {st.step} steps (fused): launches {launches}; {m['images']} images, "
         f"P {m['precision']:.6f} R {m['recall']:.6f} mAP50 {m['mAP50']:.6f} mAP50-95 {m['mAP50-95']:.6f}; "
         f"detections per image {counts}")
     require(launches["stem"] == n_batches and launches["nms"] == n_batches,
@@ -2670,7 +2806,7 @@ def phase_v0_1_train(dev, state, n32, n16):
             "v0_1 train (b): the card's bf16 gradients are further from the CPU fp32 than 1.5x the CPU bf16's")
     out["b"] = dict(grad_rel_rms_card=card, grad_rel_rms_cpu_bf16=own, flips=flips, pairs=pairs)
 
-    # (c) bs 16 x accumulate 4, three steps, in both dtypes, beside yolo-master-n's
+    # (c) bs 16 x accumulate 4, two timed steps, in both dtypes, beside yolo-master-n's
     for what, dtype, ref in (("fp32", torch.float32, n32), ("bf16", torch.bfloat16, n16)):
         _, _, r = train_step_bench(dev, state, dtype, name=V01, schedule=V01_STEP_SCHEDULE)
         out[f"c_{what}"] = r
@@ -2724,7 +2860,7 @@ def phase_v0_10_train(dev, state, main_state, imgs, benches):
         return train_model(state, where, name=V10)
 
     out = {}
-    out["a"], _ = card_vs_cpu_step(dev, make, "v0_10 train a", pin_gated=True)
+    out["a"], _ = card_vs_cpu_step(dev, make, "v0_10 train a", pin=gated_routing, flips=routing_flips)
 
     # (b) bf16 against the CPU's fp32 and bf16, the card pinned to the CPU bf16's routing
     pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
@@ -2779,7 +2915,7 @@ def phase_v0_10_train(dev, state, main_state, imgs, benches):
         require(same and any(fired), f"{name}: the card's draws differ from the CPU's, or the dropout never fired")
         out["c"][name] = dict(equal=same, fired=fired)
 
-    # (d) bs 16 x accumulate 4, three steps, in both dtypes, beside yolo-master-n's and v0_1-n's
+    # (d) bs 16 x accumulate 4, two timed steps, in both dtypes, beside yolo-master-n's and v0_1-n's
     for what, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         _, _, r = train_step_bench(dev, state, dtype, name=V10)
         out[f"d_{what}"] = r
@@ -2855,13 +2991,117 @@ def phase_v0_10_train(dev, state, main_state, imgs, benches):
     return out
 
 
-def phase_multitrainer(dev, state):
-    """MultiTrainer: YOLO("yolo-master-n").train(data=[a, b], epochs=1, batch=16,
+def layer4_share(model, mb, dtype, reps: int = 3):
+    """CUDA-event ms (median of ``reps`` after one untimed) of one micro-batch's
+    forward + backward through yolo26-master's layer 4 alone (A2C2fMoE: full
+    attention over P3's pixels, two ABlockMoE) and through its two AAttn
+    modules alone, on their inputs from the layers before (made under
+    no_grad), in train mode at the model's step."""
+    import torch
+
+    model.train()
+    with torch.no_grad():
+        x = mb["images"].to(dtype).permute(0, 3, 1, 2)
+        for m in model.model[:4]:
+            x = m(x)
+        layer = model.model[4]
+        a = layer.m[0][0]
+        xa = layer.cv1(x)
+
+    def timed(fn, inp):
+        inp = inp.detach().requires_grad_()
+        ms = []
+        for _ in range(reps + 1):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(inp).float().sum().backward()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            model.zero_grad(set_to_none=True)
+            inp.grad = None
+        return statistics.median(ms[1:])
+
+    return {"layer 4": timed(layer, x), "its two AAttn": 2 * timed(a.attn, xa)}
+
+
+Y26_STEP_SCHEDULE = (2, 2)  # phase 29's warmup_steps, dropout_interval: step 50 drops experts
+
+
+def phase_yolo26_train(dev, state, imgs, benches):
+    """yolo26-master-n's training at 640 (the end2end dual-assignment loss,
+    L1 at reg_max 1, the six routed blocks of layers 4, 6 and 8 with their
+    router noise, progressive sparsity, expert dropout and aux loss) with
+    phase 28's weights (class biases of both branches at 0), warmup_steps 2
+    and dropout_interval 2 on the routed blocks (Y26_STEP_SCHEDULE):
+    (a) fp32, one step at bs 2 from step 50 (k = 2, a dropout step) on the
+    card against the CPU, phase 17's gate, the card routed by the CPU step's
+    picks (a pick may flip between the two fp32 programs; counted), the router
+    noise and keep masks of the card's step equal to the CPU's bit for bit;
+    (b) train_step_bench in fp32 and bf16 (bs 16 x accumulate 4: times by
+    layer, busy share, launches and copies, peak memory, a profiled step)
+    beside yolo-master-n's and v0_1-n's of the same call (``benches``), with
+    layer 4's share of a bs-16 micro-batch's forward + backward and its two
+    AAttn modules' share; (c) the loop with amp at its default (phase 20's
+    run: two epochs, resume, last.npz through predict; the EMA's val through
+    the end2end validator, no NMS); (d) MultiTrainer (phase 21's run)."""
+    import torch
+
+    def make(where):
+        return train_model(state, where, name=Y26, schedule=Y26_STEP_SCHEDULE)
+
+    log(f"[yolo26 train] warmup_steps, dropout_interval = {Y26_STEP_SCHEDULE} on the six routed blocks "
+        "(layers.{4,6,8}.m.0.{0,1}.mlp)")
+    out = {}
+    out["a"], models = card_vs_cpu_step(dev, make, "yolo26 train a", pin=moe_routing, flips=mask_flips)
+    dropped = {}
+    for mg, mc in zip(routed_blocks(models["card"]), routed_blocks(models["cpu"])):
+        require(mg.step == mc.step == 50 and mg.dropped_experts().size > 0,
+                "yolo26 train (a): step 50 should drop experts")
+        require(torch.equal(mg._draws[1].cpu(), mc._draws[1]),
+                f"yolo26 train (a): {mg.jax_path}'s noise or keep mask differs between the card and the CPU")
+        dropped[mg.jax_path] = mg.dropped_experts().tolist()
+    log(f"[yolo26 train a] the router noise [2, E] and keep mask [E] of each block's step on the card equal the "
+        f"CPU's bit for bit; dropped experts at step 50: {dropped}")
+    out["a"]["dropped"] = dropped
+
+    # (b) bs 16 x accumulate 4, two timed steps, in both dtypes, beside yolo-master-n's and v0_1-n's
+    for what, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        y, st, r = train_step_bench(dev, state, dtype, name=Y26, schedule=Y26_STEP_SCHEDULE)
+        mb = {k: v[:16] for k, v in train_batch(16, 128, dev, seed=29).items()}
+        share = layer4_share(y.model, mb, dtype)
+        micro = r["layers_ms"]["forward"] + r["layers_ms"]["loss + TAL"] + r["layers_ms"]["backward"]
+        r["layer4_ms"] = share
+        r["layer4_share"] = {k: v / micro for k, v in share.items()}
+        out[f"b_{what}"] = r
+        n, v01 = benches[f"n_{what}"], benches[f"v01_{what}"]
+        log(f"[yolo26 train b] {what}, ms per optimizer step (bs 16 x 4): yolo26-master-n "
+            f"{[round(t, 3) for t in r['step_ms']]}, yolo-master-n {[round(t, 3) for t in n['step_ms']]}, v0_1-n "
+            f"{[round(t, 3) for t in v01['step_ms']]}; by layer {json.dumps(r['layers_ms'])}; layer 4 alone "
+            f"(forward + backward of a bs-16 micro-batch) {share['layer 4']:.3f} ms, its two AAttn "
+            f"{share['its two AAttn']:.3f} ms: {100 * r['layer4_share']['layer 4']:.1f}% and "
+            f"{100 * r['layer4_share']['its two AAttn']:.1f}% of the micro-batch's forward + loss + backward "
+            f"({micro:.3f} ms); peak {r['peak_bytes'] / 2**30:.2f} GiB (n {n['peak_bytes'] / 2**30:.2f}, v0_1 "
+            f"{v01['peak_bytes'] / 2**30:.2f}); busy {r['busy_ms']:.3f} ms ({100 * r['busy_share']:.1f}%; n "
+            f"{100 * n['busy_share']:.1f}%, v0_1 {100 * v01['busy_share']:.1f}%); {r['kernels']} kernels and "
+            f"copies, {r['copies_htod']} host-to-device copies (n {n['kernels']}, {n['copies_htod']})")
+        del y, st
+
+    # (c) the loop, amp at its default; (d) MultiTrainer
+    out["c"] = phase_train_loop(dev, state, imgs, amp=True, name=Y26, schedule=Y26_STEP_SCHEDULE)
+    out["d"] = phase_multitrainer(dev, state, name=Y26)
+    return out
+
+
+def phase_multitrainer(dev, state, name: str = "yolo-master-n"):
+    """MultiTrainer: YOLO(name).train(data=[a, b], epochs=1, batch=16,
     imgsz=640, workers=4) with amp at its default (bf16), on two synthetic sets
-    of phase 18's form (different seeds), both yamls named data.yaml: two runs,
+    of phase 18's form (shared_train_set, seeds 10 and 11), both yamls named
+    data.yaml: two runs,
     "data" and "data-2", each from the base weights, finite val metrics, the NMS
-    kernel once a val batch of each run's EMA, multitrain_results.json with the
-    runs and their mean, and the facade's model the base again, bitwise."""
+    kernel once a val batch of each run's EMA (none for an end2end head),
+    multitrain_results.json with the runs and their mean, and the facade's
+    model the base again, bitwise."""
     import math
     import shutil
     import tempfile
@@ -2869,27 +3109,26 @@ def phase_multitrainer(dev, state):
 
     import torch
 
-    here = Path(__file__).resolve().parent
-    roots = [Path(tempfile.mkdtemp(prefix=".val_set_multi_", dir=here)) for _ in range(2)]
+    root = Path(tempfile.mkdtemp(prefix=".val_set_multi_", dir=Path(__file__).resolve().parent))
     try:
-        yamls = [str(write_train_set(root, seed=10 + i)) for i, root in enumerate(roots)]
-        y = train_model(state, dev)
+        yamls = [str(shared_train_set(seed=10 + i)) for i in range(2)]
+        y = train_model(state, dev, name=name)
         base = {k: v.clone() for k, v in y.model.state_dict().items()}
         reset_launches()
         t0 = time.perf_counter()
-        res = y.train(data=yamls, epochs=1, batch=16, imgsz=IMGSZ, workers=4, save_dir=str(roots[0] / "multi"))
+        res = y.train(data=yamls, epochs=1, batch=16, imgsz=IMGSZ, workers=4, save_dir=str(root / "multi"))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = read_launches()
-        payload = json.loads((roots[0] / "multi" / "multitrain_results.json").read_text())
-        files = sorted(p.name for p in (roots[0] / "multi").iterdir())
+        payload = json.loads((root / "multi" / "multitrain_results.json").read_text())
+        files = sorted(p.name for p in (root / "multi").iterdir())
     finally:
-        for root in roots:
-            shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
     restored = all(torch.equal(v, base[k]) for k, v in y.model.state_dict().items())
     val_batches = math.ceil(TRAIN_VAL_IMAGES / min(16, 8))
     shown = {n: {k: round(m[k], 6) for k in (*VAL_METRICS, "best_fitness") if k in m} for n, m in res.items()}
-    log(f"[multitrainer] two runs of 1 epoch in {wall_s:.2f} s: {json.dumps(shown)}"
+    tag = "multitrainer" + ("" if name == "yolo-master-n" else f" {name}")
+    log(f"[{tag}] two runs of 1 epoch in {wall_s:.2f} s: {json.dumps(shown)}"
         f"; mean {json.dumps({k: round(v, 6) for k, v in payload['mean'].items() if k in VAL_METRICS})}; launches "
         f"{launches}; files {files}; base restored bitwise: {restored}")
     require(list(res) == ["data", "data-2"] and all("error" not in m for m in res.values()),
@@ -2897,9 +3136,28 @@ def phase_multitrainer(dev, state):
     require(all(math.isfinite(m[k]) for m in res.values() for k in VAL_METRICS), "multitrainer: val metrics")
     require(set(payload) == {"runs", "mean"} and payload["runs"] == res, "multitrainer: multitrain_results.json")
     require(restored and not y.model.training, "multitrainer: the facade's model is not the base after the sweep")
-    require(launches["nms"] == 2 * val_batches, f"multitrainer: {launches['nms']} NMS launches, expected "
-            f"{val_batches} val batches x 2 runs")
+    nms_per_batch = 0 if y.model.head.end2end else 1
+    require(launches["nms"] == 2 * val_batches * nms_per_batch, f"multitrainer: {launches['nms']} NMS launches, "
+            f"expected {val_batches} val batches x 2 runs x {nms_per_batch}")
     return dict(runs=res, mean=payload["mean"], wall_s=wall_s, launches=launches)
+
+
+TRAIN_SETS = {}  # seed -> the yaml of write_train_set's set, shared by the loop phases (they only read it)
+
+
+def shared_train_set(seed: int = 0):
+    """write_train_set's set for ``seed``, written once a run (~4 s each) into
+    a directory under the checkout that is removed at exit."""
+    import atexit
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    if seed not in TRAIN_SETS:
+        root = Path(tempfile.mkdtemp(prefix=".val_set_shared_", dir=Path(__file__).resolve().parent))
+        atexit.register(shutil.rmtree, root, True)
+        TRAIN_SETS[seed] = write_train_set(root, seed=seed)
+    return TRAIN_SETS[seed]
 
 
 def write_train_set(root, seed: int = 0):
@@ -2934,8 +3192,9 @@ def write_train_set(root, seed: int = 0):
 
 
 def phase_train_loop(dev, state, imgs, amp: bool = False, name: str = "yolo-master-n", schedule=None):
-    """The training loop, YOLO(name).train(..., amp=amp), on a synthetic set
-    written under the checkout and removed after (``schedule``: train_model's)."""
+    """The training loop, YOLO(name).train(..., amp=amp), on shared_train_set's
+    set, its runs written under the checkout and removed after (``schedule``:
+    train_model's)."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -2948,7 +3207,7 @@ def phase_train_loop(dev, state, imgs, amp: bool = False, name: str = "yolo-mast
 
 
 def _phase_train_loop(dev, state, imgs, root, amp, name, schedule):
-    """(a) TRAIN_IMAGES train and TRAIN_VAL_IMAGES val images; ``name`` at 640
+    """(a) shared_train_set's TRAIN_IMAGES train and TRAIN_VAL_IMAGES val images; ``name`` at 640
     with ``state`` (class biases at 0; phase 9's weights for yolo-master-n) trained by
     .train(epochs=2, batch=16, amp=amp, workers=4, save_period=1,
     close_mosaic=1, moe_schedule="gini"): bs 16 x accumulate 4, mosaic in epoch
@@ -2973,7 +3232,7 @@ def _phase_train_loop(dev, state, imgs, root, amp, name, schedule):
     from yolo_master_tpu_torch.data.dataset import PrefetchLoader, YOLODataset
     from yolo_master_tpu_torch.engine.trainer import DetectionTrainer
 
-    yaml_path = write_train_set(root)
+    yaml_path = shared_train_set()
     metrics = ("loss", "box_loss", "cls_loss", "dfl_loss", "aux_loss")
     run_kw = dict(data=str(yaml_path), epochs=2, batch=16, imgsz=IMGSZ, amp=amp, workers=4, save_period=1,
                   close_mosaic=1, moe_schedule="gini")
@@ -3012,6 +3271,7 @@ def _phase_train_loop(dev, state, imgs, root, amp, name, schedule):
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     val_batches = math.ceil(TRAIN_VAL_IMAGES / min(16, 8))
+    nms_per_batch = 0 if y.model.head.end2end else 1  # an end2end head takes no NMS
     files = sorted(p.name for p in (root / "run").iterdir())
     gains = [g for _, _, g in log_rows]
     log(f"[{tag}] {name}, 640, bs 16 x accumulate {trainer.accumulate} ({trainer.nb_opt} optimizer "
@@ -3029,8 +3289,8 @@ def _phase_train_loop(dev, state, imgs, root, amp, name, schedule):
     require({"results.csv", "best.npz", "last.npz", "state", "state_meta.json", "routing_history.csv"} <= set(files),
             f"{tag}: the run's files {files}")
     require(trainer.routing_history.rows and gains[0] != gain0, f"{tag}: the Gini rule did not move the MoE gain")
-    require(launches["nms"] == val_batches * 2, f"{tag}: {launches['nms']} NMS launches, expected "
-            f"{val_batches} val batches x 2 epochs")
+    require(launches["nms"] == val_batches * 2 * nms_per_batch, f"{tag}: {launches['nms']} NMS launches, expected "
+            f"{val_batches} val batches x 2 epochs x {nms_per_batch}")
     require(len(vals) == 2 and all(math.isfinite(m[k]) for m in vals for k in VAL_METRICS),
             f"{tag}: val metrics")
     require(not trainer.train_set.mosaic_enabled, f"{tag}: close_mosaic did not close mosaic")
@@ -3076,8 +3336,8 @@ def _phase_train_loop(dev, state, imgs, root, amp, name, schedule):
     torch.cuda.synchronize()
     predict_launches = read_launches()
     log(f"[{tag}] last.npz, fused, predict bs 1 + bs 16: launches {predict_launches}")
-    require(predict_launches["stem"] == 2 and predict_launches["nms"] == 2 and len(r1) == 1 and len(r16) == 16,
-            f"{tag}: predict of last.npz did not launch the stem and NMS kernels")
+    require(predict_launches["stem"] == 2 and predict_launches["nms"] == 2 * nms_per_batch and len(r1) == 1
+            and len(r16) == 16, f"{tag}: predict of last.npz did not launch the stem (and NMS) kernels")
     check_detections(r1 + r16)
     out.update(epochs=[{k: agg[k] for k in metrics} for _, agg, _ in log_rows], gains=[gain0, *gains],
                val=[{k: m[k] for k in VAL_METRICS} for m in vals], launches=launches, timings=trainer.timings,
@@ -3128,7 +3388,7 @@ def shutil_copy(src, dst, names):
         (shutil.copytree if (src / name).is_dir() else shutil.copy2)(src / name, dst / name)
 
 
-def profile_kernels(run, xb, iters: int = 5):
+def profile_kernels(run, xb, iters: int = 3):
     """(wall ms per iteration, {kernel name: device us per iteration}, kernels per iteration)
     of ``run(xb)`` under torch.profiler, after one untimed call."""
     import torch
@@ -3142,8 +3402,66 @@ def profile_kernels(run, xb, iters: int = 5):
             run(xb)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return wall_ms, {e.key: e.self_device_time_total / iters for e in kernels}, sum(e.count for e in kernels) / iters
+    device, _ = profile_sums(prof)
+    return wall_ms, {k: us / iters for k, (us, _) in device.items()}, sum(n for _, n in device.values()) / iters
+
+
+PROFILER_SKIPS = frozenset({"[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+                             "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+                             "aten::is_leaf", "aten::output_nr", "aten::_version"})  # key_averages() leaves them out
+
+
+def profile_sums(prof):
+    """({device event name: [us, count]}, {host event name: [self CPU us, count]})
+    of a finished torch.profiler run, the sums key_averages() gives as self
+    device and self CPU time, read from the raw Kineto events: key_averages()
+    first builds an event object for each of them, which took 10-26 s a
+    profiled train step (16,000-34,000 kernels and their host events). A host
+    event's self time is its time less that of the host events nested in it
+    on its thread; a runtime call (cudaLaunchKernel) counts on the thread of
+    the operator that made it, as torch.profiler nests them."""
+    import torch
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    device, host, spans, frontend = {}, {}, [], {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name in PROFILER_SKIPS or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        sync = not e.is_async() and e.start_thread_id() == e.end_thread_id()
+        if e.device_type() == cuda:
+            row = device.setdefault(name, [0.0, 0])
+            row[0] += (e.end_ns() - e.start_ns()) / 1e3 if sync else 0.0
+            row[1] += 1
+        elif e.device_type() == cpu:
+            host.setdefault(name, [0.0, 0])[1] += 1
+            if sync:
+                spans.append([e.start_thread_id(), e.start_ns(), e.end_ns(), name, e.linked_correlation_id()])
+                if e.linked_correlation_id() == 0:
+                    frontend.setdefault(e.correlation_id(), e.start_thread_id())
+    threads = {}
+    for thread, start, end, name, linked in spans:
+        threads.setdefault(frontend.get(linked, thread) if linked > 0 else thread, []).append((start, end, name))
+
+    def close(end, name, self_ns, children, child):
+        host[name][0] += self_ns / 1e3
+        if children == 1 and child == name:  # key_averages() counts an only child of its own name with its parent
+            host[name][1] -= 1
+
+    for evs in threads.values():
+        evs.sort(key=lambda ev: (ev[0], -ev[1]))
+        stack = []  # [end, name, self ns, children, last child's name] of the open events
+        for start, end, name in evs:
+            while stack and (start >= stack[-1][0] or end > stack[-1][0]):
+                close(*stack.pop())
+            if stack:
+                stack[-1][2] -= end - start
+                stack[-1][3] += 1
+                stack[-1][4] = name
+            stack.append([end, name, end - start, 0, None])
+        while stack:
+            close(*stack.pop())
+    return device, host
 
 
 def ports_kernels(dev_us: dict) -> dict:
@@ -3162,10 +3480,39 @@ def device_time_by_kernel(run, xb):
     return sum(dev_us.values()) / 1e3, {k: v / 1e3 for k, v in ports_kernels(dev_us).items()}
 
 
+def check_profile_sums(run, xb):
+    """profile_sums against key_averages() on one profiled ``run(xb)``: the
+    same names and counts, and times within 1e-6 relative (or 1e-3 us)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run(xb)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(xb)
+        torch.cuda.synchronize()
+    sums = dict(zip((torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU), profile_sums(prof)))
+    worst = 0.0
+    for kind, ours in sums.items():
+        theirs = {e.key: (e.self_device_time_total if kind == torch.autograd.DeviceType.CUDA else e.self_cpu_time_total,
+                          e.count) for e in prof.key_averages() if e.device_type == kind}
+        require(set(ours) == set(theirs) and all(ours[k][1] == theirs[k][1] for k in ours),
+                f"profile_sums: {kind} names or counts differ from key_averages()")
+        for k, (us, _) in ours.items():
+            worst = max(worst, abs(us - theirs[k][0]))
+            require(abs(us - theirs[k][0]) <= max(1e-6 * abs(theirs[k][0]), 1e-3),
+                    f"profile_sums: {kind} {k} {us} us, key_averages() {theirs[k][0]}")
+    n_kernels, n_host = (len(sums[kind]) for kind in (torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU))
+    log(f"[profile] profile_sums equals key_averages() on one profiled batch: {n_kernels} kernel names, {n_host} host "
+        f"names, largest difference {worst:.3e} us")
+
+
 def phase_profile(paths, xb):
-    """Device time by kernel over 5 iterations of each path's device graph
+    """Device time by kernel over 3 iterations of each path's device graph
     (uint8 batch on the card -> detections), under torch.profiler; returns each
-    path's busy time and the stem kernel's share of it."""
+    path's busy time and the stem kernel's share of it. First, profile_sums
+    against key_averages() on one batch of the first path."""
+    check_profile_sums(next(iter(paths.values())), xb)
     shares = {}
     for name, run in paths.items():
         wall_ms, dev_us, count = profile_kernels(run, xb)
@@ -3241,8 +3588,10 @@ def main():
     done("val path")
     _, v10, v10_state = phase_v0_10_path(dev, fp32_runs["predict path"], imgs)
     done("v0_10 paths")
-    y26 = phase_yolo26_path(dev, fp32_runs["predict path"], imgs)
+    y26, y26_state, y26_preds = phase_yolo26_path(dev, fp32_runs["predict path"], imgs)
     done("yolo26 paths")
+    y26v = phase_yolo26_variants(dev, y26_preds, imgs)
+    done("yolo26-master-latent and -moa-mot paths")
     train = phase_train(dev, state)
     done("train step")
     loop = phase_train_loop(dev, state, imgs)
@@ -3262,6 +3611,10 @@ def main():
                                   {"n_fp32": train["b"], "n_bf16": train16["b"], "v01_fp32": v01_train["c_fp32"],
                                    "v01_bf16": v01_train["c_bf16"]})
     done("v0_10 training and the MoE tools")
+    y26_train = phase_yolo26_train(dev, y26_state, imgs,
+                                   {"n_fp32": train["b"], "n_bf16": train16["b"], "v01_fp32": v01_train["c_fp32"],
+                                    "v01_bf16": v01_train["c_bf16"]})
+    done("yolo26 training")
 
     def v01_dense(xb):
         v01.model.sparse_inference = False
@@ -3311,6 +3664,10 @@ def main():
                      yolo26_predict_launches=y26["launches"]["fp32"]["stem"],
                      yolo26_bank_launches=y26["launches"]["fp32"]["stem_bank"],
                      yolo26_val_launches=y26["launches"]["val"]["stem"],
+                     **{f"{v.removesuffix('-n').replace('-', '_')}_{k}_launches": y26v[v]["launches"][p][key]
+                        for v in VARIANTS for k, p, key in (("predict", "fp32", "stem"), ("bank", "fp32", "stem_bank"),
+                                                            ("val", "val", "stem"))},
+                     yolo26_train_loop_predict_launches=y26_train["c"]["predict_launches"]["stem"],
                      v0_10_train_loop_predict_launches=v10_train["e"]["predict_launches"]["stem"],
                      pruned_n_predict_launches=v10_train["f"]["prune_launches"]["stem"],
                      widths={scale: {k: stem_res[(scale, 16)][k]
@@ -3331,6 +3688,12 @@ def main():
                      v0_10_val_launches=v10["launches"]["val"]["nms"],
                      yolo26_predict_launches={k: y26["launches"][k]["nms"] for k in ("fp32", "bf16")},
                      yolo26_val_launches=y26["launches"]["val"]["nms"],
+                     **{f"{v.removesuffix('-n').replace('-', '_')}_{k}_launches": (
+                         {d: y26v[v]["launches"][d]["nms"] for d in ("fp32", "bf16")} if k == "predict"
+                         else y26v[v]["launches"]["val"]["nms"]) for v in VARIANTS for k in ("predict", "val")},
+                     yolo26_train_loop_ema_val_launches=y26_train["c"]["launches"]["nms"],
+                     yolo26_train_loop_predict_launches=y26_train["c"]["predict_launches"]["nms"],
+                     yolo26_multitrainer_ema_val_launches=y26_train["d"]["launches"]["nms"],
                      v0_10_train_loop_ema_val_launches=v10_train["e"]["launches"]["nms"],
                      v0_10_train_loop_predict_launches=v10_train["e"]["predict_launches"]["nms"],
                      pruned_n_predict_launches=v10_train["f"]["prune_launches"]["nms"],
@@ -3365,6 +3728,8 @@ def main():
                      v0_10_bank_launches=v10["launches"]["bf16"]["stem_bank"],
                      yolo26_launches=y26["launches"]["bf16"]["stem"],
                      yolo26_bank_launches=y26["launches"]["bf16"]["stem_bank"],
+                     **{f"{v.removesuffix('-n').replace('-', '_')}_{k}_launches": y26v[v]["launches"]["bf16"][key]
+                        for v in VARIANTS for k, key in (("predict", "stem"), ("bank", "stem_bank"))},
                      accumulation_rounding=bf16_rounding,
                      stem_share_scale_m_bs16=shares["yolo-master-m predict path, bf16"]["stem_share"],
                      widths={scale: {f"{form}_in": {k: stem16_res[(scale, 16, form)][k] for k in
@@ -3393,6 +3758,11 @@ def main():
     log(f"[train loop bf16 {V01}] " + json.dumps({k: v for k, v in v01_loop.items() if k != "predict_launches"}))
     log(f"[{V10}] " + json.dumps(v10))
     log(f"[{Y26}] " + json.dumps(y26))
+    for v in VARIANTS:
+        log(f"[{v}] " + json.dumps(y26v[v]))
+    log(f"[{Y26} train] " + json.dumps({k: ({n: x for n, x in r.items() if n not in ("losses", "predict_launches")}
+                                            if isinstance(r, dict) else r) for k, r in y26_train.items()},
+                                       default=str))
     log(f"[{V10} train] " + json.dumps({k: ({n: v for n, v in r.items() if n not in ("losses", "predict_launches")}
                                             if isinstance(r, dict) else r) for k, r in v10_train.items()},
                                        default=str))

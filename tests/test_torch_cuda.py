@@ -1274,3 +1274,141 @@ def test_yolo26_predict_on_the_card_matches_the_cpu(dev, monkeypatch):
     for key in ("boxes", "scores"):
         ref = c[key].float()
         assert rel_rms(g16[key].cpu(), ref) <= 1.5 * rel_rms(c16[key], ref), key
+
+
+def _mot_routing(seen=None, picks=None):
+    """MoTRouter.forward that records each router's [B, E, H, W] kept-expert mask
+    into ``seen`` in forward order, or keeps ``picks``' over its own probabilities."""
+    from yolo_master_tpu_torch.nn import mot
+
+    plain = mot.MoTRouter.forward
+    it = iter(picks or [])
+
+    def forward(self, x):
+        w, probs, logits = plain(self, x)
+        if picks is not None:
+            w = probs * next(it).to(probs.device)
+            w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
+        else:
+            seen.append((w > 0).cpu())
+        return w, probs, logits
+
+    return forward
+
+
+@pytest.mark.parametrize("name", ["yolo26-master-latent-n", "yolo26-master-moa-mot-n"])
+def test_yolo26_variant_predict_on_the_card_matches_the_cpu(dev, monkeypatch, name):
+    """yolo26-master-latent-n and -moa-mot-n (their zero-initialised mixture
+    parts set non-zero, utils/weights.py:wake_mixtures; BN calibrated on four
+    frames), fused, on the card and on the CPU, 640 px: predict() launches the
+    stem kernel once a batch in fp32 and bf16 and no NMS, with max_det
+    fixed-shape detections; on two frames the card's fp32 decode, routed by
+    the CPU's picks (A2C2fMoE's top-2 sets, MoT's kept experts), lies within
+    chip_smoke.py's limits of the CPU's (5e-2 px, 1e-3 logit), and its bf16
+    one2one head outputs, routed by the CPU bf16's, within 1.5x the CPU bf16's
+    rel-RMS from the CPU fp32."""
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictor import DetectionPredictor
+    from yolo_master_tpu_torch.nn import mot
+    from yolo_master_tpu_torch.nn.moe import mixtures
+    from yolo_master_tpu_torch.utils.fuse import current_dtype_copy
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn, wake_mixtures
+
+    rng = np.random.default_rng(12)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
+    cpu = YOLO(name, device="cpu")
+    wake_mixtures(cpu.model)
+    calibrate_bn(cpu.model, DetectionPredictor(cpu.model, imgsz=640).preprocess(frames)[0])
+    card = YOLO(name, device=dev).load_state_dict(cpu.model.state_dict()).fuse()
+    cpu.fuse()
+    kw = dict(imgsz=640, conf=0.0, max_det=300)
+    for dtype in (torch.float32, torch.bfloat16):
+        fused_stem.launches = batched_greedy_nms.launches = 0
+        res = card.predict(frames[:1], batch=1, compute_dtype=dtype, **kw) + card.predict(frames, batch=4,
+                                                                                          compute_dtype=dtype, **kw)
+        torch.cuda.synchronize()
+        assert fused_stem.launches == 2 and batched_greedy_nms.launches == 0, dtype
+        assert all(len(r.boxes) == 300 and np.isfinite(r.boxes.data).all() for r in res)
+    x, _ = DetectionPredictor(cpu.model, imgsz=640).preprocess(frames[:2])
+
+    def routed(model, x, seen=None, picks=None):
+        with monkeypatch.context() as mp, torch.inference_mode():
+            mp.setattr(mixtures, "process_logits", _moe_routing(seen=seen and seen[0], picks=picks and picks[0]))
+            mp.setattr(mot.MoTRouter, "forward", _mot_routing(seen=seen and seen[1], picks=picks and picks[1]))
+            return model(x)
+
+    seen = ([], [])
+    c = routed(cpu.model, x, seen=seen)
+    dc = cpu.model.head.decode(c, raw_scores=True)
+    with torch.inference_mode():
+        dg = card.model.head.decode(routed(card.model, x.to(dev), picks=seen), raw_scores=True).cpu()
+    assert (len(seen[0]), len(seen[1])) == ((6, 0) if "latent" in name else (0, 3))
+    assert (dg[..., :4] - dc[..., :4]).abs().max() <= 5e-2 and (dg[..., 4:] - dc[..., 4:]).abs().max() <= 1e-3
+    seen16 = ([], [])
+    c16 = routed(current_dtype_copy(cpu.model, torch.bfloat16), x, seen=seen16)
+    g16 = routed(current_dtype_copy(card.model, torch.bfloat16), x.to(dev), picks=seen16)
+
+    def rel_rms(a, ref):
+        return ((a.float() - ref).square().mean() / ref.square().mean()).sqrt().item()
+
+    for key in ("boxes", "scores"):
+        ref = c[key].float()
+        assert rel_rms(g16[key].cpu(), ref) <= 1.5 * rel_rms(c16[key], ref), key
+
+
+def test_yolo26_train_step_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """engine/train_step.py on yolo26-master-n (the end2end dual-assignment
+    loss at reg_max 1; the six routed blocks with router noise, k annealed to
+    2 and expert dropout: warmup_steps 2 and dropout_interval 2): one SGD step
+    at 640, B=2, from step 50 (a dropout step) on the card and on the CPU from
+    the same weights (BN calibrated) and batch, the card's routing pinned to
+    the CPU step's picks (a pick may flip between the two fp32 programs):
+    chip_smoke.py's phase 17 (a) gate (the loss components within 1e-4
+    relative, the parameters, BN statistics and EMA after the step within 1e-4
+    of each tensor's scale plus 1e-2 of its move); each block's router noise
+    and keep mask on the card equal the CPU's bit for bit."""
+    from yolo_master_tpu_torch.engine import train_step as ts
+    from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved, mixtures
+    from yolo_master_tpu_torch.nn.tasks import DetectionModel
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    rng = np.random.default_rng(7)
+    xy, wh = rng.uniform(0, 400, (2, 8, 2)), rng.uniform(24, 320, (2, 8, 2))
+    batch = {"images": torch.from_numpy(rng.random((2, 640, 640, 3), np.float32)),
+             "boxes": torch.from_numpy(np.concatenate([xy, np.minimum(xy + wh, 639)], -1).astype(np.float32)),
+             "classes": torch.from_numpy(rng.integers(0, 80, (2, 8))),
+             "mask": torch.from_numpy(np.arange(8)[None] < rng.integers(1, 9, (2, 1)))}
+    base = DetectionModel("yolo26-master-n")
+    calibrate_bn(base, batch["images"])
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
+    out, seen = {}, []
+    for where in (torch.device("cpu"), dev):
+        model = DetectionModel("yolo26-master-n")
+        model.load_state_dict(base.state_dict())
+        model.to(where)
+        for m in model.modules():
+            if isinstance(m, OptimizedMOEImproved):
+                m.warmup_steps, m.dropout_interval = 2, 2
+        tx = pol.build_optimizer(model)
+        state = ts.make_train_state(model, tx)
+        state.step = state.opt_state.count = 50
+        state.ema_updates = 50.0
+        with monkeypatch.context() as mp:
+            mp.setattr(mixtures, "process_logits",
+                       _moe_routing(**({"seen": seen} if where.type == "cpu" else {"picks": seen})))
+            state, met = ts.make_train_step(model, tx)(state, {k: v.to(where) for k, v in batch.items()})
+        assert float(met["finite"]) == 1.0
+        out[where.type] = (model, state, {k: float(met[k]) for k in ("loss", "box_loss", "cls_loss", "dfl_loss",
+                                                                      "aux_loss")})
+    (mg, sg, lg), (mc, sc, lc) = out["cuda"], out["cpu"]
+    assert len(seen) == 6
+    for k, v in lc.items():
+        assert abs(lg[k] - v) <= 1e-4 * abs(v), (k, lg[k], v)
+    sd_g, sd_c, start = mg.state_dict(), mc.state_dict(), base.state_dict()
+    for name, ref in sc.ema_params.items():
+        move = (sd_c[name] - start[name]).abs().max()
+        for a, b in ((sd_g[name], sd_c[name]), (sg.ema_params[name], ref)):
+            assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max() + 1e-2 * move + 1e-7, name
+    blocks = [[m for m in model.modules() if isinstance(m, OptimizedMOEImproved)] for model in (mg, mc)]
+    for a, b in zip(*blocks):
+        assert a.dropped_experts().size > 0 and torch.equal(a._draws[1].cpu(), b._draws[1]), a.jax_path

@@ -272,7 +272,7 @@ def test_unported_module_names_its_roadmap_item():
 
 @pytest.mark.parametrize("name", ["yolo-master-seg-n", "yolo-master-cls-n", "yolo-master-world-n",
                                   "yolo-master-dymoe-n", "yolo-master-v0_2-n",
-                                  "rtdetr-master-hgnet-l", "yolo26-master-moa-mot-n"])
+                                  "rtdetr-master-hgnet-l", "yolo-master-uomoe-n"])
 def test_other_model_yamls_name_their_roadmap_item(name):
     """A graph YAML of the JAX package that the port has not copied yet: building
     it is refused, naming the ROADMAP item."""

@@ -308,16 +308,19 @@ def test_optimized_moe_matches_jax_sparse_and_dense(cin, cout, e, hw):
 
 def test_optimized_moe_refuses_unported_types():
     """Every expert and router type builds and runs in eval (held against JAX
-    in tests/test_torch_yolo26.py); the train step refuses a block of the
-    types whose training is not held against JAX yet, naming its ROADMAP
-    item; an unknown type is a ValueError."""
+    in tests/test_torch_yolo26.py) and trains: the train step takes a block of
+    each and publishes its aux loss (held against JAX in training in
+    tests/test_torch_moe_train.py); an unknown type is a ValueError."""
     from yolo_master_tpu_torch.engine.train_step import make_train_step
 
-    for kw in ({"expert_type": "ghost"}, {"router_type": "local"}):
+    for kw in ({"expert_type": "ghost"}, {"router_type": "local"}, {"expert_type": "spatial", "router_type": "adaptive"}):
         block = OptimizedMOEImproved(32, 32, **kw).eval()
         with torch.no_grad():
             assert block(torch.rand(2, 32, 8, 8)).shape == (2, 32, 8, 8)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_train_step(torch.nn.Sequential(block))
+        block.train()
+        make_train_step(torch.nn.Sequential(block))
+        y = block(torch.rand(2, 32, 8, 8))
+        (y.sum() + block.aux_record.value).backward()
+        assert block.aux_record.family == "moe" and all(p.grad is not None for p in block.experts.parameters())
     with pytest.raises(ValueError):
         OptimizedMOEImproved(32, 32, expert_type="nope")

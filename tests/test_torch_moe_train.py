@@ -148,11 +148,35 @@ def test_block_trains_like_jax(monkeypatch, num_experts, detach):
     """One OptimizedMOEImproved (c=32, top_k 2, 8x12 maps, B=4) in train mode,
     loss sum(out * ct) + aux, at each step of MODULE_STEPS: the masks exactly,
     the rest within 1e-5 of max |JAX| (module docstring)."""
-    rng = np.random.default_rng(16 + num_experts)
-    kw = dict(num_experts=num_experts, top_k=2, detach_routing=detach, warmup_steps=WARMUP,
-              dropout_interval=INTERVAL)
+    _block_trains_like_jax(monkeypatch, np.random.default_rng(16 + num_experts),
+                           dict(num_experts=num_experts, top_k=2, detach_routing=detach))
+
+
+@pytest.mark.parametrize("expert_type,router_type", [("ghost", "efficient"), ("inverted", "efficient"),
+                                                     ("spatial", "efficient"), ("simple", "local"),
+                                                     ("simple", "adaptive"), ("ghost", "local"),
+                                                     ("spatial", "adaptive")])
+def test_expert_and_router_types_train_like_jax(monkeypatch, expert_type, router_type):
+    """The ghost, inverted-residual and spatial experts (their GroupNorms and
+    depthwise convs in training) and the local and adaptive routers (their
+    BatchNorms on batch statistics), E = 8, router noise on, every draw JAX's:
+    the test above's gates, at each step of MODULE_STEPS. The norm affines and
+    BN biases are drawn at random (``randomize_constants``), so that no
+    gradient is 0 by symmetry."""
+    from test_torch_gated import randomize_constants
+
+    _block_trains_like_jax(monkeypatch, np.random.default_rng(len(expert_type) * 7 + len(router_type)),
+                           dict(num_experts=8, top_k=2, expert_type=expert_type, router_type=router_type),
+                           randomize=randomize_constants)
+
+
+def _block_trains_like_jax(monkeypatch, rng, kw, randomize=None):
+    kw = dict(kw, warmup_steps=WARMUP, dropout_interval=INTERVAL)
+    num_experts = kw["num_experts"]
     jm = jmix.OptimizedMOEImproved(32, 32, **kw).finalize("layers.8")
     p = _perturb_bn(_np_tree(jax.jit(jm.init)(jax.random.PRNGKey(3))), rng)
+    if randomize is not None:
+        p = randomize(p, rng)
     tm = _load_module(tmix.OptimizedMOEImproved(32, 32, **kw), p).train()
     tm.jax_path = "layers.8"
     x = rng.standard_normal((4, 8, 12, 32)).astype(np.float32)

@@ -116,7 +116,8 @@ def test_import_leaves_jax_out():
             "[importlib.import_module(n) for n in names]; "
             "assert len(names) > 20, names; "
             "assert {p.__name__ + '.' + m for m in ('engine.trainer', 'engine.recovery', 'utils.checkpoint', "
-            "'utils.callbacks', 'nn.moe.scheduler', 'nn.moe.analysis', 'nn.moe.pruning', 'nn.moe.quantize')} "
+            "'utils.callbacks', 'nn.moe.scheduler', 'nn.moe.analysis', 'nn.moe.pruning', 'nn.moe.quantize', "
+            "'nn.moa', 'nn.mot', 'nn.latent_mixture')} "
             "<= set(names), names; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'yolo_master_tpu')]; "
             "assert not bad, bad")

@@ -300,18 +300,26 @@ def test_param_group_labels_match_jax_for_yolo_master_n():
 
 
 def test_refusals_name_their_roadmap_items():
-    """A routed block with an expert type whose training is not ported (the
-    ghost, inverted and spatial experts), yolo26-master (its end2end loss), a
-    fused model, a compute dtype other than fp32 and bf16, and the Muon
-    optimizers are refused, naming what is missing; yolo-master-v0_1 itself
-    trains (tests/test_torch_moe_train*.py)."""
+    """The MoA, MoT and latent mixture blocks (their aux losses are the next
+    slice), a fused model, a compute dtype other than fp32 and bf16, and the
+    Muon optimizers are refused, naming what is missing; routed blocks of
+    every expert type (ghost, inverted and spatial included) and router,
+    yolo-master-v0_1 and yolo26-master (its end2end loss) train
+    (tests/test_torch_moe_train*.py, tests/test_torch_yolo26_train.py)."""
+    from yolo_master_tpu_torch.nn.latent_mixture import LatentMixture
+    from yolo_master_tpu_torch.nn.moa import MoABlock
     from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved
+    from yolo_master_tpu_torch.nn.mot import MoTBlock
 
     for expert in ("ghost", "inverted", "spatial"):
+        ts.make_train_step(torch.nn.Sequential(OptimizedMOEImproved(32, 32, expert_type=expert)))
+    ts.make_train_step(DetectionModel("yolo26-master-n"))
+    for block in (MoABlock(48, 3), MoTBlock(32, 4), LatentMixture([32, 16], 32)):
+        with pytest.raises(NotImplementedError, match=rf"{type(block).__name__}.*§1\.F item 14"):
+            ts.make_train_step(torch.nn.Sequential(block))
+    for name in ("yolo26-master-latent-n", "yolo26-master-moa-mot-n"):
         with pytest.raises(NotImplementedError, match=r"§1\.F item 14"):
-            ts.make_train_step(torch.nn.Sequential(OptimizedMOEImproved(32, 32, expert_type=expert)))
-    with pytest.raises(NotImplementedError, match=r"§1\.F item 15"):
-        ts.make_train_step(DetectionModel("yolo26-master-n"))
+            ts.make_train_step(DetectionModel(name))
     ts.make_train_step(DetectionModel("yolo-master-v0_1-n"))
     from yolo_master_tpu_torch.utils.fuse import fuse_bn
 

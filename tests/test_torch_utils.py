@@ -20,14 +20,14 @@ from yolo_master_tpu_torch.ops.boxes import xywh2xyxy
 
 
 @pytest.mark.parametrize("name", ["yolo-master-n", "yolo-master-s.yaml", "yolo-master-v0_10", "yolo26-master-latent-x",
-                                  "yolo26-master-m"])
+                                  "yolo26-master-m", "yolo26-master-moa-mot-s", "yolo-master-uomoe-x"])
 def test_model_name_helpers_match_jax(name):
     """A name resolves to the port's copy of the JAX package's YAML, at the same
     path under its cfg/ (yolo-master-v0_10: copied with its family); a graph the
     port holds no copy of yet raises, naming the ROADMAP item."""
     assert utils.guess_scale(name) == jutils.guess_scale(name)
     theirs = jutils.find_model_yaml(name)
-    if "latent" not in name:
+    if "uomoe" not in name:
         ours = utils.find_model_yaml(name)
         assert ours.relative_to(utils.CFG_DIR) == theirs.relative_to(jutils.CFG_DIR)
         assert ours.read_bytes() == theirs.read_bytes()
@@ -38,7 +38,8 @@ def test_model_name_helpers_match_jax(name):
 
 @pytest.mark.parametrize("rel", ["models/yolo-master.yaml", "models/yolo-master-v0_1.yaml", "datasets/coco.yaml",
                                  *(f"models/yolo-master-v0_{v}.yaml" for v in range(4, 16)),
-                                 "models/yolo26-master.yaml"])
+                                 "models/yolo26-master.yaml", "models/yolo26-master-latent.yaml",
+                                 "models/yolo26-master-moa-mot.yaml"])
 def test_copied_yamls_load_equal_to_jax(rel):
     """The port's cfg/ holds byte-for-byte copies, and they load equal."""
     ours, theirs = utils.CFG_DIR / rel, jutils.CFG_DIR / rel

@@ -374,11 +374,20 @@ def test_sahi_refuses_an_end2end_head():
 
 
 def test_yolo26_training_refuses_until_its_slice():
-    """The end2end loss is the next slice: the loss names its ROADMAP item."""
+    """The end2end loss is computed (its slice has come): the train forward's
+    two branches give a finite dual-assignment loss whose box, cls and L1
+    terms exceed the one2many branch's alone, and the gradient reaches the
+    one2one branches (tests/test_torch_yolo26_train.py holds it to JAX)."""
     port = DetectionModel(Y26).train()
     preds = port(torch.rand(2, IMGSZ, IMGSZ, 3))
     assert set(preds) == {"one2many", "one2one", "hw_shapes"}
     batch = {"boxes": torch.tensor([[[4.0, 4.0, 30.0, 30.0]]]).repeat(2, 1, 1), "classes": torch.zeros(2, 1),
              "mask": torch.ones(2, 1)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.compute_loss(preds, batch, torch.zeros(()), {})
+    total, metrics = port.compute_loss(preds, batch, torch.zeros(()), {})
+    assert torch.isfinite(total) and float(total.detach()) > 0
+    one2many = {k: v for k, v in preds.items() if k != "one2one"}
+    _, many = port.compute_loss(one2many, batch, torch.zeros(()), {})
+    for k in ("box_loss", "cls_loss", "dfl_loss"):
+        assert float(metrics[k]) > float(many[k]) > 0, k
+    total.backward()
+    assert port.head.one2one_cv3[0][-1].bias.grad.abs().sum() > 0

@@ -35,13 +35,16 @@ What follows the JAX package exactly, where PyTorch's own tools differ:
     the forward and the backward in bf16, the loss in fp32 and no loss scaling
     (bf16 has fp32's range), the finite guard on the fp32 loss.
 
-Routed blocks (yolo-master-v0_1's OptimizedMOEImproved, the AdaptiveGate
-family of v0_4-v0_15) train at ``state.step``, which every micro-batch of
+yolo26-master trains with its end2end head's dual-assignment loss
+(``nn/losses.py:composite_loss``). Routed blocks (OptimizedMOEImproved with
+every expert and router type: yolo-master-v0_1's, yolo26-master's inside
+A2C2fMoE; the AdaptiveGate family of v0_4-v0_15) train at ``state.step``, which every micro-batch of
 the step reads, as JAX's ``step_idx``: their router noise, progressive
 sparsity, expert dropout, temperature anneal and drop-path are JAX's for
 that step (``nn/moe/mixtures.py``, ``nn/moe/gated.py``); each micro-batch's
 complexity gate averages over that micro-batch, as each JAX micro-step does.
-Refused: fused models, Muon / MuSGD.
+Refused: fused models, Muon / MuSGD, and the MoA, MoT and latent mixture
+blocks (their aux losses are the next slice).
 """
 
 from __future__ import annotations
@@ -371,22 +374,16 @@ def ema_blend(ema_params: Dict[str, torch.Tensor], model: torch.nn.Module, d: fl
 
 
 def _check_trainable(model: torch.nn.Module) -> None:
-    from ..nn.heads import Detect
     from ..nn.layers import FusedStem
-    from ..nn.moe import FusedESMOE, OptimizedMOEImproved
+    from ..nn.moe import FusedESMOE
+    from ..nn.tasks import refuse_mixture_training
 
     for m in model.modules():
         if isinstance(m, (FusedStem, FusedESMOE)):
             raise ValueError("a fused (deploy) model cannot be trained: train the unfused model")
         if isinstance(getattr(m, "bn", None), torch.nn.Identity):
             raise ValueError("a model with BatchNorm folded (fuse_bn) cannot be trained: train the unfused model")
-        if isinstance(m, OptimizedMOEImproved) and (m.expert_type, m.router_type) != ("simple", "efficient"):
-            raise NotImplementedError(f"training an OptimizedMOEImproved of '{m.expert_type}' experts and the "
-                                      f"'{m.router_type}' router is not ported yet: it comes with yolo26-master's "
-                                      "training (ROADMAP.md §1.F item 14, §1.C item 7)")
-        if isinstance(m, Detect) and m.end2end:
-            raise NotImplementedError("the end2end (one2one) loss, yolo26-master's training, is not ported yet "
-                                      "(ROADMAP.md §1.F item 15)")
+    refuse_mixture_training(model)
 
 
 def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp: Optional[dict] = None,

@@ -1,6 +1,7 @@
 """The v8 detection loss (counterpart of ``yolo_master_tpu/nn/losses.py``):
-task-aligned assignment, BCE on the class logits, CIoU and DFL on the
-foreground anchors, and the mixture aux loss on top.
+task-aligned assignment, BCE on the class logits, CIoU and DFL (L1 on the
+distances at reg_max 1) on the foreground anchors, an end2end head's one2one
+branch at top-1 assignment, and the mixture aux loss on top.
 
 Static shapes, as in the JAX package: ground truth comes padded to [B, M]
 with a validity mask, and the foreground terms are masked, not gathered.
@@ -97,11 +98,16 @@ def detection_loss(preds: Dict[str, torch.Tensor], hw_shapes: Sequence[Tuple[int
 def composite_loss(preds: Dict, hw_shapes, strides, gt_bboxes, gt_classes, gt_mask, nc: int,
                    aux_total: torch.Tensor, reg_max: int = 16, box_gain: float = 7.5, cls_gain: float = 0.5,
                    dfl_gain: float = 1.5, moe_gain: float = 0.01, end2end: bool = False) -> LossBreakdown:
-    """The one2many branch's detection loss (top-10 assignment) plus ``moe_gain * aux_total``."""
-    if end2end:
-        raise NotImplementedError("the end2end (one2one) loss, yolo26-master's training, is not ported yet "
-                                  "(ROADMAP.md §1.F item 15)")
-    lb = detection_loss(preds["one2many"], hw_shapes, strides, gt_bboxes, gt_classes, gt_mask, nc=nc,
-                        reg_max=reg_max, box_gain=box_gain, cls_gain=cls_gain, dfl_gain=dfl_gain, tal_topk=10)
+    """The one2many branch's detection loss (top-10 assignment) plus ``moe_gain * aux_total``.
+
+    ``end2end`` (an NMS-free head whose ``preds`` hold ``"one2one"``): the
+    dual-assignment loss, the one2one branch's detection loss at top-1
+    assignment added with the same gains; box, cls and dfl (L1 at reg_max 1)
+    are each the sum of the two branches', and the aux is added once."""
+    kw = dict(nc=nc, reg_max=reg_max, box_gain=box_gain, cls_gain=cls_gain, dfl_gain=dfl_gain)
+    lb = detection_loss(preds["one2many"], hw_shapes, strides, gt_bboxes, gt_classes, gt_mask, tal_topk=10, **kw)
+    if end2end and "one2one" in preds:
+        lb2 = detection_loss(preds["one2one"], hw_shapes, strides, gt_bboxes, gt_classes, gt_mask, tal_topk=1, **kw)
+        lb = LossBreakdown(lb.total + lb2.total, lb.box + lb2.box, lb.cls + lb2.cls, lb.dfl + lb2.dfl, lb.aux)
     aux = moe_gain * aux_total
     return LossBreakdown(lb.total + aux, lb.box, lb.cls, lb.dfl, aux)

@@ -1,7 +1,7 @@
 """MoE blocks of the ported graphs: ES_MOE (dense and sparse eval, and its fused
 deploy form), OptimizedMOEImproved / ModularRouterExpertMoE (sparse and
 dense eval, and training; every expert and router type), ABlockMoE /
-A2C2fMoE (yolo26-master's mixture, eval) and the AdaptiveGate family
+A2C2fMoE (yolo26-master's mixture, eval and training) and the AdaptiveGate family
 (``gated.py``, eval and training); the MoE tools: ``pruning.py``,
 ``quantize.py`` and ``analysis.py``."""
 

@@ -9,14 +9,15 @@ Sparse eval (the model's ``sparse_inference`` switch on, as by default, and
 top_k below the expert count) runs only the selected experts
 (``nn/moe/dispatch.py``); otherwise every expert runs, masked by w. Every
 expert type (``simple``, ``ghost``, ``inverted``, ``spatial``) and router type
-(``efficient``, ``local``, ``adaptive``) of the JAX block is here; none has a
-part of its own that differs in training, but only the ``simple`` experts and
-the ``efficient`` router are held against JAX in training so far, and the
-train step refuses the others (``engine/train_step.py``).
+(``efficient``, ``local``, ``adaptive``) of the JAX block is here, in eval and
+in training; none has a part of its own that differs in training (the experts'
+GroupNorms and the routers' BatchNorms take their train mode from the model).
 
 :class:`ABlockMoE` is an area-attention block whose MLP is this block (no
 residual of its own), and :class:`A2C2fMoE` the A2C2f of such blocks: the
-mixture of yolo26-master.
+mixture of yolo26-master, whose blocks key their draws by JAX's path of that
+nesting (``layers.4.m.0.1.mlp``: the A2C2f's ``m`` list, then the pair of
+blocks).
 
 Training follows the JAX block at the optimizer step ``step``
 (``DetectionModel.forward_train`` sets it) and the block's JAX module path

@@ -23,9 +23,6 @@ def make_divisible(x: float, divisor: int = 8) -> int:
     return math.ceil(x / divisor) * divisor
 
 
-# graphs whose YAML waits for modules still to port: the base name -> the ROADMAP item
-_WAITING = {"yolo26-master-latent": "§1.F item 14 (nn/latent_mixture.py)",
-            "yolo26-master-moa-mot": "§1.F item 14 (nn/moa.py, nn/mot.py)"}
 
 
 def find_model_yaml(name: str) -> Path:
@@ -45,10 +42,8 @@ def find_model_yaml(name: str) -> Path:
         cand = MODELS_DIR / f"{stem[:-2]}.yaml"
         if cand.exists():
             return cand
-    base = stem[:-2] if len(stem) > 2 and stem[-2] == "-" and stem[-1] in "nsmlx" else stem
-    item = _WAITING.get(base, "§1.F item 15, every YAML in cfg/models")
     raise FileNotFoundError(f"model yaml not found for '{name}' in {MODELS_DIR}: the port holds only the "
-                            f"graphs it builds so far (ROADMAP.md {item})")
+                            "graphs it builds so far (ROADMAP.md §1.F item 15, every YAML in cfg/models)")
 
 
 def guess_scale(name: str) -> str | None:

@@ -20,7 +20,9 @@ import torch
 import torch.nn as nn
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..nn.latent_mixture import LatentRouter
 from ..nn.layers import Conv, FusedStem, LayerNorm, Linear, Passthrough
+from ..nn.moa import GlobalAttnHead
 from ..nn.moe import gated
 from ..nn.moe.es_moe import ES_MOE, FusedESMOE
 from ..nn.moe.experts import DepthwiseSeparableConv
@@ -32,11 +34,13 @@ from ..nn.moe.routers import DynamicRoutingLayer
 # reduces and projects them in fp32), and the kernel modules, whose kernels
 # widen their weights to fp32 as the TPU kernels do
 KEEP_FP32 = (nn.BatchNorm2d, nn.GroupNorm, LayerNorm, Linear, DynamicRoutingLayer, FusedStem, FusedESMOE)
-# modules whose own parameters (not their children's) stay fp32: the gated
+# modules whose own parameters and buffers (not their children's) stay fp32: the gated
 # family's scalars, expert prior and fused experts' affines, which JAX reads in
-# fp32 (tanh, sigmoid, the experts' normalisation) before any cast
+# fp32 (tanh, sigmoid, the experts' normalisation) before any cast, the latent
+# router's scale embedding (added to fp32 tokens) and MoA's random features (fp32
+# linear attention)
 KEEP_FP32_OWN = (gated.AdaptiveGateMoE, gated.DualStreamGateRouter, gated.FusedExpertGroup, gated.VisualDetailGate,
-                 gated.PyramidContextMixer, gated.CrossPathGate)
+                 gated.PyramidContextMixer, gated.CrossPathGate, LatentRouter, GlobalAttnHead)
 
 
 def fuse_bn(model) -> None:
@@ -106,12 +110,13 @@ def compute_dtype_copy(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     Every floating parameter and buffer becomes ``dtype`` (the JAX package's
     ``w.astype(x.dtype)`` of each conv, done once), except those under the
     :data:`KEEP_FP32` modules and those of the :data:`KEEP_FP32_OWN` modules
-    themselves; a :class:`FusedStem` gives its output in
+    themselves (their own parameters and buffers); a :class:`FusedStem` gives its output in
     ``dtype``. ``model`` itself is left as it is.
     """
     out = copy.deepcopy(model)
     kept = {id(t) for m in out.modules() if isinstance(m, KEEP_FP32) for t in (*m.parameters(), *m.buffers())}
-    kept |= {id(t) for m in out.modules() if isinstance(m, KEEP_FP32_OWN) for t in m.parameters(recurse=False)}
+    kept |= {id(t) for m in out.modules() if isinstance(m, KEEP_FP32_OWN)
+             for t in (*m.parameters(recurse=False), *m.buffers(recurse=False))}
     for m in out.modules():
         for t in (*m.parameters(recurse=False), *m.buffers(recurse=False)):
             if t.is_floating_point() and id(t) not in kept:

@@ -5,7 +5,11 @@
 for the modules of the yolo-master-n, yolo-master-v0_1, v0_4-v0_15 and
 yolo26-master graphs (ES_MOE with or without top_k, OptimizedMOEImproved and
 A2C2fMoE, the gated blocks, the PSA family, the end2end head's ``one2one_*``
-branches, A2C2f's ``gamma``): it
+branches, A2C2f's ``gamma``; yolo26-master-latent's LatentMixture and
+yolo26-master-moa-mot's C2fMoA and C2fMoT, with their ``residual_gain``,
+``scale_embedding``, layer scales and MoA's ``_rf_matrix`` under their own
+names, MoT's ``ffn_gate`` wrapped at ``ffn_gate.0`` and its experts' FFN at
+indices 0 and 3): it
 maps the JAX parameter tree's paths to ultralytics state_dict keys, HWIO conv
 kernels to OIHW and ``Linear`` matrices [in, out] to [out, in]. The gated
 blocks' parameter-free ``nn.Sequential`` slots of the reference shift the
@@ -31,7 +35,10 @@ _BN_LEAVES = {"scale", "bias", "mean", "var"}
 # gated blocks' layers: the index shift of the layers after them, and the lone
 # convs the reference wraps (their torch index)
 _SEQ_SHIFT = {"se_gate": 2, "feature_gate": 1, "refine_gate": 1, "gate_net": 2}
-_WRAPPED = {"complexity_estimator": "1", "context_gate": "0"}
+_WRAPPED = {"complexity_estimator": "1", "context_gate": "0", "ffn_gate": "0"}
+# index remaps where the reference interposes a parameter-free Dropout (MoT's transformer experts'
+# ffn: Linear, GELU, Dropout, Linear)
+_SEQ_REMAP = {"ffn": {"2": "3"}}
 
 
 def _torch_key(path: List[str]) -> List[str]:
@@ -46,6 +53,9 @@ def _torch_key(path: List[str]) -> List[str]:
             parts.extend(["norm", "0"])
         elif seg in ("fc1", "fc2") and parts and parts[-1] == "routing":
             parts.extend(["routing_network", "0" if seg == "fc1" else "2"])
+        elif seg in _SEQ_REMAP and i + 1 < len(path) and path[i + 1] in _SEQ_REMAP[seg]:
+            parts.extend([seg, _SEQ_REMAP[seg][path[i + 1]]])
+            i += 1
         elif seg in _SEQ_SHIFT and i + 1 < len(path) and path[i + 1].isdigit():
             parts.extend([seg, str(int(path[i + 1]) + _SEQ_SHIFT[seg])])
             i += 1
@@ -138,6 +148,37 @@ def calibrate_bn(model, x_nhwc: torch.Tensor) -> None:
         for m, saved in routed:
             m.noise_std, m.progressive_sparsity, m.expert_dropout_rate = saved
             m.aux_record = None
+
+
+@torch.no_grad()
+def wake_mixtures(model, seed: int = 0) -> None:
+    """Set the parts of the latent, MoA and MoT mixtures that start at zero to
+    non-zero values, in place, drawn on the host from ``seed``: each
+    LatentMixture's ``residual_gain`` U(0.3, 0.8) and its router head N(0,
+    0.5), the MoA and MoT routers' last layers and the deformable experts'
+    offset and point-weight projections U(+-1/sqrt(fan_in)). At the init the
+    latent experts add nothing and every router is uniform, so a check on
+    seeded weights would not see them. For tests and smoke runs on random
+    weights, as :func:`calibrate_bn` (run it after this)."""
+    from ..nn.latent_mixture import LatentMixture
+    from ..nn.moa import MoARouter
+    from ..nn.mot import DeformableTransformerExpert, MoTRouter
+
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, LatentMixture):
+            m.residual_gain.copy_(0.3 + 0.5 * torch.rand((), generator=g))
+            for t in (m.router.expert_head.weight, m.router.expert_head.bias):
+                t.copy_(0.5 * torch.randn(t.shape, generator=g))
+        layers = []
+        if isinstance(m, (MoARouter, MoTRouter)):
+            layers = [m.router[-1]]
+        elif isinstance(m, DeformableTransformerExpert):
+            layers = [m.offset_proj, m.attn_proj]
+        for lin in layers:
+            bound = 1.0 / lin.weight[0].numel() ** 0.5
+            for t in (lin.weight, lin.bias):
+                t.copy_(torch.empty(t.shape).uniform_(-bound, bound, generator=g))
 
 
 def _array_leaves(tree, path=()):
