@@ -9,8 +9,9 @@ the split-bf16 header of stem.cu's bf16 forms, one nvcc each, in parallel),
 holds each kernel against its plain PyTorch version on the card, and
 drives yolo_master_tpu_torch's paths (predict, val, training, the MoE
 tools) at the full width of yolo-master-n, yolo-master-v0_1-n,
-yolo-master-v0_10-n, yolo26-master-n, -latent-n and -moa-mot-n with seeded
-random weights. Phases:
+yolo-master-v0_10-n, yolo26-master-n, -latent-n and -moa-mot-n, and the task
+heads' predict and val at the full width of yolo-master-seg-n, -pose-n,
+-obb-n and -cls-n, with seeded random weights. Phases:
 
   1. environment (versions, card name and power limit); fails without CUDA
   2. build the six kernel sources (c3k2.cu's and stem.cu's bf16 kernel's
@@ -171,6 +172,18 @@ random weights. Phases:
      included; device ms/img beside yolo26-master-n's in turns, busy share and
      peak memory at bs 16; val() on 16 images, metrics within 1e-3 of the CPU
      validator's)
+ 31. (run after phase 30) the task heads in eval, fp32: yolo-master-seg-n,
+     -pose-n and -obb-n at 640 and -cls-n at 224 (Segment, Pose, OBB, Classify
+     on the yolo-master graph; plain PyTorch but for the stem and NMS), seeded,
+     BN calibrated on four frames, the class biases at 0: fuse().predict() at
+     batch 1 and 16 (the stem kernel and its bank on all four, the NMS kernel
+     on seg and pose only); card vs CPU decode at the fixed limits, keypoints
+     within 5e-2 px, angles within 1e-3 rad, cls log-probabilities within
+     1e-3, the masks of shared detections within 0.1% of their pixels; the NMS
+     kernel equal to its plain loop with 32 and 51 extra columns; device
+     ms/img beside yolo-master-n's in turns, the host's result assembly, busy
+     share, kernels and peak memory at bs 16; val() on 8 frames labelled from
+     the card's predictions, metrics within 1e-3 of the CPU validator's
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
@@ -1089,7 +1102,7 @@ def phase_main_path(dev):
         full_cpu = cpu.model.head.decode(p_cpu, raw_scores=True)
         top_gpu = model.model.head.decode_topk(p_gpu, k=pred.max_nms)
         top_cpu = cpu.model.head.decode_topk(p_cpu, k=pred.max_nms)
-        full_cpu64 = cpu.model.head.decode(copy.deepcopy(cpu.model).double()(x.cpu()), raw_scores=True)
+    full_cpu64 = exact_decode("yolo-master-n", state, x, dev)
     box_err = (full_gpu[..., :4] - full_cpu[..., :4]).abs().max().item()
     logit_err = (full_gpu[..., 4:] - full_cpu[..., 4:]).abs().max().item()
     conf_err = (top_gpu[..., 4:].max(-1).values.cpu() - top_cpu[..., 4:].max(-1).values).abs().max().item()
@@ -1146,7 +1159,7 @@ def phase_scale_m(dev, imgs):
     with torch.inference_mode():
         full_gpu = model.model.head.decode(model.model(x), raw_scores=True).cpu()
         full_cpu = cpu.model.head.decode(cpu.model(x.cpu()), raw_scores=True)
-        full_cpu64 = cpu.model.head.decode(copy.deepcopy(cpu.model).double()(x.cpu()), raw_scores=True)
+    full_cpu64 = exact_decode("yolo-master-m", state, x, dev)
     box_err, logit_err = decode_err(full_gpu, full_cpu)
     box_noise, logit_noise = decode_err(full_cpu, full_cpu64)
     log(f"[scale-m] GPU vs CPU decode, all {full_gpu.shape[1]} anchors: box max err {box_err:.3e} px, logit max err "
@@ -1212,7 +1225,7 @@ def phase_fused_esmoe_path(dev, model, state, imgs):
         runs = {"base": [], "esmoe": []}
         for name in ("base", "esmoe", "esmoe", "base"):
             run = (model if name == "base" else moe)._predictor.run
-            runs[name].append(cuda_ms(lambda: run(xb), reps=10, warmup=2))
+            runs[name].append(cuda_ms(lambda: run(xb), reps=5, warmup=2))
         t0 = time.perf_counter()
         for _ in range(3):
             model.predict(imgs[:bs], batch=bs, **kw)
@@ -1222,6 +1235,21 @@ def phase_fused_esmoe_path(dev, model, state, imgs):
             f"{[round(t / bs, 4) for t in runs['base']]}, with fused_esmoe_fuse {[round(t / bs, 4) for t in runs['esmoe']]}; "
             f"predict() with letterbox and Results {host_ms / bs:.3f} ms/img (host clock)")
     return moe, launches, e2e
+
+
+def exact_decode(name, state, x_u8, dev):
+    """The raw-score decode of ``name`` on ``state`` (unfused) in fp64 on the card,
+    on the uint8 frames ``x_u8`` / 255: the exact reference that a fused fp32
+    model's rounding is measured against (folding BN and the /255 changes no value
+    in exact arithmetic, and an fp64 result does not depend on the device)."""
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+
+    y = YOLO(name, device=dev).load_state_dict(state)
+    y.model.double()
+    with torch.inference_mode():
+        return y.model.head.decode(y.model(x_u8.to(dev).double() / 255.0), raw_scores=True).cpu()
 
 
 def decode_err(a, b):
@@ -1307,7 +1335,7 @@ def phase_v0_1_path(dev, base, imgs):
         for name in ("yolo-master-n", "sparse", "dense", "dense", "sparse", "yolo-master-n"):
             v01.model.sparse_inference = name != "dense"
             run = (base if name == "yolo-master-n" else v01)._predictor.run
-            runs[name].append(cuda_ms(lambda: run(xb), reps=10, warmup=2) / bs)
+            runs[name].append(cuda_ms(lambda: run(xb), reps=5, warmup=2) / bs)
         v01.model.sparse_inference = True
         e2e[bs] = {k: statistics.median(v) for k, v in runs.items()}
         log(f"[e2e] bs={bs}: device ms/img, yolo-master-n {[round(t, 4) for t in runs['yolo-master-n']]}, "
@@ -1429,7 +1457,7 @@ def phase_bf16_paths(dev, facades, imgs):
             runs = {"fp32": [], "bf16": []}
             for dt in ("fp32", "bf16", "bf16", "fp32"):
                 run = (fp32_pred if dt == "fp32" else pred).run
-                runs[dt].append(cuda_ms(lambda: run(xb), reps=10, warmup=2) / bs)
+                runs[dt].append(cuda_ms(lambda: run(xb), reps=5, warmup=2) / bs)
             e2e[bs] = {k: statistics.median(v) for k, v in runs.items()}
             log(f"[e2e] {name} bs={bs}: device ms/img (uint8 on card -> detections), fp32 "
                 f"{[round(t, 4) for t in runs['fp32']]}, bf16 {[round(t, 4) for t in runs['bf16']]}")
@@ -1669,9 +1697,11 @@ def _phase_val(dev, state, root):
     log(f"[val] |metric differences| (fp32): {json.dumps(diff)}")
     # the forward's part: decoded outputs of 4 val images, card against CPU, and the CPU's fp32 against fp64
     x4 = next(DataLoader(ds, VAL_BATCH).epoch())["images"][:4]
+    exact = facade(dev, fuse=False)  # fp64 on the card: an exact result does not depend on the device
+    exact.model.double()
     with torch.inference_mode():
         d_cpu = cpu.model.forward_predict(torch.from_numpy(x4))
-        d64 = unfused.model.forward_predict(torch.from_numpy(x4).double() / 255.0)
+        d64 = exact.model.forward_predict(torch.from_numpy(x4).to(dev).double() / 255.0).cpu()
         d32 = facade("cpu", fuse=False).model.forward_predict(torch.from_numpy(x4).float() / 255.0)
     errs = {name: ((a[..., :4] - b[..., :4]).abs().max().item(), (a[..., 4:] - b[..., 4:]).abs().max().item())
             for name, (a, b) in {"card vs CPU": (captured[0][:4], d_cpu), "CPU fp32 vs fp64": (d32, d64)}.items()}
@@ -1907,7 +1937,7 @@ def phase_v0_10_path(dev, base_run, imgs):
         runs = {"yolo-master-n": [], "fp32": [], "bf16": []}
         for name in ("yolo-master-n", "fp32", "bf16", "bf16", "fp32", "yolo-master-n"):
             run = base_run if name == "yolo-master-n" else preds[name].run
-            runs[name].append(cuda_ms(lambda: run(xb), reps=10, warmup=2) / bs)
+            runs[name].append(cuda_ms(lambda: run(xb), reps=5, warmup=2) / bs)
         out["e2e"][bs] = {k: statistics.median(v) for k, v in runs.items()}
         log(f"[e2e] bs={bs}: device ms/img, yolo-master-n fp32 {[round(t, 4) for t in runs['yolo-master-n']]}, "
             f"yolo-master-v0_10-n fp32 {[round(t, 4) for t in runs['fp32']]}, bf16 {[round(t, 4) for t in runs['bf16']]}")
@@ -3531,6 +3561,306 @@ def phase_profile(paths, xb):
     return shares
 
 
+TASK_GRAPHS = (("segment", "yolo-master-seg-n", IMGSZ), ("pose", "yolo-master-pose-n", IMGSZ),
+               ("obb", "yolo-master-obb-n", IMGSZ), ("classify", "yolo-master-cls-n", 224))
+TASK_NMS = {"segment": 1, "pose": 1, "obb": 0, "classify": 0}  # batched greedy NMS launches a forward
+TASK_METRICS = {"segment": ("mAP50", "mAP50-95", "mask_mAP50", "mask_mAP50-95"),
+                "pose": ("mAP50", "mAP50-95", "pose_mAP50", "pose_mAP50-95"), "obb": ("mAP50", "mAP50-95"),
+                "classify": ("top1", "top5")}
+TASK_VAL_IMAGES = 8  # one batch a task
+MASK_PIXEL_SHARE = 1e-3  # card vs CPU: the share of the shared detections' mask pixels that may differ
+
+
+def task_yolo(name, where, imgs, imgsz):
+    """YOLO(name) on ``where``, seeded, BN calibrated on four frames as the task's
+    predictor feeds them, the class biases at 0 (so that val's conf 0.001 keeps
+    detections on random weights)."""
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictors_task import TASK_PREDICTORS
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    y = YOLO(name, device=where)
+    x_cal, _ = TASK_PREDICTORS[y.task](y.model, imgsz=imgsz).preprocess(imgs[:4])
+    calibrate_bn(y.model, x_cal)
+    if y.task != "classify":
+        with torch.no_grad():
+            for branch in y.model.head.cv3:
+                branch[-1].bias.zero_()
+    return y
+
+
+def check_task_results(task, results, nc):
+    """Finite results of the task's kind, boxes and keypoints inside the frame, scores in (0, 1]."""
+    import math
+
+    import numpy as np
+
+    h, w = FRAME_HW
+    for r in results:
+        if task == "classify":
+            require(len(r.probs) == nc and abs(float(r.probs.data.sum()) - 1) < 1e-4, "classify: probabilities")
+            continue
+        d = r.obb.data if task == "obb" else r.boxes.data
+        require(bool(np.isfinite(d).all()) and bool(((d[:, -2] > 0) & (d[:, -2] <= 1)).all()), f"{task}: results")
+        if task == "obb":
+            require(bool(((d[:, 4] >= -math.pi / 4 - 1e-6) & (d[:, 4] <= 3 * math.pi / 4 + 1e-6)).all()), "obb angle")
+            continue
+        require(bool((d[:, [0, 2]] >= 0).all() and (d[:, [0, 2]] <= w).all() and (d[:, [1, 3]] >= 0).all()
+                     and (d[:, [1, 3]] <= h).all()), f"{task}: boxes outside the image")
+        if task == "segment" and len(d):
+            require(r.masks.data.shape == (len(d), h, w) and r.masks.data.dtype == bool, "segment: masks")
+        if task == "pose" and len(d):
+            k = r.keypoints.data
+            require(k.shape == (len(d), 17, 3) and bool(np.isfinite(k).all()) and bool((k[..., 0] <= w).all())
+                    and bool((k[..., 1] <= h).all()) and bool(((k[..., 2] >= 0) & (k[..., 2] <= 1)).all()),
+                    "pose: keypoints")
+    if task != "classify":
+        require(sum(len(r) for r in results) > len(results), f"{task}: too few detections to check")
+
+
+def write_task_set(root, task, y, imgs, imgsz):
+    """A val set of TASK_VAL_IMAGES frames labelled from the card's own predictions
+    (each image's 3 best, jittered and unclipped, as the task validators match
+    in letterboxed pixels without clipping: the box or the mask's contour as a
+    polygon, the box and its keypoints, the rotated box's corners); for classify
+    a folder per class of the 1000 (named to sort by index), each frame in the
+    top-1 class or the 3rd of the square resize the dataset feeds. Returns what
+    val() takes as data."""
+    import cv2
+    import numpy as np
+    from PIL import Image
+
+    frames = imgs[:TASK_VAL_IMAGES]
+    rng = np.random.default_rng(8)
+    if task == "classify":
+        square = [cv2.resize(im, (imgsz, imgsz)) for im in frames]
+        val = root / "val"
+        for c in range(y.model.nc):
+            (val / f"{c:04d}").mkdir(parents=True)
+        for i, (r, im) in enumerate(zip(y.predict(square, imgsz=imgsz, batch=TASK_VAL_IMAGES), frames)):
+            c = int(np.argsort(-r.probs.data)[0 if i % 2 == 0 else 2])
+            Image.fromarray(np.ascontiguousarray(im[..., ::-1])).save(val / f"{c:04d}" / f"{i:03d}.png",
+                                                                      compress_level=1)
+        return root
+    pred = y._predictor  # the phase's bs-16 predictor
+    x, meta = pred.preprocess(frames)
+    det = {k: v.cpu().numpy() for k, v in pred.run(x).items()}
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    for i, im in enumerate(frames):
+        Image.fromarray(np.ascontiguousarray(im[..., ::-1])).save(root / "images" / f"{i:06d}.png", compress_level=1)
+        (h0, w0), ratio, pad = meta[i]
+        wh = np.array([w0, h0], np.float64)
+        one = {k: v[i] for k, v in det.items()}
+        one["valid"] = one["valid"] & (np.arange(len(one["valid"])) < 3)  # the masks of the 3 best only
+        r = pred._build_result("array", im, meta[i], one)
+        rows = []
+        for j in range(min(3, len(r))):
+            if task == "obb":
+                pts = r.obb.xyxyxyxy[j] + rng.uniform(-0.08, 0.08, (4, 2)) * r.obb.data[j, 2:4].max()
+                rows.append(f"{int(r.obb.cls[j])} " + " ".join(f"{v:.6f}" for v in (pts / wh).ravel()))
+                continue
+            box = (det["boxes"][i, j].astype(np.float64) - np.tile(pad, 2)) / np.tile(ratio, 2)
+            size = box[2:] - box[:2]
+            box = box + rng.uniform(-0.08, 0.08, 4) * np.tile(size, 2)
+            c = int(det["classes"][i, j])
+            if task == "segment":  # the box, or the mask's contour
+                seg = r.masks.xy[j] if j % 2 else np.zeros((0, 2))
+                if len(seg) < 3:
+                    seg = np.array([box[[0, 1]], box[[2, 1]], box[[2, 3]], box[[0, 3]]])
+                rows.append(f"{c} " + " ".join(f"{v:.6f}" for v in (seg / wh).ravel()))
+            else:
+                k = det["extra"][i, j].reshape(-1, 3).astype(np.float64)
+                k[:, :2] = ((k[:, :2] - pad) / ratio + rng.uniform(-0.08, 0.08, (len(k), 2)) * size.max() / 4) / wh
+                k[:, 2] = np.where(rng.random(len(k)) < 0.8, 2, 0)
+                (xc, yc), (bw, bh) = (box[:2] + box[2:]) / 2 / wh, (box[2:] - box[:2]) / wh
+                rows.append(f"{c} {xc:.6f} {yc:.6f} {bw:.6f} {bh:.6f} " + " ".join(f"{v:.6f}" for v in k.ravel()))
+        (root / "labels" / f"{i:06d}.txt").write_text("\n".join(rows) + "\n")
+    yaml_path = root / "data.yaml"
+    yaml_path.write_text(f"path: {root}\nval: images\nnames:\n" + "".join(f"  {c}: c{c}\n" for c in range(y.model.nc)))
+    return yaml_path
+
+
+def phase_task_heads(dev, base_run, base_x16, imgs):
+    """The task heads in eval (nn/heads.py Segment, Pose, OBB, Classify), each
+    with seeded weights, BN calibrated on four frames and the class biases at
+    0: yolo-master-seg-n, -pose-n and -obb-n at 640 and -cls-n at 224 (the stem
+    kernel writes 56x56 there), fuse().predict() at batch 1 and 16 in fp32
+    (the stem kernel on all four, the NMS kernel on seg and pose, none on obb
+    and cls); card vs CPU: decode within 5e-2 px and 1e-3 logit, keypoints
+    within 5e-2 px, angles within 1e-3 rad, cls log-probabilities within 1e-3,
+    the masks of shared detections within MASK_PIXEL_SHARE of their pixels; the
+    NMS kernel equal to its plain version with 32 (seg) and 51 (pose) extra
+    columns on a bs-16 batch's candidates; device ms/img beside yolo-master-n's
+    in turns, the host's ms/img of each result (seg: the masks), busy share,
+    kernels and peak memory of a bs-16 batch; val() on TASK_VAL_IMAGES frames
+    labelled from the card's predictions (a set under the checkout, removed
+    after): launches a batch, metrics within VAL_METRIC_TOL of the CPU
+    validator's."""
+    out = {}
+    for task, name, imgsz in TASK_GRAPHS:
+        out[task] = _task_path(dev, task, name, imgsz, base_run, base_x16, imgs)
+    return out
+
+
+def _task_path(dev, task, name, imgsz, base_run, base_x16, imgs):
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictors_task import assemble_masks
+    from yolo_master_tpu_torch.ops import cuda_nms
+    from yolo_master_tpu_torch.ops import nms as tnms
+
+    y = task_yolo(name, dev, imgs, imgsz)
+    state = {k: v.detach().clone() for k, v in y.model.state_dict().items()}
+    cpu = YOLO(name, device="cpu").load_state_dict(state)
+    y.fuse()
+    cpu.fuse()
+    res = {"launches": {}}
+    reset_launches()
+    r1 = y.predict(imgs[0], batch=1, imgsz=imgsz)
+    r16 = y.predict(imgs, batch=16, imgsz=imgsz)
+    torch.cuda.synchronize()
+    launches = res["launches"]["predict"] = read_launches()
+    want = {"stem": 2, "stem_bank": 1, "nms": 2 * TASK_NMS[task], "esmoe": 0, "cw_nms": 0, "moe": 0, "c3k2": 0}
+    log(f"[{name}] predict bs1 + bs16 launches: {launches}")
+    require(launches == want, f"{name}: launches {launches}, expected {want}")
+    require(len(r1) == 1 and len(r16) == 16, f"{name}: result counts")
+    check_task_results(task, r1 + r16, y.model.nc)
+    res["detections"] = [len(r) for r in r16]
+    pred = y._predictor
+
+    # card vs CPU, two frames: the head's outputs and decode
+    x, meta = pred.preprocess(imgs[:2])
+    with torch.inference_mode():
+        pg, pc = y.model(x), cpu.model(x.cpu())
+    if task == "classify":
+        lg, lc = pg.log().cpu(), pc.log()
+        err = ((lg - lg.mean(-1, keepdim=True)) - (lc - lc.mean(-1, keepdim=True))).abs().max().item()
+        res["card_vs_cpu"] = {"log_prob": err}
+        require(err <= 1e-3, f"{name}: card and CPU log-probabilities {err:.3e} apart (limit 1e-3)")
+    else:
+        nc = y.model.nc
+        with torch.inference_mode():
+            dg = y.model.head.decode(pg, raw_scores=True).cpu()
+            dc = cpu.model.head.decode(pc, raw_scores=True)
+        d64 = exact_decode(name, state, x, dev)
+        e, noise = (dg - dc).abs(), (dc - d64).abs()
+        errs = {"box_px": e[..., :4].max().item(), "logit": e[..., 4:4 + nc].max().item()}
+        res["cpu_fp32_vs_fp64"] = {"box_px": noise[..., :4].max().item(), "logit": noise[..., 4:4 + nc].max().item()}
+        limits = {"box_px": 5e-2, "logit": 1e-3}
+        if task == "segment":
+            errs["mask_coefficient"] = e[..., 4 + nc:].max().item()
+            errs["proto"] = (pg["proto"].cpu() - pc["proto"]).abs().max().item()
+            # shared detections: the CPU decode's boxes and scores through NMS, with each
+            # package's own coefficients, each package's prototypes
+            kw = dict(nc=nc, conf_thres=pred.conf, iou_thres=pred.iou, max_det=pred.max_det, max_nms=pred.max_nms)
+            with torch.inference_mode():
+                d_c = tnms.non_max_suppression(torch.cat([dc[..., :4], dc[..., 4:4 + nc].sigmoid(), dc[..., 4 + nc:]], -1),
+                                               **kw)
+                d_g = tnms.non_max_suppression(torch.cat([dc[..., :4], dc[..., 4:4 + nc].sigmoid(), dg[..., 4 + nc:]], -1),
+                                               **kw)
+            require(torch.equal(d_c["valid"], d_g["valid"]) and torch.equal(d_c["boxes"], d_g["boxes"]),
+                    "segment: the shared detections differ")
+            apart = total = 0
+            for i in range(2):
+                n = int(d_c["valid"][i].sum())
+                masks = [assemble_masks(d["extra"][i, :n].numpy(), p["proto"][i].permute(1, 2, 0).cpu().numpy(),
+                                        d_c["boxes"][i, :n].numpy(), pred.imgsz, *meta[i])
+                         for d, p in ((d_g, pg), (d_c, pc))]
+                apart += int((masks[0] != masks[1]).sum())
+                total += masks[0].size
+            errs["mask_pixels_apart"], errs["mask_pixels"] = apart, total
+            require(total > 0 and apart <= MASK_PIXEL_SHARE * total,
+                    f"segment: {apart} of {total} mask pixels apart between the card and the CPU")
+        elif task == "pose":
+            k = e[..., 4 + nc:].reshape(*e.shape[:2], 17, 3)
+            errs["kpt_px"], errs["kpt_visibility"] = k[..., :2].max().item(), k[..., 2].max().item()
+            limits.update(kpt_px=5e-2, kpt_visibility=1e-3)
+        else:
+            errs["angle_rad"] = e[..., -1].max().item()
+            limits["angle_rad"] = 1e-3
+        res["card_vs_cpu"] = errs
+        log(f"[{name}] card vs CPU, 2 frames, all {dg.shape[1]} anchors: {json.dumps(errs)}; the CPU's own fp32 vs "
+            f"fp64: {json.dumps(res['cpu_fp32_vs_fp64'])}")
+        for k, lim in limits.items():
+            require(errs[k] <= lim, f"{name}: card vs CPU {k} {errs[k]:.3e} beyond {lim:.1e}")
+
+    # the NMS kernel against its plain loop, the extra columns gathered by both (bs 16)
+    x16, _ = pred.preprocess(imgs)
+    if TASK_NMS[task]:
+        with torch.inference_mode():
+            dec16 = y.model.head.decode(y.model(x16))
+        kw = dict(nc=y.model.nc, conf_thres=pred.conf, iou_thres=pred.iou, max_det=pred.max_det, max_nms=pred.max_nms)
+        kernel = tnms.batched_greedy_nms
+        got = tnms.non_max_suppression(dec16, **kw)
+        tnms.batched_greedy_nms = cuda_nms.batched_greedy_nms_plain
+        try:
+            plain = tnms.non_max_suppression(dec16, **kw)
+        finally:
+            tnms.batched_greedy_nms = kernel
+        require(all(torch.equal(got[k], plain[k]) for k in got), f"{name}: NMS kernel vs plain differ")
+        res["nms_extra_columns"] = got["extra"].shape[-1]
+        log(f"[{name}] NMS kernel == plain on a bs-16 batch's candidates, {got['extra'].shape[-1]} extra columns, "
+            f"{int(got['valid'].sum())} kept")
+
+    # device ms/img beside yolo-master-n's, in turns; the host's result assembly; a profiled bs-16 batch
+    res["e2e"] = {}
+    for bs in (1, 16):
+        xb = x16[:bs]
+        runs = {"yolo-master-n": [], name: []}
+        for nm in ("yolo-master-n", name, name, "yolo-master-n"):
+            run, xr = (base_run, base_x16[:bs]) if nm == "yolo-master-n" else (pred.run, xb)
+            runs[nm].append(cuda_ms(lambda: run(xr), reps=5, warmup=2) / bs)
+        res["e2e"][bs] = {k: statistics.median(v) for k, v in runs.items()}
+        log(f"[e2e] bs={bs}: device ms/img, yolo-master-n {[round(t, 4) for t in runs['yolo-master-n']]}, "
+            f"{name} {[round(t, 4) for t in runs[name]]}")
+    res["host_ms_per_img"] = r16[0].speed["postprocess"]  # the bs-16 predict's result assembly, ms an image
+    wall_ms, dev_us, count = profile_kernels(pred.run, x16)
+    busy_ms = sum(dev_us.values()) / 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pred.run(x16)
+    torch.cuda.synchronize()
+    res["profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms, busy_share=busy_ms / wall_ms, kernels=count,
+                          peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"[{name}] bs=16: host result assembly {res['host_ms_per_img']:.3f} ms/img; under torch.profiler wall "
+        f"{wall_ms:.3f} ms/batch, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {count:.0f} "
+        f"kernels/batch, peak memory {res['profile']['peak_gib']:.3f} GiB")
+
+    # val on frames labelled from the card's predictions, card against CPU
+    root = Path(tempfile.mkdtemp(prefix=".val_set_", dir=Path(__file__).resolve().parent))
+    try:
+        data = write_task_set(root, task, y, imgs, imgsz)
+        kw = dict(data=str(data), imgsz=imgsz, batch=TASK_VAL_IMAGES)
+        reset_launches()
+        m = y.val(**kw)
+        torch.cuda.synchronize()
+        launches = res["launches"]["val"] = read_launches()
+        m_cpu = cpu.val(**kw)
+        diff = {k: abs(m[k] - m_cpu[k]) for k in TASK_METRICS[task]}
+        res["val"] = dict(metrics={k: m[k] for k in TASK_METRICS[task]}, diff=diff, speed=m["speed"])
+        log(f"[{name}] val: launches {launches}; {m['images']} images, "
+            + " ".join(f"{k} {m[k]:.6f}" for k in TASK_METRICS[task])
+            + f"; |card - CPU| {json.dumps(diff)}; speed {json.dumps(m['speed'])} ms/img")
+        require(launches["stem"] == 1 and launches["nms"] == TASK_NMS[task],
+                f"{name} val: the stem kernel once and the NMS kernel {TASK_NMS[task]} times expected")
+        require(m["images"] == TASK_VAL_IMAGES and max(diff.values()) <= VAL_METRIC_TOL,
+                f"{name} val: the card's metrics differ from the CPU validator's beyond {VAL_METRIC_TOL}")
+        require(m_cpu["top5"] == 1.0 if task == "classify" else m_cpu["mAP50"] > 0.05,
+                f"{name} val: the labels are not matched")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def phase_imports():
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "yolo_master_tpu"))
     require(not bad, f"the port imported {bad[:5]}")
@@ -3592,6 +3922,8 @@ def main():
     done("yolo26 paths")
     y26v = phase_yolo26_variants(dev, y26_preds, imgs)
     done("yolo26-master-latent and -moa-mot paths")
+    tasks = phase_task_heads(dev, fp32_runs["predict path"], x16, imgs)
+    done("task heads")
     train = phase_train(dev, state)
     done("train step")
     loop = phase_train_loop(dev, state, imgs)
@@ -3668,6 +4000,9 @@ def main():
                         for v in VARIANTS for k, p, key in (("predict", "fp32", "stem"), ("bank", "fp32", "stem_bank"),
                                                             ("val", "val", "stem"))},
                      yolo26_train_loop_predict_launches=y26_train["c"]["predict_launches"]["stem"],
+                     task_predict_launches={t: r["launches"]["predict"]["stem"] for t, r in tasks.items()},
+                     task_bank_launches={t: r["launches"]["predict"]["stem_bank"] for t, r in tasks.items()},
+                     task_val_launches={t: r["launches"]["val"]["stem"] for t, r in tasks.items()},
                      v0_10_train_loop_predict_launches=v10_train["e"]["predict_launches"]["stem"],
                      pruned_n_predict_launches=v10_train["f"]["prune_launches"]["stem"],
                      widths={scale: {k: stem_res[(scale, 16)][k]
@@ -3694,6 +4029,9 @@ def main():
                      yolo26_train_loop_ema_val_launches=y26_train["c"]["launches"]["nms"],
                      yolo26_train_loop_predict_launches=y26_train["c"]["predict_launches"]["nms"],
                      yolo26_multitrainer_ema_val_launches=y26_train["d"]["launches"]["nms"],
+                     task_predict_launches={t: r["launches"]["predict"]["nms"] for t, r in tasks.items()},
+                     task_val_launches={t: r["launches"]["val"]["nms"] for t, r in tasks.items()},
+                     task_extra_columns={t: r["nms_extra_columns"] for t, r in tasks.items() if "nms_extra_columns" in r},
                      v0_10_train_loop_ema_val_launches=v10_train["e"]["launches"]["nms"],
                      v0_10_train_loop_predict_launches=v10_train["e"]["predict_launches"]["nms"],
                      pruned_n_predict_launches=v10_train["f"]["prune_launches"]["nms"],
@@ -3760,6 +4098,8 @@ def main():
     log(f"[{Y26}] " + json.dumps(y26))
     for v in VARIANTS:
         log(f"[{v}] " + json.dumps(y26v[v]))
+    for task, name, _ in TASK_GRAPHS:
+        log(f"[{name}] " + json.dumps(tasks[task]))
     log(f"[{Y26} train] " + json.dumps({k: ({n: x for n, x in r.items() if n not in ("losses", "predict_launches")}
                                             if isinstance(r, dict) else r) for k, r in y26_train.items()},
                                        default=str))

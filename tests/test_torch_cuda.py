@@ -1412,3 +1412,79 @@ def test_yolo26_train_step_on_the_card_matches_the_cpu(dev, monkeypatch):
     blocks = [[m for m in model.modules() if isinstance(m, OptimizedMOEImproved)] for model in (mg, mc)]
     for a, b in zip(*blocks):
         assert a.dropped_experts().size > 0 and torch.equal(a._draws[1].cpu(), b._draws[1]), a.jax_path
+
+
+TASKS = [("yolo-master-seg-n", 640), ("yolo-master-pose-n", 640), ("yolo-master-obb-n", 640), ("yolo-master-cls-n", 224)]
+
+
+@pytest.mark.parametrize("name,imgsz", TASKS, ids=["segment", "pose", "obb", "classify"])
+def test_task_predict_on_the_card_matches_the_cpu(dev, name, imgsz):
+    """A task model (Segment, Pose, OBB at 640; Classify at 224, where the stem
+    kernel writes 56x56) fused on the card and on the CPU from the same weights
+    (BN calibrated on four frames, class biases at 0): predict() launches the
+    stem kernel once a batch and the NMS kernel once a batch for seg and pose
+    only; on two frames the card's decode lies within chip_smoke.py's limits of
+    the CPU's (5e-2 px on boxes and keypoints, 1e-3 on logits, angles and
+    visibilities; cls: log-probabilities within 1e-3)."""
+    from yolo_master_tpu_torch import YOLO
+    from yolo_master_tpu_torch.engine.predictors_task import TASK_PREDICTORS
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn
+
+    rng = np.random.default_rng(12)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(4)]
+    cpu = YOLO(name, device="cpu")
+    calibrate_bn(cpu.model, TASK_PREDICTORS[cpu.task](cpu.model, imgsz=imgsz).preprocess(frames)[0])
+    if cpu.task != "classify":
+        with torch.no_grad():
+            for branch in cpu.model.head.cv3:
+                branch[-1].bias.zero_()
+    card = YOLO(name, device=dev).load_state_dict(cpu.model.state_dict()).fuse()
+    cpu.fuse()
+    fused_stem.launches = batched_greedy_nms.launches = 0
+    res = card.predict(frames[:1], imgsz=imgsz, batch=1) + card.predict(frames, imgsz=imgsz, batch=4)
+    torch.cuda.synchronize()
+    nms = 2 if cpu.task in ("segment", "pose") else 0
+    assert fused_stem.launches == 2 and batched_greedy_nms.launches == nms
+    assert len(res) == 5
+    x, _ = card._predictor.preprocess(frames[:2])
+    with torch.inference_mode():
+        g, c = card.model(x), cpu.model(x.cpu())
+    if cpu.task == "classify":
+        lg, lc = g.log().cpu(), c.log()
+        assert ((lg - lg.mean(-1, keepdim=True)) - (lc - lc.mean(-1, keepdim=True))).abs().max() <= 1e-3
+        return
+    with torch.inference_mode():
+        dg, dc = card.model.head.decode(g, raw_scores=True).cpu(), cpu.model.head.decode(c, raw_scores=True)
+    nc, e = cpu.model.nc, (dg - dc).abs()
+    assert e[..., :4].max() <= 5e-2 and e[..., 4:4 + nc].max() <= 1e-3
+    if cpu.task == "pose":
+        k = e[..., 4 + nc:].reshape(*e.shape[:2], 17, 3)
+        assert k[..., :2].max() <= 5e-2 and k[..., 2].max() <= 1e-3
+    elif cpu.task == "obb":
+        assert e[..., -1].max() <= 1e-3
+    else:
+        assert all(r.masks is not None and r.masks.data.shape[1:] == (480, 640) for r in res if len(r))
+
+
+@pytest.mark.parametrize("extra", [32, 51])
+def test_nms_kernel_with_extra_columns_equals_plain(dev, extra, monkeypatch):
+    """non_max_suppression over [16, 8400, 4 + nc + extra] predictions (the
+    Segment head's 32 mask coefficients, the Pose head's 51 keypoint values):
+    the kernel's detections and gathered extra columns equal the plain loop's."""
+    from yolo_master_tpu_torch.ops import nms as tnms
+
+    g = torch.Generator().manual_seed(extra)
+    b, a, nc = 16, 8400, 80 if extra == 32 else 1
+    xy = torch.rand(b, a, 2, generator=g) * 640
+    wh = torch.rand(b, a, 2, generator=g) * 120 + 4
+    scores = (torch.rand(b, a, nc, generator=g) * 64).round() / 64  # exact ties
+    pred = torch.cat([xy, wh, scores, torch.randn(b, a, extra, generator=g)], -1).to(dev)
+    for kw in (dict(conf_thres=0.25, iou_thres=0.45, max_nms=2048), dict(conf_thres=0.001, iou_thres=0.7,
+                                                                          max_nms=4096, multi_label=True)):
+        got = tnms.non_max_suppression(pred, nc=nc, max_det=300, **kw)
+        with monkeypatch.context() as mp:
+            mp.setattr(tnms, "batched_greedy_nms", batched_greedy_nms_plain)
+            plain = tnms.non_max_suppression(pred, nc=nc, max_det=300, **kw)
+        assert got["extra"].shape == (b, 300, extra) and int(got["valid"].sum()) > 0
+        for k in got:
+            assert torch.equal(got[k], plain[k]), (kw, k)

@@ -270,7 +270,7 @@ def test_unported_module_names_its_roadmap_item():
         parse_model(cfg)
 
 
-@pytest.mark.parametrize("name", ["yolo-master-seg-n", "yolo-master-cls-n", "yolo-master-world-n",
+@pytest.mark.parametrize("name", ["yolo-master-semantic-n", "yolo-master-v0_2-cls-n", "yolo-master-world-n",
                                   "yolo-master-dymoe-n", "yolo-master-v0_2-n",
                                   "rtdetr-master-hgnet-l", "yolo-master-uomoe-n"])
 def test_other_model_yamls_name_their_roadmap_item(name):

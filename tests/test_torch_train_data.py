@@ -221,4 +221,4 @@ def test_refusals(synth):
     with pytest.raises(ValueError, match="np.uint8 or np.float32"):
         tdataset.collate([td.load_sample(0, random.Random(0))], 4, images=np.float16)
     with pytest.raises(NotImplementedError, match=r"§1\.E item 13"):
-        tdataset.SegmentDataset  # noqa: B018
+        tdataset.SemanticDataset  # noqa: B018

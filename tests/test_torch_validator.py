@@ -419,7 +419,7 @@ def test_val_rejects_unknown_keywords_and_datasets_it_cannot_load(synth):
     with pytest.raises(ValueError, match="cache must be"):
         tdataset.YOLODataset(str(yaml_path), split="val", cache="gpu")
     with pytest.raises(NotImplementedError, match="§1.E item 13"):
-        tdataset.PoseDataset  # noqa: B018
+        tdataset.SemanticDataset  # noqa: B018
     with pytest.raises(FileNotFoundError):
         tdataset.resolve_data_yaml("no-such-set.yaml")
     assert tdataset.resolve_data_yaml("coco.yaml") == tdataset.DATASETS_DIR / "coco.yaml"

@@ -1,4 +1,5 @@
-"""yolo_master_tpu_torch: the YOLO-Master detector in PyTorch, with hand-written
+"""yolo_master_tpu_torch: the YOLO-Master detector in PyTorch (and its segment,
+pose, oriented-box and classify heads, in eval), with hand-written
 CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``yolo_master_tpu`` (JAX/Pallas), module by module, held against it
@@ -10,6 +11,6 @@ tensor; a CPU tensor takes each kernel's plain PyTorch version.
 """
 
 from .models.yolo import YOLO
-from .nn.tasks import DetectionModel
+from .nn.tasks import ClassificationModel, DetectionModel, OBBModel, PoseModel, SegmentationModel
 
-__all__ = ["YOLO", "DetectionModel"]
+__all__ = ["YOLO", "DetectionModel", "SegmentationModel", "PoseModel", "OBBModel", "ClassificationModel"]

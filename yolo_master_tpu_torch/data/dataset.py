@@ -22,8 +22,16 @@ JAX package's files).
 Images are decoded with OpenCV, or with PIL where OpenCV is missing (lossless
 for PNG; JPEG decoders may differ by a rounding). The rect resize needs
 OpenCV's INTER_LINEAR for pixel parity and raises without it; so does
-``augment=True``. The task datasets come with the task heads (ROADMAP.md §1.E
-item 13) and raise ``NotImplementedError`` here.
+``augment=True``.
+
+The task datasets are the val half of the JAX package's
+(``data/dataset.py:583-889``): :class:`SegmentDataset` (polygons resampled to
+1000 points and rasterised at the letterboxed size, then resized to the mask
+grid), :class:`PoseDataset` (keypoints), :class:`OBBDataset` (corner points
+-> xywhr) and :class:`ClassificationDataset` (a folder per class, square
+resize). Each sample is the JAX package's byte for byte and each batch too
+with ``images=np.float32``; their train half raises (ROADMAP.md §1.E item
+13), and so does ``SemanticDataset``.
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ from .letterbox import cv2, letterbox
 LOGGER = logging.getLogger(__name__)
 IMG_FORMATS = {"bmp", "jpeg", "jpg", "png", "tif", "tiff", "webp"}
 TASK_ITEM = "ROADMAP.md §1.E item 13 (task heads and their datasets)"
-TASK_DATASETS = ("SegmentDataset", "PoseDataset", "OBBDataset", "SemanticDataset", "ClassificationDataset")
+TASK_TRAIN_ITEM = "ROADMAP.md §1.E item 13 (the task heads' training: augmentation, losses, trainers)"
+TASK_DATASETS = ("SemanticDataset",)
 SHARD_ITEMS = {"sharding": "ROADMAP.md §1.H item 19 (data parallelism)",
                "process_shard": "ROADMAP.md §1.H items 19-20 (data and expert parallelism)"}
 HYP_DEFAULTS = {"fliplr": 0.5, "flipud": 0.0, "hsv_h": 0.015, "hsv_s": 0.7, "hsv_v": 0.4,
@@ -437,6 +446,13 @@ def collate(samples: List[Tuple[np.ndarray, np.ndarray]], max_gt: int, images=np
     return {"images": out, "boxes": boxes, "classes": classes, "mask": mask}
 
 
+def collate_for(ds, samples: list, images=np.uint8) -> Dict[str, np.ndarray]:
+    """A batch of ``ds``'s samples: its own ``collate_batch`` (the task datasets'), else :func:`collate`."""
+    if hasattr(ds, "collate_batch"):
+        return ds.collate_batch(samples, images)
+    return collate(samples, ds.max_gt, images)
+
+
 def _refuse_sharding(**kw) -> None:
     for name, value in kw.items():
         if value is not None:
@@ -483,7 +499,7 @@ class DataLoader:
     def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         rng = random.Random(self.seed + epoch)
         for idxs in self._batch_indices(rng):
-            yield collate([self.ds.load_sample(i, rng) for i in idxs], self.ds.max_gt, self.images)
+            yield collate_for(self.ds, [self.ds.load_sample(i, rng) for i in idxs], self.images)
 
 
 class PrefetchLoader(DataLoader):
@@ -517,7 +533,7 @@ class PrefetchLoader(DataLoader):
             samples = list(sample_pool.map(
                 lambda j_i: self.ds.load_sample(j_i[1], random.Random(base + bi * self.bs + j_i[0])),
                 enumerate(idxs)))
-            return collate(samples, self.ds.max_gt, self.images)
+            return collate_for(self.ds, samples, self.images)
 
         with ThreadPoolExecutor(self.workers) as sample_pool, ThreadPoolExecutor(self.prefetch) as batch_pool:
             it = iter(enumerate(batches))
@@ -530,10 +546,236 @@ class PrefetchLoader(DataLoader):
                 yield f.result()
 
 
+# -- task datasets ------------------------------------------------------------------------------
+
+class _TaskDataset(YOLODataset):
+    """The val half of a task dataset: letterbox only (no up-scaling), as the
+    JAX package's ``augment=False``; ``augment=True`` raises."""
+
+    def __init__(self, *args, **kw):
+        if kw.get("augment") or (len(args) > 4 and args[4]):
+            raise NotImplementedError(f"augment=True on {type(self).__name__}: {TASK_TRAIN_ITEM}")
+        if cv2 is None:
+            raise RuntimeError(f"{type(self).__name__} needs OpenCV (the JAX package's rasteriser and rect "
+                               "geometry), which is not installed")
+        super().__init__(*args, **kw)
+
+    @staticmethod
+    def _images(samples, images):
+        if images not in (np.uint8, np.float32):
+            raise ValueError(f"images must be np.uint8 or np.float32, got {images!r}")
+        out = np.stack([s[0] for s in samples])
+        return out if images is np.uint8 else out.astype(np.float32) / 255.0
+
+
+class SegmentDataset(_TaskDataset):
+    """Instance segmentation: label rows "cls x1 y1 x2 y2 ..." (a normalised
+    polygon) -> boxes and binary masks at 1/``mask_ratio`` of the letterboxed
+    size."""
+
+    def __init__(self, *args, mask_ratio: int = 4, **kw):
+        self.mask_ratio = mask_ratio
+        super().__init__(*args, **kw)
+
+    @staticmethod
+    def _load_label(path: str) -> list:
+        p = Path(path)
+        if not p.exists():
+            return []
+        rows = []
+        for line in p.read_text().splitlines():
+            vals = [float(v) for v in line.split()]
+            if len(vals) >= 7:  # cls + >= 3 points
+                rows.append(np.asarray(vals, np.float32))
+        return rows  # variable-length rows
+
+    @staticmethod
+    def _resample_polygon(poly: np.ndarray, n: int = 1000) -> np.ndarray:
+        """Close the ring and interpolate it linearly to ``n`` points, keeping the
+        original vertices (the reference's ``resample_segments``): rasterising
+        the dense ring with int32-truncated points places boundary pixels as the
+        reference's ``polygon2mask`` does."""
+        s = np.concatenate([poly, poly[0:1]], 0)
+        if len(poly) >= n:
+            x = np.linspace(0, len(s) - 1, n)
+        else:
+            xp0 = np.arange(len(s))
+            x = np.linspace(0, len(s) - 1, n - len(s))
+            x = np.insert(x, np.searchsorted(x, xp0), xp0)
+        xp = np.arange(len(s))
+        return np.stack([np.interp(x, xp, s[:, 0]), np.interp(x, xp, s[:, 1])], -1).astype(np.float32)
+
+    def load_sample(self, idx: int, rng: Optional[random.Random] = None):
+        """(letterboxed RGB uint8 image, labels [N, 5] cls + xyxy px, masks [N, mh, mw] uint8)."""
+        im = self._rect_resize(self._imread(idx))
+        h0, w0 = im.shape[:2]  # the resized size: labels denormalise against it
+        im_lb, ratio, pad = letterbox(im, self.imgsz, scaleup=False)
+        size = self.imgsz
+        mh, mw = size // self.mask_ratio, size // self.mask_ratio
+        boxes, cls, masks = [], [], []
+        for row in self.labels[idx]:
+            poly = row[1:].reshape(-1, 2) * [w0, h0]
+            poly = self._resample_polygon(poly) * ratio[0] + [pad[0], pad[1]]
+            boxes.append([*poly.min(0), *poly.max(0)])
+            cls.append(row[0])
+            # rasterised at the full letterboxed size with int32-truncated points,
+            # then resized (INTER_LINEAR) to the mask grid, as the reference's polygon2mask
+            m = np.zeros((size, size), np.uint8)
+            cv2.fillPoly(m, [poly.astype(np.int32)], 1)
+            if self.mask_ratio != 1:
+                m = cv2.resize(m, (mw, mh))
+            masks.append(m)
+        lbl = (np.concatenate([np.asarray(cls, np.float32)[:, None], np.asarray(boxes, np.float32)], -1)
+               if cls else np.zeros((0, 5), np.float32))
+        mk = np.stack(masks) if masks else np.zeros((0, mh, mw), np.uint8)
+        return im_lb[..., ::-1].astype(np.uint8), lbl, mk
+
+    def collate_batch(self, samples, images=np.uint8) -> Dict[str, np.ndarray]:
+        """images, boxes [B, max_gt, 4], classes, mask, masks [B, max_gt, mh, mw] float32."""
+        b, mh = len(samples), self.imgsz // self.mask_ratio
+        out = {"images": self._images(samples, images), "boxes": np.zeros((b, self.max_gt, 4), np.float32),
+               "classes": np.zeros((b, self.max_gt), np.int32), "mask": np.zeros((b, self.max_gt), bool),
+               "masks": np.zeros((b, self.max_gt, mh, mh), np.float32)}
+        for i, (_, lbl, mk) in enumerate(samples):
+            n = min(len(lbl), self.max_gt)
+            out["boxes"][i, :n] = lbl[:n, 1:5]
+            out["classes"][i, :n] = lbl[:n, 0].astype(np.int32)
+            out["mask"][i, :n] = True
+            out["masks"][i, :n] = mk[:n]
+        return out
+
+
+class PoseDataset(_TaskDataset):
+    """Keypoints: label rows "cls xc yc w h kx ky kv ..." (normalised) -> boxes
+    and keypoints [nk, nd] in letterboxed pixels."""
+
+    def __init__(self, *args, kpt_shape=(17, 3), **kw):
+        self.kpt_shape = tuple(kpt_shape)
+        super().__init__(*args, **kw)
+
+    @staticmethod
+    def _load_label(path: str) -> list:
+        p = Path(path)
+        if not p.exists():
+            return []
+        return [np.asarray([float(v) for v in line.split()], np.float32)
+                for line in p.read_text().splitlines() if line.strip()]
+
+    def load_sample(self, idx: int, rng: Optional[random.Random] = None):
+        """(letterboxed RGB uint8 image, labels [N, 5] cls + xyxy px, keypoints [N, nk, nd])."""
+        im = self._rect_resize(self._imread(idx))
+        h0, w0 = im.shape[:2]
+        nk, nd = self.kpt_shape
+        im_lb, ratio, pad = letterbox(im, self.imgsz, scaleup=False)
+        boxes, cls, kpts = [], [], []
+        for row in self.labels[idx]:
+            c, xc, yc, w, h = row[:5]
+            bx = np.array([(xc - w / 2) * w0, (yc - h / 2) * h0, (xc + w / 2) * w0, (yc + h / 2) * h0])
+            boxes.append(bx * ratio[0] + [pad[0], pad[1], pad[0], pad[1]])
+            k = row[5: 5 + nk * nd].reshape(nk, nd).copy() if len(row) >= 5 + nk * nd else np.zeros((nk, nd), np.float32)
+            k[:, 0] = k[:, 0] * w0 * ratio[0] + pad[0]
+            k[:, 1] = k[:, 1] * h0 * ratio[1] + pad[1]
+            cls.append(c)
+            kpts.append(k)
+        lbl = (np.concatenate([np.asarray(cls, np.float32)[:, None], np.asarray(boxes, np.float32)], -1)
+               if cls else np.zeros((0, 5), np.float32))
+        kp = np.stack(kpts) if kpts else np.zeros((0, nk, nd), np.float32)
+        return im_lb[..., ::-1].astype(np.uint8), lbl, kp
+
+    def collate_batch(self, samples, images=np.uint8) -> Dict[str, np.ndarray]:
+        """images, boxes [B, max_gt, 4], classes, mask, keypoints [B, max_gt, nk, nd]."""
+        b = len(samples)
+        out = {"images": self._images(samples, images), "boxes": np.zeros((b, self.max_gt, 4), np.float32),
+               "classes": np.zeros((b, self.max_gt), np.int32), "mask": np.zeros((b, self.max_gt), bool),
+               "keypoints": np.zeros((b, self.max_gt, *self.kpt_shape), np.float32)}
+        for i, (_, lbl, kp) in enumerate(samples):
+            n = min(len(lbl), self.max_gt)
+            out["boxes"][i, :n] = lbl[:n, 1:5]
+            out["classes"][i, :n] = lbl[:n, 0].astype(np.int32)
+            out["mask"][i, :n] = True
+            out["keypoints"][i, :n] = kp[:n]
+        return out
+
+
+class OBBDataset(_TaskDataset):
+    """Oriented boxes: label rows "cls x1 y1 x2 y2 x3 y3 x4 y4" (normalised
+    corners) -> xywhr in letterboxed pixels by ``cv2.minAreaRect``, w >= h."""
+
+    @staticmethod
+    def _load_label(path: str) -> np.ndarray:
+        p = Path(path)
+        if not p.exists():
+            return np.zeros((0, 9), np.float32)
+        rows = [[float(v) for v in line.split()[:9]] for line in p.read_text().splitlines() if len(line.split()) >= 9]
+        return np.asarray(rows, np.float32) if rows else np.zeros((0, 9), np.float32)
+
+    def load_sample(self, idx: int, rng: Optional[random.Random] = None):
+        """(letterboxed RGB uint8 image, classes [N] float32, rboxes [N, 5] xywhr)."""
+        im = self._rect_resize(self._imread(idx))
+        h0, w0 = im.shape[:2]
+        im_lb, ratio, pad = letterbox(im, self.imgsz, scaleup=False)
+        rboxes, cls = [], []
+        for row in self.labels[idx]:
+            pts = row[1:9].reshape(4, 2) * [w0, h0] * ratio[0] + [pad[0], pad[1]]
+            (cx, cy), (w, h), ang = cv2.minAreaRect(pts.astype(np.float32))
+            r = np.deg2rad(ang)
+            if h > w:  # canonical xywhr: w >= h
+                w, h = h, w
+                r += np.pi / 2
+            rboxes.append([cx, cy, w, h, r])
+            cls.append(row[0])
+        rb = np.asarray(rboxes, np.float32) if rboxes else np.zeros((0, 5), np.float32)
+        return im_lb[..., ::-1].astype(np.uint8), np.asarray(cls, np.float32), rb
+
+    def collate_batch(self, samples, images=np.uint8) -> Dict[str, np.ndarray]:
+        """images, rboxes [B, max_gt, 5], classes, mask."""
+        b = len(samples)
+        out = {"images": self._images(samples, images), "rboxes": np.zeros((b, self.max_gt, 5), np.float32),
+               "classes": np.zeros((b, self.max_gt), np.int32), "mask": np.zeros((b, self.max_gt), bool)}
+        for i, (_, cls, rb) in enumerate(samples):
+            n = min(len(cls), self.max_gt)
+            out["rboxes"][i, :n] = rb[:n]
+            out["classes"][i, :n] = cls[:n].astype(np.int32)
+            out["mask"][i, :n] = True
+        return out
+
+
+class ClassificationDataset:
+    """A folder per class under ``root`` (classes sorted by name); each image
+    resized to ``imgsz`` x ``imgsz`` (INTER_LINEAR, no letterbox), RGB."""
+
+    def __init__(self, root: str, imgsz: int = 224, augment: bool = False):
+        if augment:
+            raise NotImplementedError(f"augment=True on ClassificationDataset: {TASK_TRAIN_ITEM}")
+        if cv2 is None:
+            raise RuntimeError("ClassificationDataset needs OpenCV (the JAX package's resize), which is not installed")
+        self.root = Path(root)
+        self.imgsz = imgsz
+        self.augment = False
+        classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
+        self.names = dict(enumerate(classes))
+        self.samples = [(str(f), ci) for ci, name in enumerate(classes) for f in sorted((self.root / name).rglob("*"))
+                        if f.suffix.lower().lstrip(".") in IMG_FORMATS]
+        self.max_gt = 0
+
+    def __len__(self):
+        return len(self.samples)
+
+    def load_sample(self, idx: int, rng: Optional[random.Random] = None):
+        """(RGB uint8 [imgsz, imgsz, 3], class index)."""
+        path, ci = self.samples[idx]
+        im = cv2.resize(cv2.imread(path), (self.imgsz, self.imgsz), interpolation=cv2.INTER_LINEAR)
+        return np.ascontiguousarray(im[..., ::-1]), ci
+
+    def collate_batch(self, samples, images=np.uint8) -> Dict[str, np.ndarray]:
+        """images, classes [B] int32."""
+        return {"images": _TaskDataset._images(samples, images),
+                "classes": np.asarray([ci for _, ci in samples], np.int32)}
+
+
 # ---------------------------------------------------------------------------------------------
 # Augmentations (reference data/augment.py: RandomPerspective:1036, MixUp:762, CutMix:863,
 # CopyPaste:1856), on (BGR image, boxes [N,4] xyxy px, classes [N]).
-# ---------------------------------------------------------------------------------------------
 
 def random_perspective(im, boxes, cls, rng, degrees=0.0, translate=0.1, scale=0.5, shear=0.0, border=114):
     """Affine warp + box transform (reference augment.py:1036 RandomPerspective)."""

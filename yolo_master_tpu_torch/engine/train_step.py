@@ -378,6 +378,9 @@ def _check_trainable(model: torch.nn.Module) -> None:
     from ..nn.moe import FusedESMOE
     from ..nn.tasks import refuse_mixture_training
 
+    if getattr(model, "task", "detect") != "detect":
+        raise NotImplementedError(f"training a {model.task} model is not ported yet: ROADMAP.md §1.E item 13 "
+                                  "(the task heads' losses and trainers)")
     for m in model.modules():
         if isinstance(m, (FusedStem, FusedESMOE)):
             raise ValueError("a fused (deploy) model cannot be trained: train the unfused model")

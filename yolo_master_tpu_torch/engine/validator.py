@@ -56,6 +56,44 @@ from .predictor import COMPUTE_DTYPES, end2end_detections
 LOGGER = logging.getLogger(__name__)
 
 
+def timed_batches(loader, device, preprocess, run, update) -> Dict[str, float]:
+    """One epoch of ``loader``: each batch's ``run(preprocess(images))`` on ``device``,
+    its outputs (a dict of tensors, or of such dicts) to numpy, then ``update(batch,
+    outputs)`` on the host. Returns the seconds of the host's loading, the
+    device's step (CUDA events on the card, the host clock elsewhere) and the
+    host's update, summed."""
+    on_card = device.type == "cuda"
+    load_s = match_s = 0.0
+    device_ms = []  # (start, end) CUDA events on the card, ms on the host clock elsewhere
+    batches = loader.epoch()
+    while True:
+        t_load = time.perf_counter()
+        batch = next(batches, None)
+        load_s += time.perf_counter() - t_load
+        if batch is None:
+            break
+        x = preprocess(batch["images"])
+        if on_card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run(x)
+            end.record()
+            device_ms.append((start, end))
+        else:
+            t_dev = time.perf_counter()
+            out = run(x)
+            device_ms.append((time.perf_counter() - t_dev) * 1e3)
+        out = {k: ({n: t.cpu().numpy() for n, t in v.items()} if isinstance(v, dict) else v.cpu().numpy())
+               for k, v in out.items()}
+        t_match = time.perf_counter()
+        update(batch, out)
+        match_s += time.perf_counter() - t_match
+    if on_card:
+        torch.cuda.synchronize(device)
+        device_ms = [s.elapsed_time(e) for s, e in device_ms]
+    return {"load": load_s, "device": sum(device_ms) / 1e3, "match": match_s}
+
+
 class DetectionValidator:
     def __init__(self, model, data: Optional[str] = None, imgsz: int = 640, batch: int = 8, conf: float = 0.001,
                  iou: float = 0.7, max_det: int = 300, max_nms: int = 4096, max_gt: int = 128,
@@ -112,44 +150,21 @@ class DetectionValidator:
         names = dataset.names
         is_coco = len(names) == 80 and names.get(0) == "person" and names.get(79) == "toothbrush"
         self._class_map = COCO80_TO_COCO91 if is_coco else None
-        on_card = self.device.type == "cuda"
-        load_s = match_s = 0.0
-        device_ms = []  # (start, end) CUDA events on the card, ms on the host clock elsewhere
         seen = 0
-        t0 = time.perf_counter()
-        batches = loader.epoch()
-        while True:
-            t_load = time.perf_counter()
-            batch = next(batches, None)
-            load_s += time.perf_counter() - t_load
-            if batch is None:
-                break
-            x = self.preprocess(batch["images"])
-            if on_card:
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                det = self.run(x)
-                end.record()
-                device_ms.append((start, end))
-            else:
-                t_dev = time.perf_counter()
-                det = self.run(x)
-                device_ms.append((time.perf_counter() - t_dev) * 1e3)
-            det = {k: v.cpu().numpy() for k, v in det.items()}
-            t_match = time.perf_counter()
+
+        def update(batch, det):
+            nonlocal seen
             seen = self.update(metrics, det, batch, dataset, seen, jdict)
-            match_s += time.perf_counter() - t_match
-        if on_card:
-            torch.cuda.synchronize(self.device)
-            device_ms = [s.elapsed_time(e) for s, e in device_ms]
+
+        t0 = time.perf_counter()
+        speed_s = timed_batches(loader, self.device, self.preprocess, self.run, update)
         if jdict is not None:
             Path(self.save_json).write_text(json.dumps(jdict))
             LOGGER.info(f"saved {len(jdict)} COCO-format predictions to {self.save_json}")
         out = metrics.compute()
         out["images"] = seen
         out["sec"] = time.perf_counter() - t0
-        per = max(seen, 1)
-        out["speed"] = {"load": load_s * 1e3 / per, "device": sum(device_ms) / per, "match": match_s * 1e3 / per}
+        out["speed"] = {k: v * 1e3 / max(seen, 1) for k, v in speed_s.items()}
         LOGGER.info(
             f"val: {seen} imgs  P {out['precision']:.3f}  R {out['recall']:.3f}  "
             f"mAP50 {out['mAP50']:.3f}  mAP50-95 {out['mAP50-95']:.3f}  ({out['sec']:.1f}s)"

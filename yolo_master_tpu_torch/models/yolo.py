@@ -1,6 +1,8 @@
-"""YOLO facade (counterpart of ``yolo_master_tpu/models/yolo.py``): detection only.
+"""YOLO facade (counterpart of ``yolo_master_tpu/models/yolo.py``).
 
     YOLO("yolo-master-n").fuse().predict(images)   # fuse(pallas_stem=True), the JAX README's form, too
+    YOLO("yolo-master-seg-n").fuse().predict(images)   # -pose-n, -obb-n, -cls-n; v0_4-v0_15 too (eval, fp32)
+    YOLO("yolo-master-cls-n").fuse().val(data="imagenet_dir")   # a folder per class under data/val
     YOLO("yolo-master-v0_10-n").fuse().predict(images)   # the released EsMoE graph (any of v0_4-v0_15)
     YOLO("yolo-master-n").fuse().val(data="data.yaml", imgsz=640, batch=16)
     YOLO("yolo-master-n").train(data="data.yaml", epochs=100, batch=16, imgsz=640)
@@ -24,14 +26,34 @@ from typing import Dict, Optional
 import torch
 
 from ..engine.predictor import DetectionPredictor
+from ..engine.predictors_task import TASK_PREDICTORS
 from ..engine.validator import DetectionValidator
-from ..nn.tasks import DetectionModel
+from ..engine.validators_task import TASK_VALIDATORS
+from ..nn.tasks import TASK_MODELS
 from ..utils import coco_names
 from ..utils.checkpoint import load_weights_npz, model_from_ref
 from ..utils.fuse import fuse_bn, fused_stem_fuse
 from ..utils.weights import state_dict_from_jax
 
-TASK_ITEM = "ROADMAP.md §1.E item 13 (task heads, their datasets, validators and trainers)"
+TASK_ITEM = "ROADMAP.md §1.E item 13 (the task heads' training: losses, trainers; SemanticSegment)"
+VAL_KEYS = {"detect": {"data", "imgsz", "batch", "conf", "iou", "max_det", "max_nms", "max_gt", "save_json",
+                       "compute_dtype"},
+            "segment": {"data", "imgsz", "batch", "conf", "iou", "max_det", "max_gt", "compute_dtype"},  # pose, obb
+            "classify": {"data", "imgsz", "batch", "compute_dtype"}}
+OTHER_TASKS = {"semantic": TASK_ITEM, "world": "ROADMAP.md §1.I item 21", "yoloe": "ROADMAP.md §1.I item 21",
+               "rtdetr": "ROADMAP.md §1.I item 21"}
+
+
+def guess_task(name: str) -> str:
+    """The task a model name implies (JAX ``YOLO._guess_task``): ``-seg`` segment,
+    ``-pose``, ``-obb``, ``-cls`` classify, ``-semantic``; else detect."""
+    for key in ("seg", "pose", "obb", "cls", "semantic"):
+        if f"-{key}" in name or f"_{key}" in name:
+            return {"seg": "segment", "cls": "classify"}.get(key, key)
+    for key in ("rtdetr", "yoloe", "world"):
+        if key in name:
+            return key
+    return "detect"
 
 
 def _npz_graph(path: Path, meta: dict, cfg, sd: dict):
@@ -44,15 +66,18 @@ def _npz_graph(path: Path, meta: dict, cfg, sd: dict):
     ref = model_from_ref(ref) if isinstance(ref, str) else ref
     if isinstance(ref, str):
         ref = ref.removesuffix(".yaml")
-    nc = next((v.shape[0] for k, v in sd.items() if k.endswith(".cv3.0.2.weight")), None)
+    nc = next((v.shape[0] for k, v in sd.items() if k.endswith((".cv3.0.2.weight", ".linear.weight"))), None)
     return ref, nc
 
 
 class YOLO:
     def __init__(self, model="yolo-master-n", *, device="cuda", nc: Optional[int] = None, seed: int = 0,
-                 task: str = "detect", cfg=None):
-        if task != "detect":
-            raise NotImplementedError(f"task '{task}' is not ported yet: {TASK_ITEM}")
+                 task: Optional[str] = None, cfg=None):
+        task = task or guess_task(str(cfg if isinstance(cfg, str) else model))
+        if task in OTHER_TASKS:
+            raise NotImplementedError(f"task '{task}' is not ported yet: {OTHER_TASKS[task]}")
+        if task not in TASK_MODELS:
+            raise KeyError(f"unknown task '{task}' (choices: {list(TASK_MODELS)})")
         self.task = task
         self.device = torch.device(device)
         self.model_name = str(model)
@@ -62,7 +87,7 @@ class YOLO:
             model, file_nc = _npz_graph(Path(model), meta, cfg, weights)
             nc = nc or file_nc
         self.cfg = model  # the graph: a model name or a config dict
-        self.model = DetectionModel(model, nc=nc, seed=seed).eval()
+        self.model = TASK_MODELS[task](model, nc=nc, seed=seed).eval()
         if weights is not None:
             self.model.load_state_dict(weights, strict=True)
         self._to_device()
@@ -102,18 +127,20 @@ class YOLO:
 
     # -- inference ---------------------------------------------------------------
     def predict(self, source, **kwargs):
-        """Detect objects in a BGR HWC uint8 image, an image path, or a list of them.
+        """Run the model's task on a BGR HWC uint8 image, an image path, or a list of them
+        (``engine/predictor.py``, ``engine/predictors_task.py``).
 
         Keyword arguments: imgsz, conf, iou, max_det, max_nms, agnostic_nms, classes, batch,
-        compute_dtype (``torch.float32``, the default, or ``torch.bfloat16``: the
-        predictor then runs a bf16 copy of the model, and this model stays fp32).
+        compute_dtype (``torch.float32``, the default, or ``torch.bfloat16`` for detection: the
+        predictor then runs a bf16 copy of the model, and this model stays fp32; a task
+        model raises for bf16, ROADMAP.md §1.E item 13).
         """
         keys = {"imgsz", "conf", "iou", "max_det", "max_nms", "agnostic_nms", "classes", "batch", "compute_dtype"}
         unknown = set(kwargs) - keys
         if unknown:
             raise TypeError(f"unknown predict arguments: {sorted(unknown)}")
         if self._predictor is None or (kwargs and kwargs != self._predict_cfg):
-            self._predictor = DetectionPredictor(self.model, names=self.names, **kwargs)
+            self._predictor = TASK_PREDICTORS[self.task](self.model, names=self.names, **kwargs)
             self._predict_cfg = kwargs
         return self._predictor(source)
 
@@ -154,10 +181,17 @@ class YOLO:
         (``torch.float32``, the default, or ``torch.bfloat16``: the model's bf16 copy).
         Returns precision, recall, mAP50, mAP50-95, fitness, images, sec and speed
         (ms per image of load, device and match).
+
+        A task model runs its task's validator (``engine/validators_task.py``; fp32):
+        segment, pose and obb take data, imgsz, batch, conf, iou, max_det and max_gt
+        and add their mask_/pose_ metrics; classify takes data (a directory with a
+        folder per class under ``val``), imgsz (default 224) and batch, and returns
+        top1 and top5.
         """
-        keys = {"data", "imgsz", "batch", "conf", "iou", "max_det", "max_nms", "max_gt", "save_json",
-                "compute_dtype"}
+        keys = VAL_KEYS.get(self.task, VAL_KEYS["segment"])
         unknown = set(kwargs) - keys
         if unknown:
             raise TypeError(f"unknown val arguments: {sorted(unknown)}")
+        if self.task != "detect":
+            return TASK_VALIDATORS[self.task](self.model, **kwargs)()
         return DetectionValidator(self.model, **kwargs)()

@@ -1,12 +1,13 @@
-"""Model assembly: YAML graph -> ``nn.ModuleList`` -> detection model.
+"""Model assembly: YAML graph -> ``nn.ModuleList`` -> task model.
 
 Counterpart of ``yolo_master_tpu/nn/tasks.py`` (``parse_model``,
-``DetectionModel``) with the same scaling rules, over the same YAML files.
-The registry holds the modules of the yolo-master, yolo-master-v0_1 and
-yolo26-master graphs (yolo26-master-latent's LatentMixture and
-yolo26-master-moa-mot's C2fMoA and C2fMoT included) and the gated blocks of
-yolo-master-v0_4 to v0_15; any other module name raises ``KeyError`` naming
-the ROADMAP item that ports it.
+``DetectionModel`` and the task models) with the same scaling rules, over the
+same YAML files. The registry holds the modules of the yolo-master,
+yolo-master-v0_1 and yolo26-master graphs (yolo26-master-latent's
+LatentMixture and yolo26-master-moa-mot's C2fMoA and C2fMoT included), the
+gated blocks of yolo-master-v0_4 to v0_15, and the task heads Segment, Pose,
+OBB and Classify; any other module name raises ``KeyError`` naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..utils import find_model_yaml, guess_scale, make_divisible, yaml_load
-from .heads import Detect
+from .heads import OBB, Classify, Detect, Pose, Segment
 from .latent_mixture import LatentMixture
 from .layers import (A2C2f, ABlock, Bottleneck, C2f, C2PSA, C3, C3k, C3k2, Concat, Conv, DWConv, FusedStem, Linear,
                      SPPF, Upsample)
@@ -46,6 +47,10 @@ MODULE_REGISTRY = {
     "Upsample": Upsample,
     "nn.Upsample": Upsample,
     "Detect": Detect,
+    "Segment": Segment,
+    "Pose": Pose,
+    "OBB": OBB,
+    "Classify": Classify,
     "ES_MOE": ES_MOE,
     "ModularRouterExpertMoE": OptimizedMOEImproved,
     "OptimizedMOEImproved": OptimizedMOEImproved,
@@ -56,7 +61,8 @@ REPEAT_MODULES = {C2f, C3, C3k, C3k2, C2PSA, A2C2f, A2C2fMoE, C2fMoA, C2fMoT}
 # JAX package's mixture rule (yolo_master_tpu/nn/tasks.py:218-227): A2C2fMoE, C2fMoA and C2fMoT
 # take n as A2C2f does, but none of A2C2f's scale rules
 SCALED_MODULES = {Conv, DWConv, Bottleneck, C2f, C3, C3k, C3k2, SPPF, C2PSA, A2C2f, A2C2fMoE, C2fMoA, C2fMoT,
-                  ES_MOE, OptimizedMOEImproved, *GATED_BLOCKS.values()}
+                  ES_MOE, OptimizedMOEImproved, Classify, *GATED_BLOCKS.values()}
+HEAD_MODULES = {Detect, Segment, Pose, OBB}  # args become [*args, reg_max, end2end, input widths]
 # the mixture blocks whose training (their aux losses, MoT's exploration floor) is the next slice
 MIXTURE_TRAINING_ITEM = "ROADMAP.md §1.F item 14"
 _UNTRAINED_MIXTURES = (MoABlock, MoTBlock, LatentMixture)
@@ -64,7 +70,7 @@ _LITERALS = {"None": None, "True": True, "False": False, "none": None, "true": T
 
 
 def _roadmap_item(name: str) -> str:
-    if name.endswith("Detect") or name in {"Segment", "Pose", "OBB", "Classify", "SemanticSegment"}:
+    if name.endswith("Detect") or name == "SemanticSegment":
         return "§1.E item 13 (task heads) / §1.F item 15 (every YAML)"
     if "MoE" in name or "MOE" in name or name.startswith(("Dy", "C2fMo", "MoA", "MoT", "Latent")):
         return "§1.F item 14 (mixture modules) / §1.D items 10-12 (MoE dispatch and tools)"
@@ -96,7 +102,7 @@ def parse_model(cfg: dict, ch: int = 3, scale: Optional[str] = None) -> Tuple[nn
                            f"ROADMAP.md {_roadmap_item(mname)}")
         m = MODULE_REGISTRY[mname]
         args = [_LITERALS.get(a, a) if isinstance(a, str) else a for a in args]
-        args = [nc if a == "nc" else a for a in args]
+        args = [nc if a == "nc" else cfg.get("kpt_shape", (17, 3)) if a == "kpt_shape" else a for a in args]
         n = max(round(n * depth), 1) if n > 1 else n
         kwargs = {}
         if m in SCALED_MODULES:
@@ -125,7 +131,9 @@ def parse_model(cfg: dict, ch: int = 3, scale: Optional[str] = None) -> Tuple[nn
         elif m is Concat:
             c2 = sum(channels[x] for x in f)
             args = []
-        elif m is Detect:
+        elif m in HEAD_MODULES:
+            if m is Segment:  # npr, the prototype width, scales with the width
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             args = [*args, reg_max, end2end, [channels[x] for x in f]]
             kwargs = {"legacy": legacy}
             c2 = None
@@ -166,7 +174,8 @@ def jax_module_path(name: str) -> str:
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every weight from ``generator``, as PyTorch's and the JAX package's
-    defaults do: convs and Linears U(+-1/sqrt(fan_in)) for weight and bias, BN
+    defaults do: convs and Linears U(+-1/sqrt(fan_in)) for weight and bias
+    (a transposed conv's bias by its input's fan-in, as JAX's), BN
     identity, area-attention blocks' conv weights trunc_normal(0.02), and the
     draws a module's ``seeded_init`` makes over those (the gated routers'
     normal(0.05) and normal(0.02) projections, CrossPathGate's zeroed last
@@ -179,6 +188,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 mod.weight.uniform_(-bound, bound, generator=generator)
                 if mod.bias is not None:
                     mod.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(mod, nn.ConvTranspose2d):  # weight [cin, cout, kh, kw]; JAX's fan-ins
+                bound = mod.weight[0].numel() ** -0.5
+                mod.weight.uniform_(-bound, bound, generator=generator)
+                bound = (mod.weight.shape[0] * mod.weight[0, 0].numel()) ** -0.5
+                mod.bias.uniform_(-bound, bound, generator=generator)
             elif isinstance(mod, nn.BatchNorm2d):
                 mod.reset_parameters()
         for mod in model.modules():
@@ -190,14 +204,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 mod.seeded_init(generator)
 
 
-class DetectionModel(nn.Module):
-    """YOLO detection model built from a graph YAML.
+class BaseModel(nn.Module):
+    """A model built from a graph YAML, whose last layer is a ``head_type``.
 
     :meth:`forward` takes an NHWC image batch, float (0..1) or uint8 (0..255
     with /255 folded into the first layer by ``utils/fuse.py``), and returns
-    the head's dict; :meth:`forward_predict` returns decoded [B, A, 4+nc],
-    in fp32 whatever the model's compute dtype.
+    the head's output.
     """
+
+    task = ""
+    head_type = nn.Module
 
     def __init__(self, cfg="yolo-master-n", ch: int = 3, nc: Optional[int] = None, scale: Optional[str] = None,
                  seed: int = 0):
@@ -213,15 +229,13 @@ class DetectionModel(nn.Module):
         self.uint8_input = False  # set by utils/fuse.py when /255 is folded into layer 0
         self._sparse_inference = True
         self.model, self.save = parse_model(self.yaml, ch, scale=scale)
-        if not isinstance(self.head, Detect):
-            raise ValueError("a detection model must end with Detect")
+        if type(self.head) is not self.head_type:
+            raise ValueError(f"a {self.task} model must end with {self.head_type.__name__}, this graph ends with "
+                             f"{type(self.head).__name__}")
         for name, m in self.named_modules():
             if hasattr(m, "jax_path"):  # the routed blocks key their draws by the JAX package's path
                 m.jax_path = jax_module_path(name)
         init_weights(self, torch.Generator().manual_seed(seed))
-        self.head.set_strides(self._probe_strides())
-        self.head.bias_init()
-        self.stride = max(self.head.strides)
 
     @property
     def sparse_inference(self) -> bool:
@@ -238,17 +252,8 @@ class DetectionModel(nn.Module):
                 m.sparse_inference = bool(on)
 
     @property
-    def head(self) -> Detect:
+    def head(self) -> nn.Module:
         return self.model[-1]
-
-    @torch.no_grad()
-    def _probe_strides(self, size: int = 256) -> Tuple[int, ...]:
-        """Run a zero image through the graph; stride = input size / map size."""
-        was_training = self.training
-        self.eval()
-        feats = self._forward_graph(torch.zeros(1, size, size, 3), stop_before_head=True)
-        self.train(was_training)
-        return tuple(size // f.shape[-2] for f in feats)
 
     def _forward_graph(self, x_nhwc: torch.Tensor, stop_before_head: bool = False):
         if isinstance(self.model[0], FusedStem):
@@ -269,11 +274,37 @@ class DetectionModel(nn.Module):
                 saved[m.i] = x
         return x
 
-    def forward(self, x_nhwc: torch.Tensor) -> dict:
+    def forward(self, x_nhwc: torch.Tensor):
         return self._forward_graph(x_nhwc)
 
+
+class DetectionModel(BaseModel):
+    """YOLO detection model: :meth:`forward` returns the head's dict,
+    :meth:`forward_predict` the decoded [B, A, 4+nc], in fp32 whatever the
+    model's compute dtype."""
+
+    task = "detect"
+    head_type = Detect
+
+    def __init__(self, cfg="yolo-master-n", ch: int = 3, nc: Optional[int] = None, scale: Optional[str] = None,
+                 seed: int = 0):
+        super().__init__(cfg, ch, nc, scale, seed)
+        self.head.set_strides(self._probe_strides())
+        self.head.bias_init()
+        self.stride = max(self.head.strides)
+
+    @torch.no_grad()
+    def _probe_strides(self, size: int = 256) -> Tuple[int, ...]:
+        """Run a zero image through the graph; stride = input size / map size."""
+        was_training = self.training
+        self.eval()
+        feats = self._forward_graph(torch.zeros(1, size, size, 3), stop_before_head=True)
+        self.train(was_training)
+        return tuple(size // f.shape[-2] for f in feats)
+
     def forward_predict(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        """Decoded [B, A, 4+nc]: xywh boxes (xyxy for an end2end head) in input pixels and sigmoid scores."""
+        """Decoded [B, A, 4+nc(+extra)]: xywh boxes (xyxy for an end2end head) in input pixels, sigmoid
+        scores, and a task head's extra columns (``Segment.decode``, ``Pose.decode``, ``OBB.decode``)."""
         return self.head.decode(self.forward(x_nhwc))
 
     def forward_train(self, x_nhwc: torch.Tensor, step: int = 0) -> Tuple[dict, Dict[str, AuxRecord]]:
@@ -314,3 +345,43 @@ class DetectionModel(nn.Module):
                             moe_gain=hyp.get("moe", 0.01), end2end=self.head.end2end)
         return lb.total, {"loss": lb.total, "box_loss": lb.box, "cls_loss": lb.cls, "dfl_loss": lb.dfl,
                           "aux_loss": lb.aux}
+
+
+class SegmentationModel(DetectionModel):
+    """Instance segmentation: a graph ending with :class:`~.heads.Segment`."""
+
+    task = "segment"
+    head_type = Segment
+
+
+class PoseModel(DetectionModel):
+    """Keypoints: a graph ending with :class:`~.heads.Pose` (``kpt_shape`` from the YAML)."""
+
+    task = "pose"
+    head_type = Pose
+
+    @property
+    def kpt_shape(self):
+        return self.head.kpt_shape
+
+
+class OBBModel(DetectionModel):
+    """Oriented boxes: a graph ending with :class:`~.heads.OBB`."""
+
+    task = "obb"
+    head_type = OBB
+
+
+class ClassificationModel(BaseModel):
+    """Classification: a graph ending with :class:`~.heads.Classify`; its forward
+    gives logits in train mode and probabilities [B, nc] in eval."""
+
+    task = "classify"
+    head_type = Classify
+
+    def forward_predict(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        """Class probabilities [B, nc] (an eval-mode forward), fp32."""
+        return self.forward(x_nhwc).float()
+
+
+TASK_MODELS = {m.task: m for m in (DetectionModel, SegmentationModel, PoseModel, OBBModel, ClassificationModel)}

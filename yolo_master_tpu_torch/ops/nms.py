@@ -7,6 +7,8 @@ validity mask. The greedy loop is :func:`.cuda_nms.batched_greedy_nms`: the
 CUDA kernel for a CUDA tensor, its plain PyTorch version for a CPU tensor.
 :func:`cluster_weighted_nms` fuses each greedy cluster into one
 score-weighted box instead (:func:`.cuda_nms.batched_cw_nms`).
+:func:`rotated_non_max_suppression` is the OBB head's fast-NMS over a dense
+probIoU matrix, plain PyTorch in both packages (no Pallas kernel computes it).
 
 Top-k selection uses a stable descending sort, so tied scores keep the lower
 index first, as ``jax.lax.top_k`` does (``torch.topk`` promises no tie order).
@@ -20,6 +22,7 @@ import torch
 
 from .boxes import xywh2xyxy
 from .cuda_nms import batched_cw_nms, batched_greedy_nms
+from .rotated import probiou
 
 MAX_WH = 7680.0  # class-offset magnitude
 
@@ -116,3 +119,61 @@ def cluster_weighted_nms(prediction: torch.Tensor, nc: int, conf_thres: float = 
     if not agnostic:
         fused = fused - out_cls[..., None] * MAX_WH * valid[..., None]
     return {"boxes": fused * valid[..., None], "scores": fscores * valid, "classes": out_cls, "valid": valid}
+
+
+def _fast_nms_keep(rboxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, iou_thres: float,
+                   max_det: int, agnostic: bool):
+    """One image's fast-NMS: candidates [k, 5] xywhr, scores [k] (0 below conf),
+    classes [k] -> (indices [max_det] int32, valid [max_det] bool), best first."""
+    off = 0.0 if agnostic else classes[:, None] * MAX_WH  # the class offset moves the centre only
+    b = torch.cat([rboxes[:, :2] + off, rboxes[:, 2:]], -1)
+    order = torch.argsort(-scores, stable=True)
+    bs = b[order]
+    ious = probiou(bs[:, None, :], bs[None, :, :]).triu(1)  # row i suppresses the lower-scored columns j > i
+    keep = ((ious >= iou_thres).sum(0) == 0) & (scores[order] > 0.0)
+    kept = torch.where(keep, scores[order], -1.0)
+    if kept.shape[0] < max_det:
+        pad = max_det - kept.shape[0]
+        kept = torch.cat([kept, kept.new_full((pad,), -1.0)])
+        order = torch.cat([order, order.new_zeros(pad)])
+    vals, pick = stable_topk(kept, max_det)
+    return order[pick].to(torch.int32), vals > 0.0
+
+
+def rotated_non_max_suppression(prediction: torch.Tensor, nc: int, conf_thres: float = 0.25,
+                                iou_thres: float = 0.45, max_det: int = 300, max_nms: int = 2048,
+                                agnostic: bool = False, multi_label: bool = False) -> dict:
+    """Batched rotated-box NMS, the reference's rotated branch: the class offset
+    goes on the box centre, and a candidate is dropped if any higher-scored
+    candidate overlaps it with probIoU >= ``iou_thres``, whether or not that one
+    survives (Fast-NMS).
+
+    prediction [B, A, 4+nc+1]: xywh in input pixels, class scores, angle
+    (radians). Candidates are the top ``max_nms`` anchors by best class score,
+    or with ``multi_label`` (nc > 1) the top ``max_nms`` (anchor, class) pairs;
+    ties keep the lower index first. The probIoU matrix is [k, k] fp32, one
+    image at a time. Returns rboxes [B, max_det, 5] (xywhr), scores
+    [B, max_det], classes [B, max_det] (-1 where invalid), valid [B, max_det].
+    """
+    b = prediction.shape[0]
+    cls_scores, angle = prediction[..., 4: 4 + nc], prediction[..., -1:]
+    if multi_label and nc > 1:
+        k = min(max_nms, cls_scores.shape[1] * nc)
+        scores, flat_idx = stable_topk(cls_scores.reshape(b, -1), k)
+        anchor_idx = flat_idx // nc
+        cls_idx = (flat_idx % nc).float()
+    else:
+        k = min(max_nms, prediction.shape[1])
+        scores, anchor_idx = stable_topk(cls_scores.max(-1).values, k)
+        cls_idx = _gather_rows(cls_scores, anchor_idx).argmax(-1).float()
+    rboxes = _gather_rows(torch.cat([prediction[..., :4], angle], -1), anchor_idx)
+    scores = torch.where(scores > conf_thres, scores, 0.0).float()
+    keeps = [_fast_nms_keep(rboxes[i], scores[i], cls_idx[i], iou_thres, max_det, agnostic) for i in range(b)]
+    keep = torch.stack([k_ for k_, _ in keeps]).long()
+    valid = torch.stack([v for _, v in keeps])
+    return {
+        "rboxes": _gather_rows(rboxes, keep) * valid[..., None],
+        "scores": scores.gather(1, keep) * valid,
+        "classes": torch.where(valid, cls_idx.gather(1, keep), -1.0),
+        "valid": valid,
+    }

@@ -43,7 +43,16 @@ def find_model_yaml(name: str) -> Path:
         if cand.exists():
             return cand
     raise FileNotFoundError(f"model yaml not found for '{name}' in {MODELS_DIR}: the port holds only the "
-                            "graphs it builds so far (ROADMAP.md §1.F item 15, every YAML in cfg/models)")
+                            f"graphs it builds so far (ROADMAP.md {_unported_item(stem)})")
+
+
+def _unported_item(stem: str) -> str:
+    """The ROADMAP item that brings a graph the port does not hold yet."""
+    if stem.startswith(("yolo-master-v0_2", "yolo-master-v0_3", "yolo-master-uomoe", "yolo-master-dymoe")):
+        return "§1.F item 14, their MoE blocks; §1.F item 15, every YAML in cfg/models"
+    if "semantic" in stem:
+        return "§1.E item 13, SemanticSegment; §1.F item 15, every YAML in cfg/models"
+    return "§1.F item 15, every YAML in cfg/models"
 
 
 def guess_scale(name: str) -> str | None:

@@ -15,6 +15,13 @@ import numpy as np
 IOUV = np.linspace(0.5, 0.95, 10)
 
 
+def sigmoid_np(x: np.ndarray) -> np.ndarray:
+    """Overflow-free sigmoid: exp only ever sees non-positive arguments."""
+    x = np.asarray(x, np.float32)
+    e = np.exp(-np.abs(x))
+    return np.where(x >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
+
+
 def box_iou_np(a: np.ndarray, b: np.ndarray, eps: float = 1e-7) -> np.ndarray:
     """Pairwise IoU [N,M] of xyxy boxes (numpy)."""
     lt = np.maximum(a[:, None, :2], b[None, :, :2])
