@@ -184,6 +184,16 @@ heads' predict and val at the full width of yolo-master-seg-n, -pose-n,
      ms/img beside yolo-master-n's in turns, the host's result assembly, busy
      share, kernels and peak memory at bs 16; val() on 8 frames labelled from
      the card's predictions, metrics within 1e-3 of the CPU validator's
+ 32. (run after phase 29) yolo26-master-latent-n and -moa-mot-n in training
+     with phase 30's weights, the latent routers' noise_std at 0.5 (the moa,
+     mot and latent aux losses, MoT's exploration floor, the latent noise,
+     MoA's linear global attention at P3 under autograd): one fp32 step at bs
+     2 from step 50 on the card against the CPU (phase 17's gate, the card
+     pinned to the CPU's MoT kept sets and top-k picks, flips counted, each
+     family's aux within 1e-5 relative, the latent noise bit for bit,
+     _rf_matrix unchanged); two timed steps of bs 16 x accumulate 4 in fp32
+     and bf16 beside yolo26-master-n's of phase 29; the loop with amp at its
+     default for both; MultiTrainer on -moa-mot-n
 
 Each path's launch counts are set to 0 just before it runs and read just
 after (the stem wrapper's weight-bank launch, once per w1, is counted apart,
@@ -207,6 +217,7 @@ CUDA-core peak; bound_peak names the one that sets it); the last is
 from __future__ import annotations
 
 import copy
+import functools
 import importlib
 import json
 import platform
@@ -2050,7 +2061,8 @@ def mask_flips(a, b) -> int:
 class mot_routing:
     """Within this context every MoT router (nn/mot.py) records its [B, E, H, W]
     kept-expert mask into ``seen``, in forward order, or, given ``picks`` (such
-    a list), keeps those experts over its own probabilities, renormalised."""
+    a list), keeps those experts over its own probabilities, renormalised (in
+    training then lifted to the router's exploration floor)."""
 
     def __init__(self, seen=None, picks=None):
         self.seen, self.picks = seen, picks
@@ -2066,8 +2078,10 @@ class mot_routing:
             if self.picks is not None:
                 w = probs * next(it).to(probs.device)
                 w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
-            else:
-                self.seen.append((w > 0).cpu())
+                if mod.training and not mod.calibrating and mod.eps > 0:  # the training floor, as the router's own
+                    w = (1 - mod.eps) * w + mod.eps / mod.num_experts
+            else:  # the kept set (in training the floor lifts every weight above 0)
+                self.seen.append((probs >= probs.topk(mod.top_k, 1).values[:, -1:]).cpu())
             return w, probs, logits
 
         tmot.MoTRouter.forward = forward
@@ -2100,6 +2114,19 @@ class e2e_routing:
 
 def routings():
     return {"moe": [], "mot": []}
+
+
+def e2e_pin(seen=None, picks=None):
+    """e2e_routing in card_vs_cpu_step's protocol: ``seen`` / ``picks`` a list
+    holding one routings() dict (made on first use)."""
+    rec = seen if picks is None else picks
+    if not rec:
+        rec.append(routings())
+    return e2e_routing(seen=rec[0]) if picks is None else e2e_routing(picks=rec[0])
+
+
+def e2e_pin_flips(a, b) -> int:
+    return e2e_flips(a[0], b[0])
 
 
 def e2e_flips(a, b) -> int:
@@ -2295,7 +2322,7 @@ def phase_end2end_path(dev, name, base_runs, imgs, blocks: int, mot_routers: int
         order = [*base_runs, "fp32", "bf16", "bf16", "fp32", *reversed(list(base_runs))]
         for key in order:
             run = base_runs[key] if key in base_runs else preds[key].run
-            runs[key].append(cuda_ms(lambda: run(xb), reps=5, warmup=2) / bs)
+            runs[key].append(cuda_ms(lambda: run(xb), reps=3, warmup=2) / bs)
         out["e2e"][bs] = {k: statistics.median(v) for k, v in runs.items()}
         log(f"[e2e] bs={bs}: device ms/img, " + ", ".join(f"{k} {[round(t, 4) for t in v]}" for k, v in runs.items()
                                                           if k in base_runs)
@@ -2364,19 +2391,26 @@ def phase_yolo26_variants(dev, y26_preds, imgs):
     C2fMoT at P4 and P5; plain C3k2 in the backbone), their zero-initialised
     mixture parts set non-zero (utils/weights.py:wake_mixtures): phase_end2end_path for each,
     beside yolo26-master-n's fp32 and bf16 predictors in turns, val on
-    VARIANT_VAL_IMAGES images."""
+    VARIANT_VAL_IMAGES images. Returns the numbers and the weights."""
     bases = {f"{Y26} fp32": y26_preds["fp32"].run, f"{Y26} bf16": y26_preds["bf16"].run}
-    out = {}
+    out, states = {}, {}
     for name, blocks, mot in ((VARIANTS[0], 6, 0), (VARIANTS[1], 0, 3)):
-        out[name], _, _ = phase_end2end_path(dev, name, bases, imgs, blocks=blocks, mot_routers=mot, wake=True,
-                                             val_images=VARIANT_VAL_IMAGES)
-    return out
+        out[name], states[name], _ = phase_end2end_path(dev, name, bases, imgs, blocks=blocks, mot_routers=mot,
+                                                        wake=True, val_images=VARIANT_VAL_IMAGES)
+    return out, states
 
 
 def train_batch(b: int, m: int, dev, seed: int, max_boxes: int = 8):
     """A seeded synthetic train batch at IMGSZ in the train step's layout: uniform-noise
     images [b, IMGSZ, IMGSZ, 3] in 0..1, up to ``max_boxes`` boxes an image (xyxy px,
-    sides 24-320 px) in ``m`` padded slots, classes, mask."""
+    sides 24-320 px) in ``m`` padded slots, classes, mask. The host draws each
+    (b, m, seed, max_boxes) once a process (a bs-64 batch takes ~0.8 s to draw;
+    the steps only read it) and copies it to ``dev`` on every call."""
+    return {k: v.to(dev) for k, v in _host_train_batch(b, m, seed, max_boxes).items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _host_train_batch(b: int, m: int, seed: int, max_boxes: int):
     import torch
 
     g = torch.Generator().manual_seed(seed)
@@ -2384,16 +2418,19 @@ def train_batch(b: int, m: int, dev, seed: int, max_boxes: int = 8):
     wh = 24 + torch.rand(b, m, 2, generator=g) * 296
     boxes = torch.cat([xy, (xy + wh).clamp(max=IMGSZ - 1)], -1)
     n = torch.randint(1, max_boxes + 1, (b, 1), generator=g)
-    batch = {"images": torch.rand(b, IMGSZ, IMGSZ, 3, generator=g), "boxes": boxes,
-             "classes": torch.randint(0, 80, (b, m), generator=g), "mask": torch.arange(m)[None] < n}
-    return {k: v.to(dev) for k, v in batch.items()}
+    return {"images": torch.rand(b, IMGSZ, IMGSZ, 3, generator=g), "boxes": boxes,
+            "classes": torch.randint(0, 80, (b, m), generator=g), "mask": torch.arange(m)[None] < n}
 
 
-def train_model(state, where, head_bias_zero: bool = True, name: str = "yolo-master-n", schedule=None):
+def train_model(state, where, head_bias_zero: bool = True, name: str = "yolo-master-n", schedule=None,
+                noise: float = 0.0):
     """``name`` (unfused; yolo-master-n with phase 9's calibrated weights, v0_1-n
     with phase 12's) with the class biases at 0 as in the val phase, on ``where``;
-    ``schedule`` (warmup_steps, dropout_interval) set on every routed block."""
+    ``schedule`` (warmup_steps, dropout_interval) set on every routed block;
+    ``noise`` the latent routers' noise_std (0 in the YAML)."""
     import torch
+
+    from yolo_master_tpu_torch.nn.latent_mixture import LatentRouter
 
     from yolo_master_tpu_torch import YOLO
 
@@ -2406,6 +2443,9 @@ def train_model(state, where, head_bias_zero: bool = True, name: str = "yolo-mas
     if schedule is not None:
         for m in routed_blocks(y.model):
             m.warmup_steps, m.dropout_interval = schedule
+    for m in y.model.modules():
+        if isinstance(m, LatentRouter) and noise:
+            m.noise_std = noise
     return y
 
 
@@ -2415,7 +2455,7 @@ def routed_blocks(model):
     return [m for m in model.modules() if isinstance(m, OptimizedMOEImproved)]
 
 
-def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=None):
+def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=None, noise: float = 0.0):
     """BENCH_STEPS timed optimizer steps of ``name`` at 640, bs 16 x accumulate 4 (nbs 64),
     max_gt 128, in ``dtype``, from ``state`` (class biases at 0; ``schedule`` on
     the routed blocks, train_model): finite
@@ -2436,7 +2476,7 @@ def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=No
     what = str(dtype).removeprefix("torch.")
     pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=16)
     require(pol.accumulate == 4, f"{tag}: nbs 64 at bs 16 should accumulate 4")
-    y = train_model(state, dev, name=name, schedule=schedule)
+    y = train_model(state, dev, name=name, schedule=schedule, noise=noise)
     tx = pol.build_optimizer(y.model)
     st = ts.make_train_state(y.model, tx)
     step = ts.make_train_step(y.model, tx, accumulate=pol.accumulate, compute_dtype=dtype)
@@ -2520,7 +2560,7 @@ def train_step_bench(dev, state, dtype, name: str = "yolo-master-n", schedule=No
                        busy_share=busy_ms / wall_ms, kernels=count, copies_htod=copies)
 
 
-def card_vs_cpu_step(dev, make_model, tag, pin=None, flips=None):
+def card_vs_cpu_step(dev, make_model, tag, pin=None, flips=None, families=()):
     """One optimizer step at bs 2 of ``make_model(where)`` on the card against the
     same step on the CPU, from a state at step 50 of the trainer's warmup (every
     group's lr non-zero, momentum traces seeded): the loss components within
@@ -2529,8 +2569,9 @@ def card_vs_cpu_step(dev, make_model, tag, pin=None, flips=None):
     of their size. With ``pin`` (a routing context: gated_routing, moe_routing)
     the CPU's step runs first and the card's routed blocks route by its picks
     (and kept counts; a pick may flip between the two fp32 programs), and the
-    routings that differ unpinned are counted by ``flips``. Returns the numbers
-    and the two models."""
+    routings that differ unpinned are counted by ``flips``. ``families``: the
+    mixture families whose composed aux (``aux_<family>``) must agree within
+    1e-5 relative. Returns the numbers and the two models."""
     import contextlib
     import math
 
@@ -2565,8 +2606,16 @@ def card_vs_cpu_step(dev, make_model, tag, pin=None, flips=None):
         routing = (pin(seen=seen) if where == "cpu" else pin(picks=seen)) if pin else contextlib.nullcontext()
         with routing:
             st, met = step(st, batch)
-        runs[str(where)] = (y.model, st, {k: float(met[k]) for k in metrics}, before)
+        runs[str(where)] = (y.model, st, {k: float(met[k]) for k in (*metrics, *(f"aux_{f}" for f in families))},
+                            before)
     (mg, sg, lg, bg), (mc, sc, lc, bc) = runs[str(dev)], runs["cpu"]
+    aux_err = {f: abs(lg[f"aux_{f}"] - lc[f"aux_{f}"]) / max(abs(lc[f"aux_{f}"]), 1e-30) for f in families}
+    if families:
+        log(f"[{tag}] each family's composed aux, card {[lg[f'aux_{f}'] for f in families]}, CPU "
+            f"{[lc[f'aux_{f}'] for f in families]}; relative deviation {aux_err}")
+        require(all(lc[f"aux_{f}"] > 0 for f in families) and max(aux_err.values()) <= 1e-5,
+                f"{tag}: a family's aux differs between the card and the CPU beyond 1e-5 relative, or is 0")
+    lg, lc = ({k: r[k] for k in metrics} for r in (lg, lc))
     loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in metrics}
     log(f"[{tag}] one step at bs 2 from step 50 (lr {pol.lr_schedule(50):.3e}, bias lr "
         f"{pol.bias_lr_schedule(50):.4f}, momentum {pol.momentum_schedule(50):.4f}): card {lg}, CPU {lc}; "
@@ -2595,7 +2644,7 @@ def card_vs_cpu_step(dev, make_model, tag, pin=None, flips=None):
     log(f"[{tag}] largest deviations, card vs CPU (tensor, |diff|, limit): {worst}; updates: worst {k_rel} "
         f"{rel[k_rel]:.3e} of its largest move ({len(rel)} tensors moved by >= 1e-2 of the largest move, {top:.3e})")
     require(rel[k_rel] <= 5e-2, f"{tag}: the card's updates differ from the CPU's beyond 5e-2 of their size")
-    out = dict(loss_rel_err=loss_err, worst=worst, update_rel_err=rel[k_rel])
+    out = dict(loss_rel_err=loss_err, worst=worst, update_rel_err=rel[k_rel], aux_rel_err=aux_err)
     if pin:
         out["routing_flips"] = flips(own, seen)
         log(f"[{tag}] the card pinned to the CPU step's routing; unpinned, {out['routing_flips']} routings differ "
@@ -3120,6 +3169,73 @@ def phase_yolo26_train(dev, state, imgs, benches):
     # (c) the loop, amp at its default; (d) MultiTrainer
     out["c"] = phase_train_loop(dev, state, imgs, amp=True, name=Y26, schedule=Y26_STEP_SCHEDULE)
     out["d"] = phase_multitrainer(dev, state, name=Y26)
+    return out
+
+
+MIXTURE_NOISE = 0.5  # phase 32: noise_std on yolo26-master-latent-n's three latent routers (0 in the YAML)
+
+
+def phase_mixture_train(dev, states, imgs, y26_train):
+    """yolo26-master-latent-n and -moa-mot-n in training at 640, phase 30's
+    weights (the mixtures woken, BN calibrated; class biases at 0), the three
+    latent routers at noise_std MIXTURE_NOISE: the moa, mot and latent aux
+    losses, MoT's exploration floor, the latent router's noise, MoA's global
+    head on P3's 6,400 tokens (the linear path) under autograd.
+    (a) fp32, one step at bs 2 from step 50 on the card against the CPU
+    (phase 17's gate), the card routed by the CPU step's picks (MoT's kept
+    sets, the routed blocks' top-k; flips counted), each family's composed aux
+    within 1e-5 relative, the latent noise of the card's step the CPU's bit
+    for bit, ``_rf_matrix`` unchanged on both; (b) train_step_bench in fp32
+    and bf16 (bs 16 x accumulate 4: ms per step and by layer, busy share,
+    launches, copies, peak memory) beside yolo26-master-n's of phase 29; (c)
+    the loop with amp at its default (phase 20's run, the end2end validator,
+    last.npz through predict); (d) MultiTrainer on -moa-mot-n."""
+    import torch
+
+    from yolo_master_tpu_torch.nn.latent_mixture import LatentRouter
+
+    out = {}
+    for name in VARIANTS:
+        short = name.removesuffix("-n").removeprefix("yolo26-master-").replace("-", "_")  # latent, moa_mot
+        fams = ("moe", "latent") if short == "latent" else ("moa", "mot")
+
+        def make(where, name=name):
+            return train_model(states[name], where, name=name, noise=MIXTURE_NOISE)
+
+        r = out[short] = {}
+        r["a"], models = card_vs_cpu_step(dev, make, f"{short} train a", pin=e2e_pin, flips=e2e_pin_flips,
+                                          families=fams)
+        routers = [[m for m in models[w].modules() if isinstance(m, LatentRouter)] for w in ("card", "cpu")]
+        for mg, mc in zip(*routers):
+            require(mg.step == mc.step == 50 and torch.equal(mg._draws[1].cpu(), mc._draws[1]),
+                    f"{short} train (a): {mg.jax_path}'s noise differs between the card and the CPU")
+        if routers[0]:
+            log(f"[{short} train a] the noise [2, 4] of each latent router's step ({[m.jax_path for m in routers[0]]},"
+                f" noise_std {MIXTURE_NOISE}) on the card equals the CPU's bit for bit")
+        rf = [k for k in states[name] if k.endswith("_rf_matrix")]
+        for k in rf:
+            after = {w: models[w].state_dict()[k].cpu() for w in ("card", "cpu")}
+            same = {w: torch.equal(v, states[name][k].cpu()) for w, v in after.items()}
+            head = {w: t.flatten()[:4].tolist() for w, t in (("before", states[name][k]), *after.items())}
+            sums = {w: f"{float(t.sum()):.9g}" for w, t in (("before", states[name][k]), *after.items())}
+            log(f"[{short} train a] {k} {tuple(after['card'].shape)}, first four and sum: before the step "
+                f"{head['before']} ({sums['before']}); after it, card {head['card']} ({sums['card']}), CPU "
+                f"{head['cpu']} ({sums['cpu']}); unchanged {same}")
+            require(all(same.values()), f"{short} train (a): {k} moved in a step (a fixed buffer)")
+        for what, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            y, st, b = train_step_bench(dev, states[name], dtype, name=name, noise=MIXTURE_NOISE)
+            r[f"b_{what}"] = b
+            n = y26_train[f"b_{what}"]
+            log(f"[{short} train b] {what}, ms per optimizer step (bs 16 x 4): {name} "
+                f"{[round(t, 3) for t in b['step_ms']]}, yolo26-master-n {[round(t, 3) for t in n['step_ms']]}; by "
+                f"layer {json.dumps(b['layers_ms'])} (yolo26-master-n {json.dumps(n['layers_ms'])}); peak "
+                f"{b['peak_bytes'] / 2**30:.2f} GiB (yolo26-master-n {n['peak_bytes'] / 2**30:.2f}); busy "
+                f"{b['busy_ms']:.3f} ms ({100 * b['busy_share']:.1f}%; yolo26-master-n {100 * n['busy_share']:.1f}%); "
+                f"{b['kernels']} kernels and copies, {b['copies_htod']} host-to-device copies (yolo26-master-n "
+                f"{n['kernels']}, {n['copies_htod']})")
+            del y, st
+        r["c"] = phase_train_loop(dev, states[name], imgs, amp=True, name=name)
+    out["moa_mot"]["d"] = phase_multitrainer(dev, states[VARIANTS[1]], name=VARIANTS[1])
     return out
 
 
@@ -3920,7 +4036,7 @@ def main():
     done("v0_10 paths")
     y26, y26_state, y26_preds = phase_yolo26_path(dev, fp32_runs["predict path"], imgs)
     done("yolo26 paths")
-    y26v = phase_yolo26_variants(dev, y26_preds, imgs)
+    y26v, y26v_states = phase_yolo26_variants(dev, y26_preds, imgs)
     done("yolo26-master-latent and -moa-mot paths")
     tasks = phase_task_heads(dev, fp32_runs["predict path"], x16, imgs)
     done("task heads")
@@ -3947,6 +4063,8 @@ def main():
                                    {"n_fp32": train["b"], "n_bf16": train16["b"], "v01_fp32": v01_train["c_fp32"],
                                     "v01_bf16": v01_train["c_bf16"]})
     done("yolo26 training")
+    mix_train = phase_mixture_train(dev, y26v_states, imgs, y26_train)
+    done("yolo26-master-latent and -moa-mot training")
 
     def v01_dense(xb):
         v01.model.sparse_inference = False
@@ -4000,6 +4118,8 @@ def main():
                         for v in VARIANTS for k, p, key in (("predict", "fp32", "stem"), ("bank", "fp32", "stem_bank"),
                                                             ("val", "val", "stem"))},
                      yolo26_train_loop_predict_launches=y26_train["c"]["predict_launches"]["stem"],
+                     **{f"{v}_train_loop_predict_launches": mix_train[v]["c"]["predict_launches"]["stem"]
+                        for v in ("latent", "moa_mot")},
                      task_predict_launches={t: r["launches"]["predict"]["stem"] for t, r in tasks.items()},
                      task_bank_launches={t: r["launches"]["predict"]["stem_bank"] for t, r in tasks.items()},
                      task_val_launches={t: r["launches"]["val"]["stem"] for t, r in tasks.items()},
@@ -4029,6 +4149,10 @@ def main():
                      yolo26_train_loop_ema_val_launches=y26_train["c"]["launches"]["nms"],
                      yolo26_train_loop_predict_launches=y26_train["c"]["predict_launches"]["nms"],
                      yolo26_multitrainer_ema_val_launches=y26_train["d"]["launches"]["nms"],
+                     **{f"{v}_train_loop_{k}_launches": mix_train[v]["c"][key]["nms"]
+                        for v in ("latent", "moa_mot") for k, key in (("ema_val", "launches"),
+                                                                     ("predict", "predict_launches"))},
+                     moa_mot_multitrainer_ema_val_launches=mix_train["moa_mot"]["d"]["launches"]["nms"],
                      task_predict_launches={t: r["launches"]["predict"]["nms"] for t, r in tasks.items()},
                      task_val_launches={t: r["launches"]["val"]["nms"] for t, r in tasks.items()},
                      task_extra_columns={t: r["nms_extra_columns"] for t, r in tasks.items() if "nms_extra_columns" in r},
@@ -4103,6 +4227,9 @@ def main():
     log(f"[{Y26} train] " + json.dumps({k: ({n: x for n, x in r.items() if n not in ("losses", "predict_launches")}
                                             if isinstance(r, dict) else r) for k, r in y26_train.items()},
                                        default=str))
+    for v, r in mix_train.items():
+        log(f"[{v} train] " + json.dumps({k: ({n: x for n, x in q.items() if n not in ("losses", "predict_launches")}
+                                              if isinstance(q, dict) else q) for k, q in r.items()}, default=str))
     log(f"[{V10} train] " + json.dumps({k: ({n: v for n, v in r.items() if n not in ("losses", "predict_launches")}
                                             if isinstance(r, dict) else r) for k, r in v10_train.items()},
                                        default=str))

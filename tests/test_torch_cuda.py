@@ -1278,7 +1278,8 @@ def test_yolo26_predict_on_the_card_matches_the_cpu(dev, monkeypatch):
 
 def _mot_routing(seen=None, picks=None):
     """MoTRouter.forward that records each router's [B, E, H, W] kept-expert mask
-    into ``seen`` in forward order, or keeps ``picks``' over its own probabilities."""
+    into ``seen`` in forward order, or keeps ``picks``' over its own
+    probabilities (in training lifted to the router's exploration floor)."""
     from yolo_master_tpu_torch.nn import mot
 
     plain = mot.MoTRouter.forward
@@ -1289,8 +1290,10 @@ def _mot_routing(seen=None, picks=None):
         if picks is not None:
             w = probs * next(it).to(probs.device)
             w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
-        else:
-            seen.append((w > 0).cpu())
+            if self.training and not self.calibrating and self.eps > 0:
+                w = (1 - self.eps) * w + self.eps / self.num_experts
+        else:  # the kept set (in training the floor lifts every weight above 0)
+            seen.append((probs >= probs.topk(self.top_k, 1).values[:, -1:]).cpu())
         return w, probs, logits
 
     return forward
@@ -1412,6 +1415,76 @@ def test_yolo26_train_step_on_the_card_matches_the_cpu(dev, monkeypatch):
     blocks = [[m for m in model.modules() if isinstance(m, OptimizedMOEImproved)] for model in (mg, mc)]
     for a, b in zip(*blocks):
         assert a.dropped_experts().size > 0 and torch.equal(a._draws[1].cpu(), b._draws[1]), a.jax_path
+
+
+@pytest.mark.parametrize("name", ["yolo26-master-latent-n", "yolo26-master-moa-mot-n"])
+def test_yolo26_variant_train_step_on_the_card_matches_the_cpu(dev, monkeypatch, name):
+    """engine/train_step.py on yolo26-master-latent-n and -moa-mot-n (the moa,
+    mot and latent aux losses, MoT's exploration floor, the latent routers'
+    noise at noise_std 0.5, MoA's linear global head at P3's 6,400 tokens),
+    their mixtures woken and BN calibrated: one SGD step at 640, B=2, from
+    step 50 on the card and on the CPU from the same weights and batch, the
+    card's routed-block picks and MoT kept sets pinned to the CPU step's:
+    phase 17 (a)'s gate, each family's composed aux within 1e-5 relative, the
+    latent noise bit for bit, every ``_rf_matrix`` unchanged."""
+    from yolo_master_tpu_torch.engine import train_step as ts
+    from yolo_master_tpu_torch.nn import mot
+    from yolo_master_tpu_torch.nn.latent_mixture import LatentRouter
+    from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved, mixtures
+    from yolo_master_tpu_torch.nn.tasks import DetectionModel
+    from yolo_master_tpu_torch.utils.weights import calibrate_bn, wake_mixtures
+
+    rng = np.random.default_rng(7)
+    xy, wh = rng.uniform(0, 400, (2, 8, 2)), rng.uniform(24, 320, (2, 8, 2))
+    batch = {"images": torch.from_numpy(rng.random((2, 640, 640, 3), np.float32)),
+             "boxes": torch.from_numpy(np.concatenate([xy, np.minimum(xy + wh, 639)], -1).astype(np.float32)),
+             "classes": torch.from_numpy(rng.integers(0, 80, (2, 8))),
+             "mask": torch.from_numpy(np.arange(8)[None] < rng.integers(1, 9, (2, 1)))}
+    base = DetectionModel(name)
+    wake_mixtures(base)
+    calibrate_bn(base, batch["images"])
+    families = ("aux_moe", "aux_latent") if "latent" in name else ("aux_moa", "aux_mot")
+    pol = ts.TrainPolicy(nc=80, epochs=100, nb=1000, batch=2, nbs=2, optimizer="SGD")
+    out, seen, kept = {}, [], []
+    for where in (torch.device("cpu"), dev):
+        model = DetectionModel(name)
+        model.load_state_dict(base.state_dict())
+        model.to(where)
+        for m in model.modules():
+            if isinstance(m, OptimizedMOEImproved):
+                m.warmup_steps, m.dropout_interval = 2, 2
+            if isinstance(m, LatentRouter):
+                m.noise_std = 0.5
+        tx = pol.build_optimizer(model)
+        state = ts.make_train_state(model, tx)
+        state.step = state.opt_state.count = 50
+        state.ema_updates = 50.0
+        cpu = where.type == "cpu"
+        with monkeypatch.context() as mp:
+            mp.setattr(mixtures, "process_logits", _moe_routing(**({"seen": seen} if cpu else {"picks": seen})))
+            mp.setattr(mot.MoTRouter, "forward", _mot_routing(**({"seen": kept} if cpu else {"picks": kept})))
+            state, met = ts.make_train_step(model, tx)(state, {k: v.to(where) for k, v in batch.items()})
+        assert float(met["finite"]) == 1.0
+        out[where.type] = (model, state, {k: float(met[k]) for k in ("loss", "box_loss", "cls_loss", "dfl_loss",
+                                                                      "aux_loss", *families)})
+    (mg, sg, lg), (mc, sc, lc) = out["cuda"], out["cpu"]
+    assert (len(seen), len(kept)) == ((6, 0) if "latent" in name else (0, 3))
+    for k, v in lc.items():
+        tol = 1e-5 if k in families else 1e-4
+        assert k not in families or v > 0, k
+        assert abs(lg[k] - v) <= tol * abs(v), (k, lg[k], v)
+    sd_g, sd_c, start = mg.state_dict(), mc.state_dict(), base.state_dict()
+    for key, ref in sc.ema_params.items():
+        move = (sd_c[key] - start[key]).abs().max()
+        for a, b in ((sd_g[key], sd_c[key]), (sg.ema_params[key], ref)):
+            assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max() + 1e-2 * move + 1e-7, key
+    routers = [[m for m in model.modules() if isinstance(m, LatentRouter)] for model in (mg, mc)]
+    assert len(routers[0]) == (3 if "latent" in name else 0)
+    for a, b in zip(*routers):
+        assert torch.equal(a._draws[1].cpu(), b._draws[1]), a.jax_path
+    rf = [k for k in start if k.endswith("_rf_matrix")]
+    assert len(rf) == (0 if "latent" in name else 1)
+    assert all(torch.equal(sd_g[k].cpu(), start[k]) and torch.equal(sd_c[k], start[k]) for k in rf)
 
 
 TASKS = [("yolo-master-seg-n", 640), ("yolo-master-pose-n", 640), ("yolo-master-obb-n", 640), ("yolo-master-cls-n", 224)]

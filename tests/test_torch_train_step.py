@@ -300,12 +300,16 @@ def test_param_group_labels_match_jax_for_yolo_master_n():
 
 
 def test_refusals_name_their_roadmap_items():
-    """The MoA, MoT and latent mixture blocks (their aux losses are the next
-    slice), a fused model, a compute dtype other than fp32 and bf16, and the
-    Muon optimizers are refused, naming what is missing; routed blocks of
-    every expert type (ghost, inverted and spatial included) and router,
-    yolo-master-v0_1 and yolo26-master (its end2end loss) train
-    (tests/test_torch_moe_train*.py, tests/test_torch_yolo26_train.py)."""
+    """A fused model, a compute dtype other than fp32 and bf16, the Muon
+    optimizers and a task model's training are refused, naming what is
+    missing, and a graph whose mixture blocks are not ported (yolo-master-v0_2's
+    UltimateOptimizedMoE) names item 14; routed blocks of every expert type
+    (ghost, inverted and spatial included) and router, yolo-master-v0_1,
+    yolo26-master (its end2end loss) and the MoA, MoT and latent mixtures
+    (yolo26-master-moa-mot and -latent, their aux losses) build a step, and
+    both mixture graphs take one at 64 px (tests/test_torch_moe_train*.py,
+    tests/test_torch_yolo26_train.py, tests/test_torch_mixture_train.py,
+    tests/test_torch_latent_train.py, tests/test_torch_moa_mot_train.py)."""
     from yolo_master_tpu_torch.nn.latent_mixture import LatentMixture
     from yolo_master_tpu_torch.nn.moa import MoABlock
     from yolo_master_tpu_torch.nn.moe import OptimizedMOEImproved
@@ -315,11 +319,23 @@ def test_refusals_name_their_roadmap_items():
         ts.make_train_step(torch.nn.Sequential(OptimizedMOEImproved(32, 32, expert_type=expert)))
     ts.make_train_step(DetectionModel("yolo26-master-n"))
     for block in (MoABlock(48, 3), MoTBlock(32, 4), LatentMixture([32, 16], 32)):
-        with pytest.raises(NotImplementedError, match=rf"{type(block).__name__}.*§1\.F item 14"):
-            ts.make_train_step(torch.nn.Sequential(block))
-    for name in ("yolo26-master-latent-n", "yolo26-master-moa-mot-n"):
-        with pytest.raises(NotImplementedError, match=r"§1\.F item 14"):
-            ts.make_train_step(DetectionModel(name))
+        ts.make_train_step(torch.nn.Sequential(block))
+    rng = np.random.default_rng(0)
+    batch = {"images": torch.from_numpy(rng.random((2, 64, 64, 3), np.float32)),
+             "boxes": torch.tensor([[[8.0, 8.0, 40.0, 40.0]]] * 2), "classes": torch.zeros(2, 1, dtype=torch.int32),
+             "mask": torch.ones(2, 1, dtype=torch.bool)}
+    for name, families in (("yolo26-master-latent-n", ("aux_moe", "aux_latent")),
+                           ("yolo26-master-moa-mot-n", ("aux_moa", "aux_mot"))):
+        model = DetectionModel(name)
+        tx = ts.make_optimizer(0.01, model)
+        _, met = ts.make_train_step(model, tx)(ts.make_train_state(model, tx), batch)
+        assert float(met["finite"]) == 1.0 and all(float(met[f]) > 0 for f in families), (name, met)
+    with pytest.raises(FileNotFoundError, match=r"§1\.F item 14"):
+        DetectionModel("yolo-master-v0_2-n")
+    from yolo_master_tpu_torch.nn.tasks import SegmentationModel
+
+    with pytest.raises(NotImplementedError, match=r"§1\.E item 13"):
+        ts.make_train_step(SegmentationModel("yolo-master-seg-n"))
     ts.make_train_step(DetectionModel("yolo-master-v0_1-n"))
     from yolo_master_tpu_torch.utils.fuse import fuse_bn
 

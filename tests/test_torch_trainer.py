@@ -342,10 +342,14 @@ def test_refusals_name_their_roadmap_items(synth_dataset, tmp_path):  # noqa: F8
         y.train(data=synth_dataset, save_dir=str(tmp_path), imgsz=64, workers=0, compute_dtype=torch.float16)
     with pytest.raises(NotImplementedError, match=r"§1\.E item 13"):
         YOLO("yolo-master-seg-n", device="cpu").train(data=synth_dataset, save_dir=str(tmp_path))
-    # a mixture block whose training is not ported yet (the latent family's aux loss)
-    with pytest.raises(NotImplementedError, match=r"LatentMixture.*§1\.F item 14"):
-        YOLO("yolo26-master-latent-n", device="cpu").train(data=synth_dataset, amp=False, workers=0,
-                                                          save_dir=str(tmp_path))
+    # the latent mixtures train (their aux loss, the latent family's): one fp32 epoch at 64 px runs, finite;
+    # a graph whose mixture blocks are not ported yet still names item 14
+    res = YOLO("yolo26-master-latent-n", device="cpu").train(data=synth_dataset, amp=False, workers=0, epochs=1,
+                                                            batch=8, nbs=8, imgsz=64, val=False,
+                                                            save_dir=str(tmp_path / "latent"))
+    assert res is not None and (tmp_path / "latent" / "last.npz").exists()
+    with pytest.raises(FileNotFoundError, match=r"§1\.F item 14"):
+        YOLO("yolo-master-v0_2-n", device="cpu")
     # diagnose_model reports what JAX's reports on the same weights
     from yolo_master_tpu.nn.moe.analysis import diagnose_model as jax_diagnose_model
     from yolo_master_tpu_torch.nn.moe.analysis import diagnose_model

@@ -43,8 +43,13 @@ the step reads, as JAX's ``step_idx``: their router noise, progressive
 sparsity, expert dropout, temperature anneal and drop-path are JAX's for
 that step (``nn/moe/mixtures.py``, ``nn/moe/gated.py``); each micro-batch's
 complexity gate averages over that micro-batch, as each JAX micro-step does.
-Refused: fused models, Muon / MuSGD, and the MoA, MoT and latent mixture
-blocks (their aux losses are the next slice).
+The MoA, MoT and latent mixtures (yolo26-master-moa-mot, -latent) train as
+JAX's: their aux losses in the ``moa``, ``mot`` and ``latent`` families, MoT's
+exploration floor, and the latent routers' logit noise keyed by the router's
+JAX path and ``state.step`` (``nn/moa.py``, ``nn/mot.py``,
+``nn/latent_mixture.py``). MoA's random features stay a fixed buffer, where
+JAX's step trains them (fault 4 of the reference, ROADMAP.md §3).
+Refused: fused models and Muon / MuSGD.
 """
 
 from __future__ import annotations
@@ -376,7 +381,6 @@ def ema_blend(ema_params: Dict[str, torch.Tensor], model: torch.nn.Module, d: fl
 def _check_trainable(model: torch.nn.Module) -> None:
     from ..nn.layers import FusedStem
     from ..nn.moe import FusedESMOE
-    from ..nn.tasks import refuse_mixture_training
 
     if getattr(model, "task", "detect") != "detect":
         raise NotImplementedError(f"training a {model.task} model is not ported yet: ROADMAP.md §1.E item 13 "
@@ -386,7 +390,6 @@ def _check_trainable(model: torch.nn.Module) -> None:
             raise ValueError("a fused (deploy) model cannot be trained: train the unfused model")
         if isinstance(getattr(m, "bn", None), torch.nn.Identity):
             raise ValueError("a model with BatchNorm folded (fuse_bn) cannot be trained: train the unfused model")
-    refuse_mixture_training(model)
 
 
 def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp: Optional[dict] = None,
@@ -408,8 +411,9 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
     With ``return_stats`` also ``moe_stats``: for each routed block, by its
     JAX path (:func:`moe_stats_path`), ``expert_usage`` [E] (the batch-mean
     routing weights, or probabilities) and ``balance_loss`` (ES_MOE) or
-    ``aux_loss`` (OptimizedMOEImproved; the gated blocks publish the usage
-    alone), means over the micro-batches as the JAX step's.
+    ``aux_loss`` (OptimizedMOEImproved; the gated, MoA and MoT blocks publish
+    the usage alone, the latent mixtures and NeckMoAFusion nothing), means
+    over the micro-batches as the JAX step's.
     """
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
@@ -454,7 +458,7 @@ def make_train_step(model: torch.nn.Module, tx: Optional[Optimizer] = None, hyp:
             if return_stats:  # summed over the micro-batches in order, then / accumulate: the JAX step's tree_map
                 for name, rec in aux.items():
                     for k, v in (("expert_usage", rec.usage), (rec.stat, rec.value.detach())):
-                        if k is None:
+                        if k is None or v is None:
                             continue
                         key = (moe_stats_path(name), k)
                         stats[key] = stats[key] + v if key in stats else v

@@ -42,7 +42,8 @@ continues from ``save_dir/state`` at the epoch ``state_meta.json`` records.
 yolo-master-v0_1's routed blocks train as JAX's (router noise, progressive
 sparsity, expert dropout, aux loss), keyed by the optimizer step, which a
 resumed run restores; their usage reaches the routing history and the Gini
-rule. Refused, each naming its ROADMAP.md item: ``mesh=``, ``expert_parallel >
+rule, as do the gated blocks' and the MoA and MoT blocks' (the latent
+mixtures publish none, as in JAX). Refused, each naming its ROADMAP.md item: ``mesh=``, ``expert_parallel >
 1``, ``peft=`` and ``batch=-1``; the train step refuses Muon / MuSGD.
 """
 

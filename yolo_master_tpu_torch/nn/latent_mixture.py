@@ -11,20 +11,33 @@ runs (a dense mixture); ``residual_gain`` starts at ``residual_init`` (0 in
 the YAML), so at the init the experts add nothing. The router reads fp32
 (LayerNorm, Linears) and keeps its ``scale_embedding`` fp32 in a bf16 copy.
 
-Eval only: the train step refuses these blocks (their aux loss and the
-router's train-only logit noise, 0 in the YAML, are the next slice,
-``nn/tasks.py:refuse_mixture_training``).
+In training (``self.training``, outside ``utils/weights.py:calibrate_bn``'s
+pass, which runs the eval form):
+
+  * the router adds ``normal(path_key(jax_path, step), logits.shape) *
+    noise_std`` to its logits before the NaN guard and the clamp (0 in the
+    YAML), JAX's draw bit for bit: ``jax_path`` is the router's JAX module path
+    (``layers.23.router``, set when the model is built), ``step`` the optimizer
+    step (``DetectionModel.forward_train`` sets it); the draw is made on the
+    host once per step and shape and reaches the device in one copy;
+  * every forward publishes its aux loss as ``aux_record`` (family
+    ``latent``, no usage: JAX publishes no stats for it), even at zero
+    coefficients: ``balance_coeff * max(E * sum(importance^2) - 1, 0) +
+    z_coeff * mean(logsumexp(logits)^2)`` on the clamped logits.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
-from ..utils import make_divisible
+from ..utils import jax_random, make_divisible
 from .layers import GroupNorm, LayerNorm, Linear, PlainConv
+from .mixture_loss import AuxRecord
+from .moe.mixtures import path_key
 
 ROUTER_LOGIT_LIMIT = 30.0
 
@@ -57,8 +70,8 @@ class LatentRouter(nn.Module):
     """fp32 router over tokens [B, T, D] (or [B, D]): the scale embedding added,
     the tokens averaged (or kept, ``per_token``), LayerNorm -> Linear -> SiLU ->
     Linear -> SiLU -> expert head (zero-initialised unless ``router_init_std``);
-    logits clamped to +-30 (NaN to 0): (logits, softmax(logits / temperature)).
-    ``noise_std`` (training only) is not applied: training is refused."""
+    in training the logit noise added; logits clamped to +-30 (NaN to 0):
+    (logits, softmax(logits / temperature))."""
 
     def __init__(self, latent_dim, num_experts, router_hidden_dim=None, temperature=1.0, noise_std=0.0,
                  router_init_std=0.0, num_tokens=None, per_token=False):
@@ -73,6 +86,10 @@ class LatentRouter(nn.Module):
         self.trunk = nn.Sequential(Linear(latent_dim, hidden), nn.SiLU(), Linear(hidden, latent_dim), nn.SiLU())
         self.expert_head = Linear(latent_dim, num_experts)
         self.scale_embedding = nn.Parameter(torch.zeros(num_tokens, latent_dim)) if num_tokens is not None else None
+        self.jax_path = ""  # the JAX module path keying the noise (DetectionModel sets it)
+        self.step = 0  # the optimizer step of a train-mode forward (DetectionModel.forward_train sets it)
+        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
+        self._draws: Optional[Tuple[tuple, torch.Tensor]] = None  # (key, the noise on the device): noise()
 
     @torch.no_grad()
     def seeded_init(self, generator):
@@ -92,9 +109,32 @@ class LatentRouter(nn.Module):
         else:
             routed = x
         logits = self.expert_head(self.trunk(self.norm(routed)))
+        if self.training and not self.calibrating and self.noise_std > 0:
+            logits = logits + self.noise(tuple(logits.shape), logits.device)
         logits = torch.nan_to_num(logits, nan=0.0, posinf=ROUTER_LOGIT_LIMIT, neginf=-ROUTER_LOGIT_LIMIT)
         logits = logits.clamp(-ROUTER_LOGIT_LIMIT, ROUTER_LOGIT_LIMIT)
         return logits, torch.softmax(logits / self.temperature, -1)
+
+    def noise(self, shape: Tuple[int, ...], device) -> torch.Tensor:
+        """normal(path_key(jax_path, step), shape) * noise_std, fp32, made on the host
+        and copied to ``device`` once per step and shape (and anew after a change
+        to the settings it depends on)."""
+        key = (self.step, shape, str(device), self.jax_path, self.noise_std)
+        if self._draws is None or self._draws[0] != key:
+            host = jax_random.normal(path_key(self.jax_path, self.step), shape) * np.float32(self.noise_std)
+            self._draws = (key, torch.from_numpy(host).to(device))
+        return self._draws[1]
+
+
+def latent_aux(logits: torch.Tensor, probs: torch.Tensor, num_experts: int, balance_coeff: float,
+               z_coeff: float) -> torch.Tensor:
+    """balance_coeff * max(E * sum(importance^2) - 1, 0) + z_coeff * mean(logsumexp(logits)^2),
+    the importance the mean of ``probs`` over every row; ``torch.maximum`` splits
+    the gradient at the tie (uniform routing) as JAX's clip does."""
+    importance = probs.reshape(-1, probs.shape[-1]).mean(0)
+    over = num_experts * (importance ** 2).sum() - 1.0
+    z = (torch.logsumexp(logits, -1) ** 2).mean()
+    return balance_coeff * torch.maximum(over, torch.zeros_like(over)) + z_coeff * z
 
 
 class LatentMixture(nn.Module):
@@ -115,15 +155,21 @@ class LatentMixture(nn.Module):
                                    router_init_std, num_tokens=len(in_channels), per_token=False)
         self.experts = nn.ModuleList(DenseChannelExpert(out_channels, expert_ratio) for _ in range(num_experts))
         self.residual_gain = nn.Parameter(torch.tensor(float(residual_init)))
+        self.balance_loss_coeff, self.router_z_loss_coeff = balance_loss_coeff, router_z_loss_coeff
+        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
+        self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
 
     def forward(self, xs):
         xs = list(xs) if isinstance(xs, (list, tuple)) else [xs]
         base = xs[0] if self.base_proj is None else self.base_proj(xs[0])
         tokens = torch.stack([proj(x).float().mean((2, 3)) for x, proj in zip(xs, self.token_projs)], 1)
-        _, probs = self.router(tokens)  # [B, E]
+        logits, probs = self.router(tokens)  # [B, E]
         mixed = torch.zeros_like(base)
         for e, expert in enumerate(self.experts):
             mixed = mixed + expert(base) * probs[:, e].to(base.dtype)[:, None, None, None]
+        if self.training and not self.calibrating:
+            self.aux_record = AuxRecord(latent_aux(logits, probs, self.num_experts, self.balance_loss_coeff,
+                                                   self.router_z_loss_coeff), "latent", None, None)
         return base + self.residual_gain.to(base.dtype) * mixed
 
 
@@ -144,14 +190,20 @@ class MultiScaleLatentMixture(nn.Module):
         self.experts = nn.ModuleList(nn.ModuleList(DenseChannelExpert(c, expert_ratio) for _ in range(num_experts))
                                      for c in self.channels)
         self.residual_gain = nn.Parameter(torch.full((len(self.channels),), float(residual_init)))
+        self.balance_loss_coeff, self.router_z_loss_coeff = balance_loss_coeff, router_z_loss_coeff
+        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
+        self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
 
     def forward(self, xs):
         tokens = torch.stack([proj(x).float().mean((2, 3)) for x, proj in zip(xs, self.input_projs)], 1)
-        _, probs = self.router(tokens)  # [B, T, E]
+        logits, probs = self.router(tokens)  # [B, T, E]
         outs = []
         for s, x in enumerate(xs):
             mixed = torch.zeros_like(x)
             for e in range(self.num_experts):
                 mixed = mixed + self.experts[s][e](x) * probs[:, s, e].to(x.dtype)[:, None, None, None]
             outs.append(x + self.residual_gain[s].to(x.dtype) * mixed)
+        if self.training and not self.calibrating:
+            self.aux_record = AuxRecord(latent_aux(logits, probs, self.num_experts, self.balance_loss_coeff,
+                                                   self.router_z_loss_coeff), "latent", None, None)
         return outs

@@ -19,12 +19,13 @@ DEFAULT_EMA_DECAY = 0.9
 
 class AuxRecord(NamedTuple):
     """One block's aux loss of a train-mode forward: the value (with its graph),
-    its family, the block's expert usage (detached), and the name the JAX
-    block gives the value in its routing stats (None where it publishes only
-    the usage, as the gated blocks do)."""
+    its family, the block's expert usage (detached; None where the JAX block
+    publishes no routing stats, as the latent mixtures and NeckMoAFusion), and
+    the name the JAX block gives the value in its routing stats (None where it
+    publishes only the usage, as the gated, MoA and MoT blocks do)."""
     value: torch.Tensor
     family: str
-    usage: torch.Tensor
+    usage: Optional[torch.Tensor]
     stat: Optional[str] = "balance_loss"
 
 

@@ -3,6 +3,8 @@ per-token router over three attention head groups, local windowed, regional
 (2x-pooled keys and values) and global (exact attention on small maps,
 Performer-style linear attention on large ones), then an FFN; ``C2fMoA``
 stacks such blocks in a C2f. yolo26-master-moa-mot's P3 block.
+``NeckMoAFusion`` cross-attends a high-resolution map into a low-resolution
+one for an FPN/PAN neck (no YAML of the repo uses it; a graph dict can).
 
 Activations are NCHW in ``torch.channels_last`` memory, as everywhere in the
 port; the heads work on their NHWC views, in the JAX package's order of
@@ -13,18 +15,28 @@ product with V in chunks), the linear attention in fp32. The global head's
 random features, ``_rf_matrix`` (the QR of ``np.random.default_rng`` draws),
 are a persistent buffer carried in the state dict and kept fp32 in a bf16 copy.
 
-Eval only: the train step refuses these blocks (their aux loss is the next
-slice, ``nn/tasks.py:refuse_mixture_training``).
+In training (``self.training``, outside ``utils/weights.py:calibrate_bn``'s
+pass, which runs the eval form) ``MoABlock`` publishes its aux loss as
+``aux_record`` (family ``moa``, the usage the batch-mean routing weights):
+``coeff * 3 * sum(mean(weights)^2)``; ``NeckMoAFusion`` its two-way form,
+``coeff * 2 * sum(...)``, with no usage (JAX publishes no stats for it).
+``_rf_matrix`` stays a fixed buffer in training, as the module's own
+description and the upstream have it; the JAX package keeps it in its
+parameter tree and its optimizer moves it on the linear path (fault 4 of the
+reference, ROADMAP.md §3).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import Conv, GroupNorm, PlainConv, attend, avg_pool
+from .layers import Conv, GroupNorm, PlainConv, attend, avg_pool, upsample_nearest
+from .mixture_loss import AuxRecord
 
 LINEAR_ATTN_THRESHOLD = 512
 LINEAR_ATTN_BLEND_WINDOW = 64
@@ -215,9 +227,16 @@ class MoABlock(nn.Module):
         ls_init = 0.1 if shortcut else 1.0
         self.ls_attn = nn.Parameter(torch.full((dim,), ls_init))
         self.ls_ffn = nn.Parameter(torch.full((dim,), ls_init))
+        self.aux_loss_coeff = aux_loss_coeff
+        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
+        self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
 
     def forward(self, x):
         weights, _ = self.router(x)
+        if self.training and not self.calibrating and self.aux_loss_coeff > 0:
+            importance = weights.mean((0, 2, 3))
+            self.aux_record = AuxRecord(self.aux_loss_coeff * self.NUM_GROUPS * (importance ** 2).sum(), "moa",
+                                        importance.detach(), None)
         w = weights.to(x.dtype)
         mixed = (w[:, 0:1] * self.local_head(x) + w[:, 1:2] * self.region_head(x)
                  + w[:, 2:3] * self.global_head(x))
@@ -246,3 +265,44 @@ class C2fMoA(nn.Module):
         for m in self.m:
             ys.append(m(ys[-1]))
         return self.cv2(torch.cat(ys, 1))
+
+
+class NeckMoAFusion(nn.Module):
+    """Cross-scale fusion for an FPN/PAN neck: queries from the high-resolution
+    map ``hi`` attend to keys and values of the low-resolution map ``lo``
+    (nearest-upsampled to hi's size first); a two-way router blends
+    ``out_proj(cross)`` with ``self_proj(hi)`` per pixel, plus ``hi`` where
+    ``shortcut`` holds and the widths agree. ``ch`` = (hi's width, lo's width)."""
+
+    def __init__(self, ch, c_out, num_heads=4, shortcut=True, aux_loss_coeff=0.01):
+        super().__init__()
+        c_hi, c_lo = ch
+        self.shortcut = shortcut and c_hi == c_out
+        self.aux_loss_coeff = aux_loss_coeff
+        self.nh = num_heads
+        self.hd = max(c_hi // num_heads, 16)
+        self.inner = self.hd * num_heads
+        self.scale = self.hd ** -0.5
+        self.q_proj = PlainConv(c_hi, self.inner, 1)
+        self.kv_proj = PlainConv(c_lo, self.inner * 2, 1)
+        self.router = MoARouter(c_hi, 2)
+        self.out_proj = Conv(self.inner, c_out, 1, act=False)
+        self.self_proj = Conv(c_hi, c_out, 1, act=False)
+        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
+        self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
+
+    def forward(self, xs):
+        hi, lo = xs
+        b, _, h, w = hi.shape
+        if lo.shape[2] != h:
+            lo = upsample_nearest(lo, h // lo.shape[2])
+        q = nhwc(self.q_proj(hi)).reshape(b, h * w, self.nh, self.hd)
+        k, v = nhwc(self.kv_proj(lo)).reshape(b, h * w, 2, self.nh, self.hd).unbind(2)
+        cross = nchw(attend(q, k, v, self.scale).reshape(b, h, w, self.inner))
+        weights, _ = self.router(hi)  # [B, 2, H, W]
+        if self.training and not self.calibrating and self.aux_loss_coeff > 0:
+            importance = weights.mean((0, 2, 3))
+            self.aux_record = AuxRecord(self.aux_loss_coeff * 2 * (importance ** 2).sum(), "moa", None, None)
+        wt = weights.to(hi.dtype)
+        out = wt[:, 0:1] * self.out_proj(cross) + wt[:, 1:2] * self.self_proj(hi)
+        return hi + out if self.shortcut else out

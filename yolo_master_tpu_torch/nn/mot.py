@@ -13,17 +13,25 @@ window when shifted; the deformable expert samples V bilinearly at
 corners off the map read 0 (``bilinear_sample``). Activations are NCHW in
 ``torch.channels_last`` memory; the experts work on their NHWC views.
 
-Eval only: the train step refuses these blocks (their aux loss and the
-router's exploration floor are the next slice,
-``nn/tasks.py:refuse_mixture_training``).
+In training (``self.training``, outside ``utils/weights.py:calibrate_bn``'s
+pass, which runs the eval form) the router lifts every expert's weight to an
+exploration floor, ``w = (1 - eps) * w + eps / E`` after the top-k mask (eps
+0.02, clamped to [0, 0.2]), and ``MoTBlock`` publishes its aux loss as
+``aux_record`` (family ``mot``): ``balance_coeff * E * sum(importance^2) +
+z_coeff * mean(logsumexp(logits)^2)``, where the importance is the mean of the
+probabilities (not of the masked weights), and the usage it reports is that
+importance.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from .layers import Conv, GroupNorm, LayerNorm, Linear, PlainConv, attend
+from .mixture_loss import AuxRecord
 from .moa import nchw, nhwc, pad_hw, window_partition, window_reverse
 
 
@@ -186,13 +194,16 @@ class MoTRouter(nn.Module):
     """Token-level (``use_spatial``: 1x1 -> GroupNorm(4) -> SiLU -> 1x1, [B, E, H,
     W]) or image-level (pooled, Linear -> SiLU -> Linear, [B, E, 1, 1]) soft top-k
     router, the last layer zero-initialised: (weights, probabilities, logits),
-    fp32. Weights keep every expert whose probability reaches the k-th largest."""
+    fp32. Weights keep every expert whose probability reaches the k-th largest;
+    in training they are then lifted to the exploration floor ``eps / E``."""
 
     def __init__(self, dim, num_experts=3, top_k=2, use_spatial=True, temperature=1.0, exploration_eps=0.02):
         super().__init__()
         self.num_experts, self.top_k = num_experts, top_k
         self.use_spatial = use_spatial
-        self.temperature = max(temperature, 0.1)  # exploration_eps, the training floor, comes with training
+        self.temperature = max(temperature, 0.1)
+        self.eps = min(max(exploration_eps, 0.0), 0.2)
+        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
         hidden = max(dim // 8, num_experts * 4)
         if use_spatial:
             self.router = nn.Sequential(PlainConv(dim, hidden, 1), GroupNorm(hidden, 4), nn.SiLU(),
@@ -216,6 +227,8 @@ class MoTRouter(nn.Module):
             kth = probs.topk(self.top_k, 1).values[:, -1:]
             w = probs * (probs >= kth)
             w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
+        if self.training and not self.calibrating and self.eps > 0:
+            w = (1 - self.eps) * w + self.eps / self.num_experts
         return w, probs, logits
 
 
@@ -242,9 +255,20 @@ class MoTBlock(nn.Module):
                                 temperature=temperature, exploration_eps=exploration_eps)
         self.out_norm = GroupNorm(dim, 8)
         self.out_proj = PlainConv(dim, dim, 1)
+        self.balance_loss_coeff = balance_loss_coeff
+        self.z_coeff = balance_loss_coeff if router_z_loss_coeff is None else router_z_loss_coeff
+        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
+        self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
 
     def forward(self, x):
-        w = self.router(x)[0].to(x.dtype)
+        w, probs, logits = self.router(x)
+        if self.training and not self.calibrating and (self.balance_loss_coeff > 0 or self.z_coeff > 0):
+            importance = probs.permute(0, 2, 3, 1).reshape(-1, self.NUM_EXPERTS).mean(0)
+            balance = self.NUM_EXPERTS * (importance ** 2).sum()
+            z = (torch.logsumexp(logits, 1) ** 2).mean()
+            self.aux_record = AuxRecord(self.balance_loss_coeff * balance + self.z_coeff * z, "mot",
+                                        importance.detach(), None)
+        w = w.to(x.dtype)
         mixed = None
         for i, expert in enumerate(self.experts):
             y = expert(x) * w[:, i:i + 1]

@@ -4,10 +4,11 @@ Counterpart of ``yolo_master_tpu/nn/tasks.py`` (``parse_model``,
 ``DetectionModel`` and the task models) with the same scaling rules, over the
 same YAML files. The registry holds the modules of the yolo-master,
 yolo-master-v0_1 and yolo26-master graphs (yolo26-master-latent's
-LatentMixture and yolo26-master-moa-mot's C2fMoA and C2fMoT included), the
-gated blocks of yolo-master-v0_4 to v0_15, and the task heads Segment, Pose,
-OBB and Classify; any other module name raises ``KeyError`` naming the
-ROADMAP item that ports it.
+LatentMixture and yolo26-master-moa-mot's C2fMoA and C2fMoT included, with
+NeckMoAFusion and MultiScaleLatentMixture, which no YAML uses), the gated
+blocks of yolo-master-v0_4 to v0_15, and the task heads Segment, Pose, OBB and
+Classify; any other module name raises ``KeyError`` naming the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -19,14 +20,14 @@ import torch.nn as nn
 
 from ..utils import find_model_yaml, guess_scale, make_divisible, yaml_load
 from .heads import OBB, Classify, Detect, Pose, Segment
-from .latent_mixture import LatentMixture
+from .latent_mixture import LatentMixture, MultiScaleLatentMixture
 from .layers import (A2C2f, ABlock, Bottleneck, C2f, C2PSA, C3, C3k, C3k2, Concat, Conv, DWConv, FusedStem, Linear,
                      SPPF, Upsample)
 from .losses import composite_loss
 from .mixture_loss import AuxRecord
-from .moa import C2fMoA, MoABlock
+from .moa import C2fMoA, NeckMoAFusion
 from .moe import ES_MOE, GATED_BLOCKS, A2C2fMoE, OptimizedMOEImproved
-from .mot import C2fMoT, MoTBlock
+from .mot import C2fMoT
 
 MODULE_REGISTRY = {
     "Conv": Conv,
@@ -43,6 +44,8 @@ MODULE_REGISTRY = {
     "C2fMoA": C2fMoA,
     "C2fMoT": C2fMoT,
     "LatentMixture": LatentMixture,
+    "MultiScaleLatentMixture": MultiScaleLatentMixture,
+    "NeckMoAFusion": NeckMoAFusion,
     "Concat": Concat,
     "Upsample": Upsample,
     "nn.Upsample": Upsample,
@@ -63,9 +66,6 @@ REPEAT_MODULES = {C2f, C3, C3k, C3k2, C2PSA, A2C2f, A2C2fMoE, C2fMoA, C2fMoT}
 SCALED_MODULES = {Conv, DWConv, Bottleneck, C2f, C3, C3k, C3k2, SPPF, C2PSA, A2C2f, A2C2fMoE, C2fMoA, C2fMoT,
                   ES_MOE, OptimizedMOEImproved, Classify, *GATED_BLOCKS.values()}
 HEAD_MODULES = {Detect, Segment, Pose, OBB}  # args become [*args, reg_max, end2end, input widths]
-# the mixture blocks whose training (their aux losses, MoT's exploration floor) is the next slice
-MIXTURE_TRAINING_ITEM = "ROADMAP.md §1.F item 14"
-_UNTRAINED_MIXTURES = (MoABlock, MoTBlock, LatentMixture)
 _LITERALS = {"None": None, "True": True, "False": False, "none": None, "true": True, "false": False}
 
 
@@ -123,7 +123,7 @@ def parse_model(cfg: dict, ch: int = 3, scale: Optional[str] = None) -> Tuple[nn
                     args.extend((True, 1.2))
             if m is A2C2fMoE:
                 legacy = False
-        elif m is LatentMixture:  # several inputs: c1 is the list of their widths
+        elif m in (LatentMixture, NeckMoAFusion):  # several inputs: c1 is the list of their widths
             c2 = args[0]
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
@@ -150,18 +150,6 @@ def parse_model(cfg: dict, ch: int = 3, scale: Optional[str] = None) -> Tuple[nn
             channels = []
         channels.append(c2)
     return nn.ModuleList(layers), sorted(set(save))
-
-
-def refuse_mixture_training(model: nn.Module) -> None:
-    """Raise for a model with MoA, MoT or latent mixture blocks: their training
-    parts (the ``moa`` / ``mot`` / ``latent`` aux losses of
-    ``nn/mixture_loss.py:FAMILIES`` and MoT's exploration floor) are not
-    ported yet; they run in eval (and ``calibrate_bn``'s train-mode pass)."""
-    found = sorted({type(m).__name__ for m in model.modules() if isinstance(m, _UNTRAINED_MIXTURES)})
-    if found:
-        raise NotImplementedError(f"training {', '.join(found)} is not ported yet: the aux losses of the moa, mot "
-                                  f"and latent families and MoT's exploration floor come with the next slice "
-                                  f"({MIXTURE_TRAINING_ITEM})")
 
 
 def jax_module_path(name: str) -> str:

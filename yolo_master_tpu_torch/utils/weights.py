@@ -6,7 +6,8 @@ for the modules of the yolo-master-n, yolo-master-v0_1, v0_4-v0_15 and
 yolo26-master graphs (ES_MOE with or without top_k, OptimizedMOEImproved and
 A2C2fMoE, the gated blocks, the PSA family, the end2end head's ``one2one_*``
 branches, A2C2f's ``gamma``; yolo26-master-latent's LatentMixture and
-yolo26-master-moa-mot's C2fMoA and C2fMoT, with their ``residual_gain``,
+yolo26-master-moa-mot's C2fMoA and C2fMoT, NeckMoAFusion and
+MultiScaleLatentMixture, with their ``residual_gain``,
 ``scale_embedding``, layer scales and MoA's ``_rf_matrix`` under their own
 names, MoT's ``ffn_gate`` wrapped at ``ffn_gate.0`` and its experts' FFN at
 indices 0 and 3): it
@@ -118,23 +119,25 @@ def calibrate_bn(model, x_nhwc: torch.Tensor) -> None:
     routed blocks (OptimizedMOEImproved) route in that pass as in eval (their
     top_k, no router noise, no expert dropout), so that the statistics are
     those the eval graph sees.
-    The gated blocks (AdaptiveGateMoE and its family) run their eval forward
-    in that pass (no temperature anneal, noise, expert dropout or drop-path).
+    The gated blocks (AdaptiveGateMoE and its family) and the MoA, MoT and
+    latent mixtures (every module with a ``calibrating`` switch) run their
+    eval form in that pass: no temperature anneal, noise, expert dropout,
+    drop-path or exploration floor, and no aux record.
     For tests and smoke runs on random weights; trained weights need none of it.
     """
-    from ..nn.moe import AdaptiveGateMoE, OptimizedMOEImproved
+    from ..nn.moe import OptimizedMOEImproved
 
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     momenta = [bn.momentum for bn in bns]
     routed = [(m, (m.noise_std, m.progressive_sparsity, m.expert_dropout_rate))
               for m in model.modules() if isinstance(m, OptimizedMOEImproved)]
-    gated = [m for m in model.modules() if isinstance(m, AdaptiveGateMoE)]
+    switched = [m for m in model.modules() if hasattr(m, "calibrating")]
     was_training = model.training
     for bn in bns:
         bn.momentum = 1.0
     for m, _ in routed:
         m.noise_std, m.progressive_sparsity, m.expert_dropout_rate = 0.0, False, 0.0
-    for m in gated:
+    for m in switched:
         m.calibrating = True
     model.train()
     try:
@@ -143,7 +146,7 @@ def calibrate_bn(model, x_nhwc: torch.Tensor) -> None:
         model.train(was_training)
         for bn, m in zip(bns, momenta):
             bn.momentum = m
-        for m in gated:
+        for m in switched:
             m.calibrating = False
         for m, saved in routed:
             m.noise_std, m.progressive_sparsity, m.expert_dropout_rate = saved
@@ -155,11 +158,12 @@ def wake_mixtures(model, seed: int = 0) -> None:
     """Set the parts of the latent, MoA and MoT mixtures that start at zero to
     non-zero values, in place, drawn on the host from ``seed``: each
     LatentMixture's ``residual_gain`` U(0.3, 0.8) and its router head N(0,
-    0.5), the MoA and MoT routers' last layers and the deformable experts'
-    offset and point-weight projections U(+-1/sqrt(fan_in)). At the init the
-    latent experts add nothing and every router is uniform, so a check on
-    seeded weights would not see them. For tests and smoke runs on random
-    weights, as :func:`calibrate_bn` (run it after this)."""
+    0.5), the MoA and MoT routers' last layers (NeckMoAFusion's too) and the
+    deformable experts' offset and point-weight projections
+    U(+-1/sqrt(fan_in)). At the init the latent experts add nothing and every
+    router is uniform, so a check on seeded weights would not see them. For
+    tests and smoke runs on random weights, as :func:`calibrate_bn` (run it
+    after this)."""
     from ..nn.latent_mixture import LatentMixture
     from ..nn.moa import MoARouter
     from ..nn.mot import DeformableTransformerExpert, MoTRouter
