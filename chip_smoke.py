@@ -2078,7 +2078,7 @@ class mot_routing:
             if self.picks is not None:
                 w = probs * next(it).to(probs.device)
                 w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
-                if mod.training and not mod.calibrating and mod.eps > 0:  # the training floor, as the router's own
+                if mod.training and mod.eps > 0:  # the training floor, as the router's own
                     w = (1 - mod.eps) * w + mod.eps / mod.num_experts
             else:  # the kept set (in training the floor lifts every weight above 0)
                 self.seen.append((probs >= probs.topk(mod.top_k, 1).values[:, -1:]).cpu())

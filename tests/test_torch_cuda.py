@@ -1290,7 +1290,7 @@ def _mot_routing(seen=None, picks=None):
         if picks is not None:
             w = probs * next(it).to(probs.device)
             w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
-            if self.training and not self.calibrating and self.eps > 0:
+            if self.training and self.eps > 0:
                 w = (1 - self.eps) * w + self.eps / self.num_experts
         else:  # the kept set (in training the floor lifts every weight above 0)
             seen.append((probs >= probs.topk(self.top_k, 1).values[:, -1:]).cpu())

@@ -5,17 +5,18 @@ noise, at noise_std 0.5 here, JAX's draw bit for bit) beside the six routed
 blocks of layers 4, 6 and 8's A2C2fMoE, with the residual gains and router
 heads woken. The gates are tests/_torch_mixture_graphs.py's: one
 step (loss terms, the aux of each family, every kept-expert set, the gradient
-the optimizer takes, the routing stats) and three steps against one compiled
-JAX fp32 step; a bf16 step with the routed blocks' picks pinned to JAX bf16's, by PERF.md
-§7's statistic; the loop and MultiTrainer held to the port's own step, as
-tests/test_torch_yolo26_train.py holds yolo26-master-n's.
+the optimizer takes, the routing stats), three steps each from JAX's state and
+the port's own run as far as step 1's knife edge lets it be held, against one
+compiled JAX fp32 step; a bf16 step with the routed blocks' picks pinned to JAX
+bf16's, by PERF.md §7's statistic. The loop, resume and MultiTrainer run the
+same trainer code as yolo26-master-moa-mot-n's (tests/test_torch_moa_mot_train.py);
+tests/test_torch_trainer.py trains this graph for an epoch through ``YOLO.train``.
 """
 
 import pytest
 import torch
 
 import _torch_mixture_graphs as mg  # noqa: E402 (tests/ is on the path)
-from test_train import synth_dataset  # noqa: F401 (fixture reuse: 16 train, 8 val 96-px images)
 
 NAME = "yolo26-master-latent-n"
 
@@ -44,6 +45,10 @@ def test_one_step_matches_jax(g, run):
 
 def test_three_steps_match_jax_make_train_step(g, run):
     mg.check_trajectory(g, run)
+
+
+def test_own_steps_follow_jax(g, run):
+    mg.check_free_run(g, run, held=1)
 
 
 def test_latent_noise_is_jax_draw_bit_for_bit(g, run):
@@ -76,20 +81,3 @@ def test_bf16_step_with_jax_bf16_picks_follows_jax(g):
     port, own, n_flips = mg.check_bf16(g)
     print(f"{NAME} bf16 trace rel-RMS from JAX fp32: port {port:.4g}, JAX bf16 {own:.4g}; "
           f"flips of the port's own bf16 picks by batch {n_flips}")
-
-
-@pytest.fixture(scope="module")
-def start(synth_dataset):  # noqa: F811
-    return mg.start_weights(NAME, synth_dataset)
-
-
-def test_latent_loop_is_its_own_step(synth_dataset, start, tmp_path):  # noqa: F811
-    mg.check_loop(NAME, synth_dataset, start, tmp_path)
-
-
-def test_latent_amp_run_resumes_bitwise(synth_dataset, start, tmp_path):  # noqa: F811
-    mg.check_amp_resume(NAME, synth_dataset, start, tmp_path)
-
-
-def test_latent_multitrainer_runs_and_restores_the_base(synth_dataset, start, tmp_path):  # noqa: F811
-    mg.check_multitrainer(NAME, synth_dataset, start, tmp_path)

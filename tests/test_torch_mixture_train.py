@@ -34,12 +34,14 @@ against ``jax.value_and_grad`` of the JAX package's module, on the CPU.
    no aux record).
 """
 
+import contextlib
 import copy
 import functools
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -256,8 +258,8 @@ def test_module_trains_like_jax(name, setting, step):
 
 def test_mot_exploration_floor_and_ties():
     """In train mode every expert keeps at least eps / E = 0.02 / 3 of weight,
-    eps clamped to [0, 0.2]; in eval (and in calibrate_bn's pass) there is no
-    floor; at the zero-initialised router every expert ties and all three are
+    eps clamped to [0, 0.2]; in eval there is no floor (calibrate_bn's pass:
+    the last test below); at the zero-initialised router every expert ties and all three are
     kept (uniform weights), at top_k 1 too."""
     r = tmot.MoTRouter(32, 3, top_k=1)
     init_weights(r, torch.Generator().manual_seed(0))
@@ -268,8 +270,6 @@ def test_mot_exploration_floor_and_ties():
     w_train = r.train()(x)[0]
     assert torch.equal(w_eval[:, 1:], torch.zeros_like(w_eval[:, 1:]))
     torch.testing.assert_close(w_train, 0.98 * w_eval + 0.02 / 3, rtol=0, atol=1e-7)
-    r.calibrating = True
-    assert torch.equal(r(x)[0], w_eval)
     assert tmot.MoTRouter(32, exploration_eps=0.7).eps == 0.2 and tmot.MoTRouter(32, exploration_eps=-1).eps == 0.0
     z = tmot.MoTRouter(32, 3, top_k=1)
     init_weights(z, torch.Generator().manual_seed(0))
@@ -277,6 +277,43 @@ def test_mot_exploration_floor_and_ties():
 
 
 # -- 2. bf16 ---------------------------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _fp32_parts(tm):
+    """Record, as (what, dtype), the output of every router of ``tm`` (MoA, MoT:
+    probabilities and logits; latent: its LayerNorm, trunk, head and outputs)
+    and the input of every GroupNorm and LayerNorm it computes."""
+    seen = []
+
+    def outputs(what):
+        def hook(_, __, out):
+            seen.extend((what, t.dtype) for t in (out if isinstance(out, tuple) else (out,)))
+        return hook
+
+    hooks = []
+    for n, m in tm.named_modules():
+        if isinstance(m, (tmoa.MoARouter, tmot.MoTRouter, tlat.LatentRouter)):
+            hooks.append(m.register_forward_hook(outputs(n)))
+        if isinstance(m, tlat.LatentRouter):
+            hooks += [getattr(m, c).register_forward_hook(outputs(f"{n}.{c}")) for c in ("norm", "trunk", "expert_head")]
+    norms = {"group_norm": F.group_norm, "layer_norm": F.layer_norm}
+
+    def normed(fn, what):
+        def call(x, *a, **k):
+            seen.append((what, x.dtype))
+            return fn(x, *a, **k)
+        return call
+
+    for k, fn in norms.items():
+        setattr(F, k, normed(fn, k))
+    try:
+        yield seen
+    finally:
+        for k, fn in norms.items():
+            setattr(F, k, fn)
+        for h in hooks:
+            h.remove()
+
 
 BF16_CASES = ["MoABlock_linear", "NeckMoAFusion", "MoTBlock_top2", "C2fMoT_top1", "LatentMixture"]
 
@@ -286,14 +323,19 @@ def test_module_trains_like_jax_in_bf16(name):
     """fp32 parameters, the same bf16 input, four inputs: the parameter
     gradients' rel-RMS from JAX fp32 (squared distances summed over the tree
     and the inputs) within 1.5x JAX bf16's own, MoT's kept experts pinned to
-    JAX bf16's; each aux record within 2^-6 relative of JAX bf16's. Per tensor
-    the statistic of a correct program spreads too far (a router's GroupNorm
-    or a norm bias deep in a block measured 1.6-2.6x), as PERF.md §7 says of
-    whole models."""
+    JAX bf16's; each aux record within 2^-6 relative of JAX bf16's. The parts
+    both packages compute in fp32 in a bf16 step are held to it by dtype: every
+    router's logits and probabilities, the latent router's LayerNorm, trunk and
+    head, and every GroupNorm's and LayerNorm's input (the statistic cannot see
+    them: one of them computed in bf16 moves it by less than its spread). Per
+    tensor the statistic of a correct program spreads too far (a router's
+    GroupNorm or a norm bias deep in a block measured 1.6-2.6x), as PERF.md §7
+    says of whole models."""
     jm, grad, _, _ = block(name)
     p, tm = weights(name, "woken")
     many = BLOCKS[name][2]
     sums = np.zeros(3)  # |port16 - jax32|^2, |jax16 - jax32|^2, |jax32|^2
+    names = [n for n, _ in tm.named_parameters()]
     for seed in range(40, 44):
         xs, rng = _inputs(name, seed)
         xs = [np.array(_f32(_bf16(x)[0])) for x in xs]  # bf16-representable: both packages read the same values
@@ -306,11 +348,12 @@ def test_module_trains_like_jax_in_bf16(name):
         _, (g32, _) = grad(*args, jnp.float32)
         for prm in tm.parameters():
             prm.grad = None
-        _, recs, _ = _port_run(tm, xs, cts, 2, BF16, pin=[np.asarray(k) for k in kept16] if kept16 else None)
+        with _fp32_parts(tm) as seen:
+            _, recs, _ = _port_run(tm, xs, cts, 2, BF16, pin=[np.asarray(k) for k in kept16] if kept16 else None)
+        assert seen and all(dt == torch.float32 for _, dt in seen), [w for w, dt in seen if dt != torch.float32]
         for k, r in recs.items():
             assert abs(float(r.value.detach()) - float(jaux16[k])) <= 2.0 ** -6 * abs(float(jaux16[k])) + 1e-9, k
         r16, r32 = (state_dict_from_jax({"layers": {"0": _np_tree(g)}}) for g in (g16, g32))
-        names = [n for n, _ in tm.named_parameters()]
         assert all(prm.grad.dtype == torch.float32 for prm in tm.parameters())
         gp = torch.cat([prm.grad.flatten() for prm in tm.parameters()]).numpy()
         j16, j32 = (torch.cat([r[f"model.0.{n}"].flatten() for n in names]).numpy() for r in (r16, r32))
@@ -405,7 +448,7 @@ def test_calibrate_bn_runs_the_eval_form_of_every_mixture():
     """With the latent noise on, calibrate_bn's pass sets the same BN statistics
     as a train-mode pass whose mixtures are switched to their eval form by hand
     (MoT's floor off, the latent noise at 0), publishes no aux record, and
-    leaves every switch off."""
+    leaves every module in the mode it was in."""
     for name in ("yolo26-master-latent-n", "yolo26-master-moa-mot-n"):
         model = DetectionModel(name)
         wake_mixtures(model)
@@ -415,7 +458,7 @@ def test_calibrate_bn_runs_the_eval_form_of_every_mixture():
         x = torch.from_numpy(np.random.default_rng(1).random((2, 64, 64, 3), np.float32))
         ref = copy.deepcopy(model)
         calibrate_bn(model, x)
-        assert not any(getattr(m, "calibrating", False) for m in model.modules())
+        assert all(m.training for m in model.modules())
         assert all(getattr(m, "aux_record", None) is None for m in model.modules())
         for m in ref.modules():
             if isinstance(m, tlat.LatentRouter):

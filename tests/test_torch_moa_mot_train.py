@@ -4,8 +4,8 @@ exploration floor at P4/P5 (C2fMoT, layers 13, 19, 22: top-2, top-2, top-1),
 the deformable expert's gradient through its gather, with the zero-initialised
 routers and offsets woken. The gates are tests/_torch_mixture_graphs.py's: one
 step (loss terms, the aux of each family, every kept-expert set, the gradient
-the optimizer takes, the routing stats) and three steps against one compiled
-JAX fp32 step; a bf16 step with MoT's kept sets pinned to JAX bf16's, by PERF.md
+the optimizer takes, the routing stats) and three steps, each from JAX's state
+and on the port's own, against one compiled JAX fp32 step; a bf16 step with MoT's kept sets pinned to JAX bf16's, by PERF.md
 §7's statistic; the loop and MultiTrainer held to the port's own step, as
 tests/test_torch_yolo26_train.py holds yolo26-master-n's.
 """
@@ -43,6 +43,10 @@ def test_one_step_matches_jax(g, run):
 
 def test_three_steps_match_jax_make_train_step(g, run):
     mg.check_trajectory(g, run)
+
+
+def test_own_steps_follow_jax(g, run):
+    mg.check_free_run(g, run, held=mg.K)
 
 
 def test_bf16_step_with_jax_bf16_picks_follows_jax(g):

@@ -40,7 +40,7 @@ from yolo_master_tpu_torch.nn.moe import analysis as tanalysis
 from yolo_master_tpu_torch.nn.moe import pruning as tpruning
 from yolo_master_tpu_torch.nn.moe import quantize as tquant
 from yolo_master_tpu_torch.nn.tasks import DetectionModel
-from yolo_master_tpu_torch.utils.weights import calibrate_bn, state_dict_from_jax
+from yolo_master_tpu_torch.utils.weights import calibrate_bn, state_dict_from_jax, wake_mixtures
 
 from _torch_scale import jax_params_of  # noqa: E402 (tests/ is on the path)
 from test_moe_ecosystem import MINI  # noqa: E402
@@ -192,4 +192,21 @@ def test_diagnose_a_gated_model_matches_jax():
     params = jax_params_of(jm, port)
     rep = tanalysis.diagnose_model(port, batches)
     assert set(rep["blocks"]) == {"layers.5", "layers.8", "layers.11"}
+    _assert_reports_equal(rep, janalysis.diagnose_model(jm, params, batches))
+
+
+def test_diagnose_the_latent_graph_matches_jax():
+    """yolo26-master-latent-n, woken and BN calibrated, one batch of 2 at 64 px:
+    the three LatentMixtures publish an aux record without usage (JAX publishes
+    no stats for them) and are left out; the six routed blocks' usage, and the
+    report over it, as JAX's (collect_usage_stats and diagnose_model)."""
+    port = DetectionModel("yolo26-master-latent-n")
+    wake_mixtures(port)
+    batches = _batches(1, seed=4)
+    calibrate_bn(port, torch.from_numpy(batches[0]["images"]))
+    port.eval()
+    jm = JaxDetectionModel("yolo26-master-latent-n")
+    params = jax_params_of(jm, port)
+    rep = tanalysis.diagnose_model(port, batches)
+    assert set(rep["blocks"]) == {f"layers.{i}.m.0.{j}.mlp" for i in (4, 6, 8) for j in (0, 1)}
     _assert_reports_equal(rep, janalysis.diagnose_model(jm, params, batches))

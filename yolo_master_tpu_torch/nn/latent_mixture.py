@@ -11,8 +11,8 @@ runs (a dense mixture); ``residual_gain`` starts at ``residual_init`` (0 in
 the YAML), so at the init the experts add nothing. The router reads fp32
 (LayerNorm, Linears) and keeps its ``scale_embedding`` fp32 in a bf16 copy.
 
-In training (``self.training``, outside ``utils/weights.py:calibrate_bn``'s
-pass, which runs the eval form):
+In training (``self.training``; ``utils/weights.py:calibrate_bn``'s pass
+sets it off on these modules alone, which then run their eval form):
 
   * the router adds ``normal(path_key(jax_path, step), logits.shape) *
     noise_std`` to its logits before the NaN guard and the clamp (0 in the
@@ -88,7 +88,6 @@ class LatentRouter(nn.Module):
         self.scale_embedding = nn.Parameter(torch.zeros(num_tokens, latent_dim)) if num_tokens is not None else None
         self.jax_path = ""  # the JAX module path keying the noise (DetectionModel sets it)
         self.step = 0  # the optimizer step of a train-mode forward (DetectionModel.forward_train sets it)
-        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
         self._draws: Optional[Tuple[tuple, torch.Tensor]] = None  # (key, the noise on the device): noise()
 
     @torch.no_grad()
@@ -109,7 +108,7 @@ class LatentRouter(nn.Module):
         else:
             routed = x
         logits = self.expert_head(self.trunk(self.norm(routed)))
-        if self.training and not self.calibrating and self.noise_std > 0:
+        if self.training and self.noise_std > 0:
             logits = logits + self.noise(tuple(logits.shape), logits.device)
         logits = torch.nan_to_num(logits, nan=0.0, posinf=ROUTER_LOGIT_LIMIT, neginf=-ROUTER_LOGIT_LIMIT)
         logits = logits.clamp(-ROUTER_LOGIT_LIMIT, ROUTER_LOGIT_LIMIT)
@@ -156,7 +155,6 @@ class LatentMixture(nn.Module):
         self.experts = nn.ModuleList(DenseChannelExpert(out_channels, expert_ratio) for _ in range(num_experts))
         self.residual_gain = nn.Parameter(torch.tensor(float(residual_init)))
         self.balance_loss_coeff, self.router_z_loss_coeff = balance_loss_coeff, router_z_loss_coeff
-        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
         self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
 
     def forward(self, xs):
@@ -167,7 +165,7 @@ class LatentMixture(nn.Module):
         mixed = torch.zeros_like(base)
         for e, expert in enumerate(self.experts):
             mixed = mixed + expert(base) * probs[:, e].to(base.dtype)[:, None, None, None]
-        if self.training and not self.calibrating:
+        if self.training:
             self.aux_record = AuxRecord(latent_aux(logits, probs, self.num_experts, self.balance_loss_coeff,
                                                    self.router_z_loss_coeff), "latent", None, None)
         return base + self.residual_gain.to(base.dtype) * mixed
@@ -191,7 +189,6 @@ class MultiScaleLatentMixture(nn.Module):
                                      for c in self.channels)
         self.residual_gain = nn.Parameter(torch.full((len(self.channels),), float(residual_init)))
         self.balance_loss_coeff, self.router_z_loss_coeff = balance_loss_coeff, router_z_loss_coeff
-        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
         self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
 
     def forward(self, xs):
@@ -203,7 +200,7 @@ class MultiScaleLatentMixture(nn.Module):
             for e in range(self.num_experts):
                 mixed = mixed + self.experts[s][e](x) * probs[:, s, e].to(x.dtype)[:, None, None, None]
             outs.append(x + self.residual_gain[s].to(x.dtype) * mixed)
-        if self.training and not self.calibrating:
+        if self.training:
             self.aux_record = AuxRecord(latent_aux(logits, probs, self.num_experts, self.balance_loss_coeff,
                                                    self.router_z_loss_coeff), "latent", None, None)
         return outs

@@ -15,16 +15,15 @@ product with V in chunks), the linear attention in fp32. The global head's
 random features, ``_rf_matrix`` (the QR of ``np.random.default_rng`` draws),
 are a persistent buffer carried in the state dict and kept fp32 in a bf16 copy.
 
-In training (``self.training``, outside ``utils/weights.py:calibrate_bn``'s
-pass, which runs the eval form) ``MoABlock`` publishes its aux loss as
-``aux_record`` (family ``moa``, the usage the batch-mean routing weights):
-``coeff * 3 * sum(mean(weights)^2)``; ``NeckMoAFusion`` its two-way form,
-``coeff * 2 * sum(...)``, with no usage (JAX publishes no stats for it).
-``_rf_matrix`` stays a fixed buffer in training, as the module's own
-description and the upstream have it; the JAX package keeps it in its
-parameter tree and its optimizer moves it on the linear path (fault 4 of the
-reference, ROADMAP.md §3).
-"""
+In training (``self.training``; ``utils/weights.py:calibrate_bn``'s pass sets
+it off on these modules alone, which then run their eval form) ``MoABlock``
+publishes its aux loss as ``aux_record`` (family ``moa``, the usage the
+batch-mean routing weights): ``coeff * 3 * sum(mean(weights)^2)``;
+``NeckMoAFusion`` its two-way form, ``coeff * 2 * sum(...)``, with no usage
+(JAX publishes no stats for it). ``_rf_matrix`` stays a fixed buffer in
+training, as the module's own description and the upstream have it; the JAX
+package keeps it in its parameter tree and its optimizer moves it on the linear
+path (fault 4 of the reference, ROADMAP.md §3)."""
 
 from __future__ import annotations
 
@@ -228,12 +227,11 @@ class MoABlock(nn.Module):
         self.ls_attn = nn.Parameter(torch.full((dim,), ls_init))
         self.ls_ffn = nn.Parameter(torch.full((dim,), ls_init))
         self.aux_loss_coeff = aux_loss_coeff
-        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
         self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
 
     def forward(self, x):
         weights, _ = self.router(x)
-        if self.training and not self.calibrating and self.aux_loss_coeff > 0:
+        if self.training and self.aux_loss_coeff > 0:
             importance = weights.mean((0, 2, 3))
             self.aux_record = AuxRecord(self.aux_loss_coeff * self.NUM_GROUPS * (importance ** 2).sum(), "moa",
                                         importance.detach(), None)
@@ -288,7 +286,6 @@ class NeckMoAFusion(nn.Module):
         self.router = MoARouter(c_hi, 2)
         self.out_proj = Conv(self.inner, c_out, 1, act=False)
         self.self_proj = Conv(c_hi, c_out, 1, act=False)
-        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
         self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
 
     def forward(self, xs):
@@ -300,7 +297,7 @@ class NeckMoAFusion(nn.Module):
         k, v = nhwc(self.kv_proj(lo)).reshape(b, h * w, 2, self.nh, self.hd).unbind(2)
         cross = nchw(attend(q, k, v, self.scale).reshape(b, h, w, self.inner))
         weights, _ = self.router(hi)  # [B, 2, H, W]
-        if self.training and not self.calibrating and self.aux_loss_coeff > 0:
+        if self.training and self.aux_loss_coeff > 0:
             importance = weights.mean((0, 2, 3))
             self.aux_record = AuxRecord(self.aux_loss_coeff * 2 * (importance ** 2).sum(), "moa", None, None)
         wt = weights.to(hi.dtype)

@@ -51,6 +51,8 @@ def collect_usage_stats(model, batches, max_batches: int = 16) -> Dict[str, np.n
             x = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
             _, aux = model.forward_train(x.to(device), step=0)
             for name, rec in aux.items():
+                if rec.usage is None:  # the latent mixtures and NeckMoAFusion publish no usage
+                    continue
                 path = jax_module_path(name)
                 totals[path] = totals.get(path, 0.0) + rec.usage.double().cpu().numpy()
             count += 1

@@ -13,15 +13,14 @@ window when shifted; the deformable expert samples V bilinearly at
 corners off the map read 0 (``bilinear_sample``). Activations are NCHW in
 ``torch.channels_last`` memory; the experts work on their NHWC views.
 
-In training (``self.training``, outside ``utils/weights.py:calibrate_bn``'s
-pass, which runs the eval form) the router lifts every expert's weight to an
-exploration floor, ``w = (1 - eps) * w + eps / E`` after the top-k mask (eps
-0.02, clamped to [0, 0.2]), and ``MoTBlock`` publishes its aux loss as
-``aux_record`` (family ``mot``): ``balance_coeff * E * sum(importance^2) +
-z_coeff * mean(logsumexp(logits)^2)``, where the importance is the mean of the
-probabilities (not of the masked weights), and the usage it reports is that
-importance.
-"""
+In training (``self.training``; ``utils/weights.py:calibrate_bn``'s pass sets
+it off on these modules alone, which then run their eval form) the router lifts
+every expert's weight to an exploration floor, ``w = (1 - eps) * w + eps / E``
+after the top-k mask (eps 0.02, clamped to [0, 0.2]), and ``MoTBlock``
+publishes its aux loss as ``aux_record`` (family ``mot``):
+``balance_coeff * E * sum(importance^2) + z_coeff * mean(logsumexp(logits)^2)``,
+where the importance is the mean of the probabilities (not of the masked
+weights), and the usage it reports is that importance."""
 
 from __future__ import annotations
 
@@ -203,7 +202,6 @@ class MoTRouter(nn.Module):
         self.use_spatial = use_spatial
         self.temperature = max(temperature, 0.1)
         self.eps = min(max(exploration_eps, 0.0), 0.2)
-        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
         hidden = max(dim // 8, num_experts * 4)
         if use_spatial:
             self.router = nn.Sequential(PlainConv(dim, hidden, 1), GroupNorm(hidden, 4), nn.SiLU(),
@@ -227,7 +225,7 @@ class MoTRouter(nn.Module):
             kth = probs.topk(self.top_k, 1).values[:, -1:]
             w = probs * (probs >= kth)
             w = w / w.sum(1, keepdim=True).clamp_min(1e-9)
-        if self.training and not self.calibrating and self.eps > 0:
+        if self.training and self.eps > 0:
             w = (1 - self.eps) * w + self.eps / self.num_experts
         return w, probs, logits
 
@@ -257,12 +255,11 @@ class MoTBlock(nn.Module):
         self.out_proj = PlainConv(dim, dim, 1)
         self.balance_loss_coeff = balance_loss_coeff
         self.z_coeff = balance_loss_coeff if router_z_loss_coeff is None else router_z_loss_coeff
-        self.calibrating = False  # utils/weights.py:calibrate_bn's pass: the eval form
         self.aux_record: Optional[AuxRecord] = None  # set by a train-mode forward
 
     def forward(self, x):
         w, probs, logits = self.router(x)
-        if self.training and not self.calibrating and (self.balance_loss_coeff > 0 or self.z_coeff > 0):
+        if self.training and (self.balance_loss_coeff > 0 or self.z_coeff > 0):
             importance = probs.permute(0, 2, 3, 1).reshape(-1, self.NUM_EXPERTS).mean(0)
             balance = self.NUM_EXPERTS * (importance ** 2).sum()
             z = (torch.logsumexp(logits, 1) ** 2).mean()

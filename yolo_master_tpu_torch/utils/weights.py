@@ -119,34 +119,42 @@ def calibrate_bn(model, x_nhwc: torch.Tensor) -> None:
     routed blocks (OptimizedMOEImproved) route in that pass as in eval (their
     top_k, no router noise, no expert dropout), so that the statistics are
     those the eval graph sees.
-    The gated blocks (AdaptiveGateMoE and its family) and the MoA, MoT and
-    latent mixtures (every module with a ``calibrating`` switch) run their
-    eval form in that pass: no temperature anneal, noise, expert dropout,
-    drop-path or exploration floor, and no aux record.
+    The gated blocks (AdaptiveGateMoE and its family) run their eval forward
+    in that pass (no temperature anneal, noise, expert dropout or drop-path).
+    So do the MoA, MoT and latent mixtures and their routers (no exploration
+    floor, no noise, no aux record): their own ``training`` flag is off in
+    that pass, while the BatchNorms inside them train.
     For tests and smoke runs on random weights; trained weights need none of it.
     """
-    from ..nn.moe import OptimizedMOEImproved
+    from ..nn.latent_mixture import LatentMixture, LatentRouter, MultiScaleLatentMixture
+    from ..nn.moa import MoABlock, NeckMoAFusion
+    from ..nn.moe import AdaptiveGateMoE, OptimizedMOEImproved
+    from ..nn.mot import MoTBlock, MoTRouter
 
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     momenta = [bn.momentum for bn in bns]
     routed = [(m, (m.noise_std, m.progressive_sparsity, m.expert_dropout_rate))
               for m in model.modules() if isinstance(m, OptimizedMOEImproved)]
-    switched = [m for m in model.modules() if hasattr(m, "calibrating")]
+    gated = [m for m in model.modules() if isinstance(m, AdaptiveGateMoE)]
+    mixtures = (MoABlock, NeckMoAFusion, MoTBlock, MoTRouter, LatentMixture, MultiScaleLatentMixture, LatentRouter)
     was_training = model.training
     for bn in bns:
         bn.momentum = 1.0
     for m, _ in routed:
         m.noise_std, m.progressive_sparsity, m.expert_dropout_rate = 0.0, False, 0.0
-    for m in switched:
+    for m in gated:
         m.calibrating = True
     model.train()
+    for m in model.modules():
+        if isinstance(m, mixtures):
+            m.training = False
     try:
         model(x_nhwc)
     finally:
         model.train(was_training)
         for bn, m in zip(bns, momenta):
             bn.momentum = m
-        for m in switched:
+        for m in gated:
             m.calibrating = False
         for m, saved in routed:
             m.noise_std, m.progressive_sparsity, m.expert_dropout_rate = saved
